@@ -1,0 +1,369 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one CUDA card (H100): the SD1.5 serving path.
+
+    python3 chip_smoke.py [--seed 0]
+
+Phases, one printed line each:
+  1. device: the card's name and power limit (nvidia-smi);
+  2. build: compile the port's CUDA kernels (pcm_tpu_torch/csrc) into one library;
+  3. kernels: each kernel against its plain PyTorch version at the SD1.5 shapes
+     of the serving path, bf16 on the card, with errors and CUDA-event times;
+  4. unet: one full-width SD1.5 UNet forward at batch 4, kernels against the
+     plain versions (``reference_ops``);
+  5. slice: the full-width SD1.5 bundle with random weights from ``--seed``,
+     served through InferenceEngine + BatchingServer (student with a seeded
+     adapter, 6 HTTP requests: a full batch of 4 and a partial one) and a
+     teacher engine at guidance 7.5; checks images, seed reproducibility
+     across batches and that every kernel of the path was launched.
+Then a JSON line of the kernels, and a last JSON line ``{"ok": true, ...}``.
+Any failed check raises: the script then exits non-zero and prints no result.
+It needs a CUDA device and the repository around it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import base64
+import json
+import statistics
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+
+import torch
+
+
+def log(phase: str, **kw) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median of ``iters`` CUDA-event timings of ``fn()`` after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def rel_max(out: torch.Tensor, ref: torch.Tensor) -> float:
+    out, ref = out.float(), ref.float()
+    return float((out - ref).abs().max() / ref.abs().max().clamp_min(1e-6))
+
+
+def abs_max(out: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((out.float() - ref.float()).abs().max())
+
+
+def bf16_randn(shape, gen, scale=1.0, offset=0.0):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale + offset).bfloat16()
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# (b, sq, sk, h, d): SD1.5 at 512 px, batch 4 (UNet self/cross, mid, VAE mid)
+ATTN_SHAPES = [
+    (4, 4096, 4096, 8, 40), (4, 4096, 77, 8, 40), (4, 1024, 1024, 8, 80),
+    (4, 1024, 77, 8, 80), (4, 256, 256, 8, 160), (4, 256, 77, 8, 160),
+    (4, 64, 64, 8, 160), (4, 4096, 4096, 1, 512),
+]
+# (shape NHWC, eps, act): UNet resnets / transformer norms, VAE decoder
+GN_SHAPES = [
+    ((4, 64, 64, 320), 1e-5, "silu"), ((4, 64, 64, 960), 1e-5, "silu"),
+    ((4, 32, 32, 1920), 1e-5, "silu"), ((4, 16, 16, 2560), 1e-5, "silu"),
+    ((4, 8, 8, 1280), 1e-5, "silu"), ((4, 64, 64, 320), 1e-6, None),
+    ((4, 64, 64, 512), 1e-6, None), ((4, 512, 512, 128), 1e-6, "silu"),
+    ((4, 512, 512, 256), 1e-6, "silu"),
+]
+# (M = b*s, K, F): the SD1.5 feed-forward in-projections (teacher; CFG doubles M)
+GEGLU_SHAPES = [(16384, 320, 1280), (32768, 320, 1280), (4096, 640, 2560),
+                (1024, 1280, 5120), (256, 1280, 5120)]
+# the shape whose times go into the kernels JSON line
+HEADLINE = {"flash_attention_fwd": (4, 4096, 4096, 8, 40),
+            "group_norm_silu": ((4, 512, 512, 256), 1e-6, "silu"),
+            "geglu": (16384, 320, 1280)}
+
+
+def check_kernels(gen) -> dict:
+    from pcm_tpu_torch.ops.flash_attention import (attention_lse_reference, attention_reference,
+                                                   flash_attention_fwd)
+    from pcm_tpu_torch.ops.geglu import geglu, geglu_reference
+    from pcm_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_reference
+
+    results = {k: {"max_abs_err": 0.0} for k in HEADLINE}
+
+    def record(name, key, err_abs, ms, plain_ms):
+        r = results[name]
+        r["max_abs_err"] = max(r["max_abs_err"], err_abs)
+        if key == HEADLINE[name]:
+            r["ms"], r["plain_ms"] = ms, plain_ms
+
+    for shp in ATTN_SHAPES:
+        b, sq, sk, h, d = shp
+        q = bf16_randn((b, sq, h, d), gen)
+        k = bf16_randn((b, sk, h, d), gen)
+        v = bf16_randn((b, sk, h, d), gen)
+        o, lse = flash_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+        ref = attention_reference(q.float(), k.float(), v.float())
+        lse_ref = attention_lse_reference(q.float(), k.float())
+        err, err_lse = rel_max(o, ref), abs_max(lse, lse_ref)
+        ms = cuda_ms(lambda: flash_attention_fwd(q, k, v))
+        plain = cuda_ms(lambda: attention_reference(q, k, v))
+        log("kernel", name="flash_attention_fwd", shape=shp, rel_max=f"{err:.3e}",
+            lse_abs=f"{err_lse:.3e}", ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}")
+        if not (err <= 2e-2 and err_lse <= 5e-3):
+            raise AssertionError(f"flash attention {shp}: rel {err:.3e}, lse {err_lse:.3e}")
+        record("flash_attention_fwd", shp, abs_max(o, ref), ms, plain)
+        del q, k, v, o, ref
+
+    for key in GN_SHAPES:
+        shp, eps, act = key
+        c = shp[-1]
+        x = bf16_randn(shp, gen)
+        gamma, beta = bf16_randn((c,), gen, 0.5, 1.0), bf16_randn((c,), gen, 0.5)
+        out = group_norm_silu(x, gamma, beta, 32, eps, act)
+        torch.cuda.synchronize()
+        ref = group_norm_silu_reference(x.float(), gamma.float(), beta.float(), 32, eps, act)
+        err = rel_max(out, ref)
+        ms = cuda_ms(lambda: group_norm_silu(x, gamma, beta, 32, eps, act))
+        plain = cuda_ms(lambda: group_norm_silu_reference(x, gamma, beta, 32, eps, act))
+        log("kernel", name="group_norm_silu", shape=shp, eps=eps, act=act, rel_max=f"{err:.3e}",
+            ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}")
+        if not err <= 1e-2:
+            raise AssertionError(f"group norm {key}: rel {err:.3e}")
+        record("group_norm_silu", key, abs_max(out, ref), ms, plain)
+        del x, out, ref
+
+    # stability on a large mean (the Pallas one-pass variance cancels here)
+    x = bf16_randn((4, 64, 64, 320), gen, 1.0, 100.0)
+    one, zero = torch.ones(320, device="cuda").bfloat16(), torch.zeros(320, device="cuda").bfloat16()
+    err = rel_max(group_norm_silu(x, one, zero, 32, 1e-5, None),
+                  group_norm_silu_reference(x.double(), one.double(), zero.double(), 32, 1e-5, None))
+    log("kernel", name="group_norm_silu", shape="(4,64,64,320)+100", rel_max=f"{err:.3e}")
+    if not err <= 1e-2:
+        raise AssertionError(f"group norm on a +100 offset: rel {err:.3e}")
+
+    for shp in GEGLU_SHAPES:
+        m, kk, f = shp
+        x = bf16_randn((m, kk), gen)
+        w = bf16_randn((2 * f, kk), gen, kk ** -0.5)
+        bias = bf16_randn((2 * f,), gen, 0.1)
+        out = geglu(x, w, bias)
+        torch.cuda.synchronize()
+        ref = geglu_reference(x.float(), w.float(), bias.float())
+        err = rel_max(out, ref)
+        ms = cuda_ms(lambda: geglu(x, w, bias))
+        plain = cuda_ms(lambda: geglu_reference(x, w, bias))
+        log("kernel", name="geglu", shape=shp, rel_max=f"{err:.3e}", ms=f"{ms:.4f}",
+            plain_ms=f"{plain:.4f}")
+        if not err <= 2e-2:
+            raise AssertionError(f"geglu {shp}: rel {err:.3e}")
+        record("geglu", shp, abs_max(out, ref), ms, plain)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 4: full-width UNet, kernels against plain versions
+# ---------------------------------------------------------------------------
+
+
+def unet_vs_reference(bundle, frozen, gen) -> float:
+    from pcm_tpu_torch.ops import reference_ops
+
+    x = torch.randn((4, 64, 64, 4), generator=gen, device="cuda")
+    t = torch.full((4,), 999.0, device="cuda")
+    cond = {"prompt_embeds": bf16_randn((4, 77, 768), gen)}
+    with torch.inference_mode():
+        out = bundle.teacher(frozen, x, t, cond)
+        with reference_ops():
+            ref = bundle.teacher(frozen, x, t, cond)
+    if not torch.isfinite(out).all():
+        raise AssertionError("non-finite UNet output")
+    return rel_max(out, ref)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the serving slice
+# ---------------------------------------------------------------------------
+
+
+def _post(url, payload, out, key):
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        out[key] = json.loads(r.read())
+
+
+def _concurrent(url, payloads, out):
+    threads = [threading.Thread(target=_post, args=(url, p, out, p["key"])) for p in payloads]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("an HTTP request did not finish")
+
+
+def _png_header(png: bytes):
+    """(width, height, bit depth, colour type) from a PNG's IHDR chunk."""
+    if png[:8] != b"\x89PNG\r\n\x1a\n" or png[12:16] != b"IHDR":
+        raise AssertionError("not a PNG")
+    return (int.from_bytes(png[16:20], "big"), int.from_bytes(png[20:24], "big"), png[24], png[25])
+
+
+def serve_slice(bundle, frozen, template, gen) -> dict:
+    from pcm_tpu_torch.core.schedule import make_ddpm_schedule
+    from pcm_tpu_torch.data.tokenizer import HashTokenizer
+    from pcm_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pcm_tpu_torch.sampling.ddim import DDIMSampler
+    from pcm_tpu_torch.serving import BatchingServer, EngineConfig, InferenceEngine
+    from pcm_tpu_torch.train.bundles import adapter_like
+
+    device = torch.device("cuda")
+    sampler = DDIMSampler.create(make_ddpm_schedule(), 2)
+    toks = {"input_ids": HashTokenizer()}
+    adapter = adapter_like(template, gen)  # seeded, b != 0
+    eng_s = InferenceEngine(bundle, sampler, frozen, adapter, toks,
+                            EngineConfig(batch_size=4, guidance_scale=1.0), device)
+    eng_t = InferenceEngine(bundle, sampler, frozen, None, toks,
+                            EngineConfig(batch_size=4, guidance_scale=7.5), device)
+    server = BatchingServer(eng_s, "127.0.0.1", 0, max_wait_ms=1000.0)
+    server.start()
+    url = "http://127.0.0.1:%d/generate" % server.address[1]
+    full = [{"key": f"f{i}", "prompt": f"a photo of subject {i}", "seed": 100 + i} for i in range(4)]
+    partial = [{"key": "p0", "prompt": full[2]["prompt"], "seed": full[2]["seed"]},
+               {"key": "p1", "prompt": "a partial batch", "seed": 7}]
+    res = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        _concurrent(url, full, res)
+        _concurrent(url, partial, res)
+        s_wall = time.perf_counter() - t0
+        s_lat = []  # steady state: full batches called directly after the HTTP phase
+        for _ in range(2):
+            t1 = time.perf_counter()
+            eng_s.generate_batch([p["prompt"] for p in full], [p["seed"] for p in full])
+            s_lat.append((time.perf_counter() - t1) * 1000)
+        after_s = launch_counts()
+        t_lat = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            imgs_t = eng_t.generate_batch([f"teacher prompt {j}" for j in range(4)],
+                                          [200 + j for j in range(4)])
+            t_lat.append((time.perf_counter() - t1) * 1000)
+        counts = launch_counts()
+        stats = server.stats()
+    finally:
+        server.stop()
+    peak = torch.cuda.max_memory_allocated()
+
+    sizes = {k: r["batch_size"] for k, r in res.items()}
+    if sizes != {"f0": 4, "f1": 4, "f2": 4, "f3": 4, "p0": 2, "p1": 2}:
+        raise AssertionError(f"unexpected batching {sizes}")
+    pngs = {k: base64.b64decode(r["image_b64"]) for k, r in res.items()}
+    for k, png in pngs.items():  # 512 x 512, 8-bit RGB
+        if _png_header(png) != (512, 512, 8, 2):
+            raise AssertionError(f"image {k}: PNG header {_png_header(png)}")
+    if imgs_t.shape != (4, 512, 512, 3) or imgs_t.dtype.name != "uint8":
+        raise AssertionError(f"teacher images {imgs_t.shape} {imgs_t.dtype}")
+    same_seed = pngs["f2"] == pngs["p0"]
+    if not same_seed:
+        raise AssertionError("same prompt and seed gave different images in a full and a partial batch")
+    if pngs["f0"] == pngs["f1"]:
+        raise AssertionError("different seeds gave the same image")
+    delta_t = {k: counts[k] - after_s[k] for k in counts}
+    for name in ("flash_attention_fwd", "group_norm_silu"):
+        if after_s[name] == 0 or delta_t[name] == 0:
+            raise AssertionError(f"{name} was not launched on the served path")
+    if after_s["geglu"] != 0 or delta_t["geglu"] == 0:
+        raise AssertionError(f"geglu launches: student {after_s['geglu']}, teacher {delta_t['geglu']}")
+    return {"counts": counts, "student_counts": after_s, "teacher_counts": delta_t,
+            "student_latency_ms": {k: r["latency_ms"] for k, r in res.items()},
+            "student_wall_s": s_wall, "student_batch_ms": s_lat, "teacher_batch_ms": t_lat,
+            "server_stats": stats,
+            "peak_bytes": peak, "same_seed_identical": same_seed}
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
+        return 2
+    from pcm_tpu_torch.configs.families import sd15_bundle
+    from pcm_tpu_torch.ops import common
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    smi = smi.splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    log("device", name=repr(name), count=torch.cuda.device_count(), nvidia_smi=repr(smi),
+        torch=torch.__version__, cuda=torch.version.cuda)
+
+    common.lib()
+    log("build", seconds=f"{common.build_seconds:.2f}", library=common.library_path())
+
+    gen = torch.Generator("cuda").manual_seed(args.seed)
+    kernels = check_kernels(gen)
+
+    bundle = sd15_bundle()
+    t0 = time.perf_counter()
+    frozen, template = bundle.init(gen, torch.device("cuda"))
+    torch.cuda.synchronize()
+    log("init", seconds=f"{time.perf_counter() - t0:.2f}",
+        params_m={k: round(sum(p.numel() for p in m.parameters()) / 1e6, 1)
+                  for k, m in frozen.items()})
+    err = unet_vs_reference(bundle, frozen, gen)
+    log("unet", rel_max=f"{err:.3e}", bound="5e-2")
+    if not err <= 5e-2:
+        raise AssertionError(f"full-width UNet: kernels vs plain rel {err:.3e}")
+
+    s = serve_slice(bundle, frozen, template, gen)
+    log("slice", counts=json.dumps(s["counts"]), student=json.dumps(s["student_counts"]),
+        teacher=json.dumps(s["teacher_counts"]))
+    log("slice", student_latency_ms=json.dumps(s["student_latency_ms"]),
+        student_wall_s=f"{s['student_wall_s']:.3f}",
+        student_batch_ms=json.dumps([round(x, 1) for x in s["student_batch_ms"]]),
+        teacher_batch_ms=json.dumps([round(x, 1) for x in s["teacher_batch_ms"]]),
+        peak_gib=f"{s['peak_bytes'] / 2**30:.3f}", same_seed_identical=s["same_seed_identical"],
+        occupancy=s["server_stats"]["batch_occupancy"])
+
+    sources = {"flash_attention_fwd": ("pcm_tpu_torch/csrc/flash_attention.cu",
+                                       "pcm_tpu/ops/flash_attention.py:105"),
+               "group_norm_silu": ("pcm_tpu_torch/csrc/groupnorm.cu",
+                                   "pcm_tpu/ops/groupnorm.py:33"),
+               "geglu": ("pcm_tpu_torch/csrc/geglu.cu", "pcm_tpu/ops/geglu.py:47")}
+    line = {"kernels": [{"name": k, "route": "cuda", "source": sources[k][0],
+                         "replaces": sources[k][1], "launches": s["counts"][k],
+                         "max_abs_err": kernels[k]["max_abs_err"], "ms": kernels[k]["ms"],
+                         "plain_ms": kernels[k]["plain_ms"]} for k in sources]}
+    print(json.dumps(line))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,123 @@
+"""Weights across the two packages: JAX parameter trees -> port state dicts.
+
+The inverse of `pcm_tpu/models/convert.py:convert_unet_torch_state`,
+`convert_vae_torch_state` and `pcm_tpu/models/clip.py:convert_clip_torch_state`.
+Inputs are nested dicts of numpy arrays (a JAX tree after ``jax.tree.map(
+np.asarray, ...)``); outputs are flat dicts of CPU tensors with diffusers /
+transformers keys. Conventions:
+
+  kernel (in, out)              -> weight (out, in)
+  kernel (kh, kw, in, out)      -> weight (out, in, kh, kw)
+  scale                         -> weight
+  LoRA a (in, r) / (kh, kw, in, r) -> lora_a (r, in) / (r, in, kh, kw)
+  LoRA b (r, out) / (1, 1, r, out) -> lora_b (out, r) / (out, r, 1, 1)
+
+Module names map by rule: ``down_blocks_0_resnets_1`` -> ``down_blocks.0.resnets.1``,
+``to_out_0`` -> ``to_out.0``, ``net_0_proj`` -> ``net.0.proj``, and the mid
+blocks (``mid_block_resnets_0``, the VAE's ``mid_resnets_0``) ->
+``mid_block.resnets.0``.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+_KEEP = {"linear_1", "linear_2"}  # diffusers keeps these underscores
+
+
+def _segment(name: str) -> str:
+    if name in _KEEP:
+        return name
+    name = re.sub(r"^mid_(block_)?", "mid_block.", name)
+    name = re.sub(r"_(\d+)", r".\1", name)
+    return re.sub(r"(\.\d+)_", r"\1.", name)
+
+
+_RENAMED = {"kernel": "weight", "a": "lora_a", "b": "lora_b", "scale": "weight"}
+
+
+def _leaf_rule(name: str, ndim: int):
+    """JAX leaf name and rank -> (torch leaf name, axis permutation or None)."""
+    perm = None
+    if name in ("kernel", "a", "b"):
+        perm = (1, 0) if ndim == 2 else (3, 2, 0, 1)
+    return _RENAMED.get(name, name), perm
+
+
+def _leaf(name: str, arr: np.ndarray):
+    """JAX leaf -> (torch leaf name, tensor)."""
+    arr = np.asarray(arr)
+    name, perm = _leaf_rule(name, arr.ndim)
+    if perm is not None:
+        arr = arr.transpose(perm)
+    return name, torch.from_numpy(np.ascontiguousarray(arr))
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "", leaf=_leaf) -> Dict[str, Any]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + _segment(k) + ".", leaf))
+        else:
+            name, t = leaf(k, v)
+            out[prefix + name] = t
+    return out
+
+
+def _shape_leaf(name: str, v):
+    name, perm = _leaf_rule(name, len(v.shape))
+    return name, tuple(v.shape[i] for i in perm) if perm else tuple(v.shape)
+
+
+def state_shapes_from_jax(tree: Mapping[str, Any]) -> Dict[str, tuple]:
+    """Keys and shapes of the state dict `unet_state_from_jax` /
+    `vae_state_from_jax` / `lora_state_from_jax` would build, from any tree
+    whose leaves have a ``.shape`` (e.g. ``jax.eval_shape`` output)."""
+    return _flatten(tree, leaf=_shape_leaf)
+
+
+def unet_state_from_jax(params: Mapping[str, Any], cfg=None) -> Dict[str, torch.Tensor]:
+    """JAX ``UNet2DCondition`` params -> port ``UNet2DCondition`` state dict."""
+    del cfg  # the names carry the structure
+    return _flatten(params)
+
+
+def vae_state_from_jax(params: Mapping[str, Any], cfg=None) -> Dict[str, torch.Tensor]:
+    """JAX ``AutoencoderKL`` params -> diffusers-named state dict (encoder
+    included; the port's decode-only module loads the ``decoder.`` and
+    ``post_quant_conv.`` entries)."""
+    del cfg
+    return _flatten(params)
+
+
+def lora_state_from_jax(lora_tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``lora`` collection of the UNet -> the port's adapter dict."""
+    return _flatten(lora_tree)
+
+
+def clip_tree_from_jax(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
+    """JAX ``CLIPTextModel`` params regrouped under the transformers module names."""
+    def layer(p):
+        return {"self_attn": {k: p[k] for k in ("q_proj", "k_proj", "v_proj", "out_proj")},
+                "mlp": {k: p[k] for k in ("fc1", "fc2")},
+                "layer_norm1": p["layer_norm1"], "layer_norm2": p["layer_norm2"]}
+
+    tree = {"text_model": {
+        "embeddings": {"token_embedding": {"weight": params["token_embedding"]},
+                       "position_embedding": {"weight": params["position_embedding"]}},
+        "encoder": {"layers": {str(i): layer(params[f"layers_{i}"])
+                               for i in range(cfg.num_layers)}},
+        "final_layer_norm": params["final_layer_norm"],
+    }}
+    if "text_projection" in params:
+        tree["text_projection"] = params["text_projection"]
+    return tree
+
+
+def clip_state_from_jax(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``CLIPTextModel`` params -> transformers-named state dict."""
+    return _flatten(clip_tree_from_jax(params, cfg))

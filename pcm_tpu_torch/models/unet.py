@@ -1,0 +1,150 @@
+"""UNet2DCondition for SD1.5 (counterpart of `pcm_tpu/models/unet.py`).
+
+NCHW tensors in ``torch.channels_last`` memory; diffusers state-dict names;
+LoRA factors passed per call (``lora=None`` is the teacher). Not yet ported:
+the SDXL addition embedding, ``time_cond_proj_dim``, the feature taps and
+``stop_after_mid``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+
+from ..lora.layers import LoRA, LoRAConv
+from .attention import Transformer2D
+from .embeddings import TimestepEmbedding, sinusoidal_embedding
+from .normalization import GroupNorm
+from .resnet import Downsample2D, ResnetBlock2D, Upsample2D
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    attn_blocks: Tuple[bool, ...] = (True, True, True, False)
+    num_heads: Tuple[int, ...] = (8, 8, 8, 8)
+    transformer_depth: Tuple[int, ...] = (1, 1, 1, 1)
+    layers_per_block: int = 2
+    cross_attention_dim: int = 768
+    norm_groups: int = 32
+
+    @property
+    def time_embed_dim(self) -> int:
+        return self.block_out_channels[0] * 4
+
+
+SD15_CONFIG = UNetConfig()
+
+TINY_UNET_CONFIG = UNetConfig(
+    block_out_channels=(32, 64),
+    attn_blocks=(True, False),
+    num_heads=(2, 2),
+    transformer_depth=(1, 1),
+    layers_per_block=1,
+    cross_attention_dim=32,
+)
+
+
+class _Block(nn.Module):
+    """One resolution level: ``resnets``, ``attentions`` and one resampler."""
+
+    def __init__(self):
+        super().__init__()
+        self.resnets = nn.ModuleList()
+        self.attentions = nn.ModuleList()
+
+
+class UNet2DCondition(nn.Module):
+    def __init__(self, cfg: UNetConfig = SD15_CONFIG):
+        super().__init__()
+        self.cfg = cfg
+        chans = cfg.block_out_channels
+        ch0, temb = chans[0], cfg.time_embed_dim
+        g = cfg.norm_groups
+
+        def transformer(level: int, ch: int) -> Transformer2D:
+            heads = cfg.num_heads[level]
+            return Transformer2D(ch, heads, ch // heads, cfg.transformer_depth[level],
+                                 cfg.cross_attention_dim, g)
+
+        self.conv_in = LoRAConv(cfg.in_channels, ch0, 3, padding=1)
+        self.time_embedding = TimestepEmbedding(ch0, temb)
+
+        skips = [ch0]
+        h_ch = ch0
+        self.down_blocks = nn.ModuleList()
+        for level, ch in enumerate(chans):
+            blk = _Block()
+            for _ in range(cfg.layers_per_block):
+                blk.resnets.append(ResnetBlock2D(h_ch, ch, temb, g))
+                h_ch = ch
+                if cfg.attn_blocks[level]:
+                    blk.attentions.append(transformer(level, ch))
+                skips.append(ch)
+            if level < len(chans) - 1:
+                blk.downsamplers = nn.ModuleList([Downsample2D(ch)])
+                skips.append(ch)
+            self.down_blocks.append(blk)
+
+        self.mid_block = _Block()
+        self.mid_block.resnets.extend([ResnetBlock2D(h_ch, h_ch, temb, g),
+                                       ResnetBlock2D(h_ch, h_ch, temb, g)])
+        self.mid_block.attentions.append(transformer(len(chans) - 1, h_ch))
+
+        self.up_blocks = nn.ModuleList()
+        for level in reversed(range(len(chans))):
+            ch = chans[level]
+            blk = _Block()
+            for _ in range(cfg.layers_per_block + 1):
+                blk.resnets.append(ResnetBlock2D(h_ch + skips.pop(), ch, temb, g))
+                h_ch = ch
+                if cfg.attn_blocks[level]:
+                    blk.attentions.append(transformer(level, ch))
+            if level > 0:
+                blk.upsamplers = nn.ModuleList([Upsample2D(ch)])
+            self.up_blocks.append(blk)
+
+        self.conv_norm_out = GroupNorm(g, ch0, act="silu")
+        self.conv_out = LoRAConv(ch0, cfg.out_channels, 3, padding=1)
+
+    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                encoder_hidden_states: torch.Tensor, lora: LoRA = None) -> torch.Tensor:
+        """sample (N, C, H, W), timesteps (N,), encoder_hidden_states (N, S, D)."""
+        dtype = self.conv_in.weight.dtype
+        t_emb = sinusoidal_embedding(timesteps, self.cfg.block_out_channels[0]).to(dtype)
+        temb = self.time_embedding(t_emb)
+        context = encoder_hidden_states.to(dtype)
+        sample = sample.to(dtype).contiguous(memory_format=torch.channels_last)
+
+        h = self.conv_in(sample, lora)
+        skips = [h]
+        for blk in self.down_blocks:
+            for j, resnet in enumerate(blk.resnets):
+                h = resnet(h, temb, lora)
+                if len(blk.attentions):
+                    h = blk.attentions[j](h, context, lora)
+                skips.append(h)
+            if hasattr(blk, "downsamplers"):
+                h = blk.downsamplers[0](h, lora)
+                skips.append(h)
+
+        mid = self.mid_block
+        h = mid.resnets[0](h, temb, lora)
+        h = mid.attentions[0](h, context, lora)
+        h = mid.resnets[1](h, temb, lora)
+
+        for blk in self.up_blocks:
+            for j, resnet in enumerate(blk.resnets):
+                h = torch.cat([h, skips.pop()], dim=1)
+                h = resnet(h, temb, lora)
+                if len(blk.attentions):
+                    h = blk.attentions[j](h, context, lora)
+            if hasattr(blk, "upsamplers"):
+                h = blk.upsamplers[0](h, lora)
+
+        return self.conv_out(self.conv_norm_out(h), lora)

@@ -1,0 +1,195 @@
+"""Kernel library build, device dispatch and launch counters.
+
+Counterpart of `pcm_tpu/ops/common.py`. All CUDA kernels of the port live in
+`pcm_tpu_torch/csrc/*.cu` and are compiled by `nvcc` into ONE shared library
+with a plain C interface, loaded through `ctypes` at the first call that
+needs it. The build goes to ``<repo>/build/pcm_tpu_torch/<source-hash>/``
+under a file lock, so concurrent processes build once and a source edit
+builds anew.
+
+Dispatch is by the tensor's device and nothing else: a CPU tensor takes the
+kernel's plain PyTorch version, a CUDA tensor takes the kernel (or the
+wrapper raises), any other device raises. ``reference_ops()`` forces the
+plain versions; only tests and ``chip_smoke.py`` enter it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pcm_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_FORCE_REFERENCE = contextvars.ContextVar("pcm_torch_force_reference", default=False)
+
+# One launch counter per kernel; a wrapper adds one where it launches its
+# kernel and nowhere else.
+KERNELS = ("flash_attention_fwd", "group_norm_silu", "geglu")
+_launches: Dict[str, int] = {k: 0 for k in KERNELS}
+
+
+@contextlib.contextmanager
+def reference_ops():
+    """Run the plain PyTorch versions of every kernel within the context
+    (tests and ``chip_smoke.py`` only: it is how a kernel is held to its
+    plain version on the same inputs)."""
+    tok = _FORCE_REFERENCE.set(True)
+    try:
+        yield
+    finally:
+        _FORCE_REFERENCE.reset(tok)
+
+
+def use_kernel(*tensors: torch.Tensor) -> bool:
+    """True when the inputs must take the CUDA kernel, False for the plain
+    version. Raises on mixed or unsupported devices."""
+    devs = {t.device.type for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: {sorted(devs)}")
+    dev = devs.pop()
+    if dev == "cpu" or _FORCE_REFERENCE.get():
+        return False
+    if dev == "cuda":
+        return True
+    raise ValueError(f"no kernel or plain version for device {dev!r}")
+
+
+def count_launch(name: str) -> None:
+    _launches[name] += 1
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for k in _launches:
+        _launches[k] = 0
+
+
+def check_cuda(err: int, what: str) -> None:
+    if err != 0:
+        name = lib().pcm_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({name})")
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# ---------------------------------------------------------------------------
+# build
+# ---------------------------------------------------------------------------
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_ROOT / _source_hash() / "libpcm_kernels.so"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
+
+
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None  # wall time of this process's build (0 when cached)
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into the shared library unless it exists."""
+    global build_seconds
+    out = library_path()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with open(out.parent / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not out.exists():
+                tmp = out.with_suffix(".so.tmp")
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                       *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+                res = subprocess.run(cmd, capture_output=True, text=True)
+                (out.parent / "build.log").write_text(
+                    " ".join(cmd) + "\n" + res.stdout + res.stderr)
+                if res.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+                os.replace(tmp, out)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        _declare(handle)
+        _lib = handle
+    return _lib
+
+
+def _declare(h: ctypes.CDLL) -> None:
+    P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    h.pcm_error_string.restype = ctypes.c_char_p
+    h.pcm_error_string.argtypes = [I]
+    h.pcm_flash_attention_fwd.restype = I
+    h.pcm_flash_attention_fwd.argtypes = (
+        [P, P, P, P, P]  # q k v o lse
+        + [I] * 5  # b h sq sk d
+        + [L] * 9  # q/k/v strides (b, s, h)
+        + [F, P]  # alpha (scale*log2e), stream
+    )
+    h.pcm_group_norm_silu.restype = I
+    h.pcm_group_norm_silu.argtypes = (
+        [P, P, P, P, P]  # x gamma beta out scratch
+        + [I] * 6  # n s c groups act rows_per_block
+        + [F, P]  # eps, stream
+    )
+    h.pcm_geglu.restype = I
+    h.pcm_geglu.argtypes = [P, P, P, P] + [I] * 3 + [P]  # x w b out, m k f, stream
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)

@@ -1,0 +1,58 @@
+"""Few-step text-to-image pipeline (counterpart of `pcm_tpu/sampling/pipeline.py`).
+
+Text encode, k UNet forwards with optional classifier-free guidance (cond
+and uncond batched into one forward), sampler steps, VAE decode. Runs under
+``torch.inference_mode()``. On a CUDA device every GroupNorm, attention and
+(teacher) GEGLU goes through the port's kernels.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..lora.layers import LoRA
+
+
+@dataclasses.dataclass(frozen=True)
+class TextToImagePipeline:
+    bundle: Any  # SD15Bundle
+    sampler: Any  # DDIMSampler
+
+    @torch.inference_mode()
+    def generate(self, frozen: Dict[str, Any], lora: LoRA, cond: Dict[str, Any],
+                 uncond: Optional[Dict[str, Any]], init_latents: torch.Tensor,
+                 guidance_scale: float = 1.0) -> torch.Tensor:
+        """cond/uncond from ``bundle.encode_prompts``, starting noise
+        ``init_latents`` (N, h, w, C); returns (N, H, W, 3) images in [-1, 1].
+        The caller draws the noise (the engine: one generator per request seed)."""
+        bundle, sampler = self.bundle, self.sampler
+        embeds = cond["prompt_embeds"]
+        device = embeds.device
+        latents = init_latents.float()
+        use_cfg = guidance_scale > 1.0 and uncond is not None
+        merged = ({"prompt_embeds": torch.cat([embeds, uncond["prompt_embeds"]])}
+                  if use_cfg else cond)
+
+        def model_fn(x, t):
+            ts = torch.full((x.shape[0],), float(t), device=device)
+            # cuDNN's convolutions at some UNet shapes (e.g. 1280 -> 1280 at
+            # 32x32 on the H100) round a row differently by its position in
+            # the batch; PyTorch's own per-sample convolution does not. So a
+            # request's image stays the same in any batch, at the UNet's
+            # cuDNN speed-up (the VAE decoder measured position-invariant).
+            with torch.backends.cudnn.flags(enabled=False):
+                if lora is None:
+                    return bundle.teacher(frozen, x, ts, merged)
+                return bundle.student(frozen, lora, x, ts, merged)
+
+        for i, t in enumerate(sampler.timesteps):
+            if use_cfg:
+                c_out, u_out = model_fn(torch.cat([latents, latents]), t).chunk(2)
+                model_output = u_out + guidance_scale * (c_out - u_out)
+            else:
+                model_output = model_fn(latents, t)
+            latents = sampler.step(model_output, i, latents)
+        return bundle.decode_latents(frozen, latents)

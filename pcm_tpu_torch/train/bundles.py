@@ -1,0 +1,140 @@
+"""Model bundle for SD1.5 (counterpart of `pcm_tpu/train/bundles.py:SD15Bundle`).
+
+``frozen`` is a dict of the bundle's modules (``unet``, ``vae``, ``text``);
+adapters are dicts of LoRA factors (`lora/layers.py`). The bundle-level API
+keeps the JAX package's layout: latents and images are ``(N, H, W, C)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Mapping, Tuple
+
+import torch
+import torch.nn as nn
+
+from ..lora.layers import LoRA, LoRASpec, attach_lora, init_lora
+from ..models.clip import CLIPTextConfig, CLIPTextModel
+from ..models.unet import UNet2DCondition, UNetConfig
+from ..models.vae import AutoencoderKL, VAEConfig
+
+# LoRA targets of the reference SD1.5/SDXL peft config (same names as the JAX package).
+SD_UNET_LORA_TARGETS = (
+    "to_q", "to_k", "to_v", "to_out_0", "proj_in", "proj_out",
+    "net_0_proj", "net_2", "conv1", "conv2", "conv_shortcut",
+    "downsamplers_0/conv", "upsamplers_0/conv", "time_emb_proj",
+)
+
+Cond = Dict[str, Any]
+Frozen = Dict[str, nn.Module]
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+def _fill_fan_in(module: nn.Module, generator: torch.Generator) -> None:
+    """Random weights drawn in place: 1-D weights (norm scales) 1, biases 0,
+    everything else N(0, 1/fan_in) with fan_in the product of all dims but
+    the output one (``train/bundles.py:init_frozen_fast`` of the JAX package)."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            elif p.ndim == 1:
+                p.fill_(1.0)
+            else:
+                fan_in = p.shape[0] if isinstance(_owner(module, name), nn.Embedding) \
+                    else p[0].numel()
+                noise = torch.randn(p.shape, generator=generator, device=p.device,
+                                    dtype=torch.float32)
+                p.copy_(noise * fan_in ** -0.5)
+
+
+def _owner(root: nn.Module, param_name: str) -> nn.Module:
+    return root.get_submodule(param_name.rsplit(".", 1)[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class SD15Bundle:
+    """SD1.5: single CLIP-L, last hidden state conditioning."""
+
+    unet_cfg: UNetConfig
+    vae_cfg: VAEConfig
+    text_cfg: CLIPTextConfig
+    lora: LoRASpec
+    dtype: torch.dtype = torch.bfloat16
+
+    def build(self, device: torch.device) -> Frozen:
+        """The bundle's modules with uninitialized weights on ``device``
+        (``torch.device("meta")`` builds the structure only)."""
+        with torch.device("meta"):
+            frozen = {"unet": UNet2DCondition(self.unet_cfg),
+                      "vae": AutoencoderKL(self.vae_cfg),
+                      "text": CLIPTextModel(self.text_cfg)}
+        attach_lora(frozen["unet"], self.lora)
+        if torch.device(device).type == "meta":
+            return frozen
+        out = {}
+        for k, m in frozen.items():
+            m = m.to_empty(device=device).to(self.dtype).eval().requires_grad_(False)
+            if k != "text":
+                m = m.to(memory_format=torch.channels_last)
+            out[k] = m
+        return out
+
+    def init(self, generator: torch.Generator, device: torch.device
+             ) -> Tuple[Frozen, Dict[str, torch.Tensor]]:
+        """Random weights from ``generator`` (fan-in scaled) and a zero-effect
+        adapter template (LoRA ``b = 0``)."""
+        frozen = self.build(device)
+        for m in frozen.values():
+            _fill_fan_in(m, generator)
+        return frozen, init_lora(frozen["unet"], self.lora.rank, generator, device)
+
+    def from_states(self, states: Mapping[str, Mapping[str, torch.Tensor]],
+                    device: torch.device) -> Frozen:
+        """Modules loaded from state dicts ``{"unet": ..., "vae": ..., "text": ...}``;
+        keys a module lacks (the VAE encoder's) are ignored, missing ones raise."""
+        frozen = self.build(device)
+        for k, m in frozen.items():
+            own = m.state_dict()
+            m.load_state_dict({n: v for n, v in states[k].items() if n in own}, strict=True)
+        return frozen
+
+    # -- encoding / decoding ---------------------------------------------
+    def encode_prompts(self, frozen: Frozen, input_ids: torch.Tensor) -> Cond:
+        _, last, _ = frozen["text"](input_ids)
+        return {"prompt_embeds": last}
+
+    def decode_latents(self, frozen: Frozen, latents: torch.Tensor) -> torch.Tensor:
+        """(N, h, w, C) latents -> (N, H, W, 3) pixels in [-1, 1]."""
+        return _nhwc(frozen["vae"].decode(_nchw(latents)))
+
+    # -- forwards ----------------------------------------------------------
+    def student(self, frozen: Frozen, lora: LoRA, x: torch.Tensor, t: torch.Tensor,
+                cond: Cond) -> torch.Tensor:
+        return _nhwc(frozen["unet"](_nchw(x), t, cond["prompt_embeds"], lora))
+
+    def teacher(self, frozen: Frozen, x: torch.Tensor, t: torch.Tensor,
+                cond: Cond) -> torch.Tensor:
+        return self.student(frozen, None, x, t, cond)
+
+    @property
+    def latent_channels(self) -> int:
+        return self.unet_cfg.in_channels
+
+    @property
+    def vae_scale(self) -> int:
+        return 2 ** (len(self.vae_cfg.block_out_channels) - 1)
+
+
+def adapter_like(template: Mapping[str, torch.Tensor], generator: torch.Generator,
+                 scale: float = 0.05) -> Dict[str, torch.Tensor]:
+    """A seeded adapter with ``b != 0`` shaped like ``template`` (smoke and tests)."""
+    return {k: torch.randn(v.shape, generator=generator, device=v.device) * scale
+            for k, v in template.items()}

@@ -1,0 +1,95 @@
+#!/usr/bin/env python
+"""Where the device time of the port's SD1.5 serving batch goes (CUDA only).
+
+  python scripts/profile_serve_torch.py [--batch-size 4] [--steps 2] [--seed 0]
+
+Builds the full-width SD1.5 bundle with random weights, warms up one student
+batch (seeded adapter, guidance 1.0) and one teacher batch (guidance 7.5),
+then traces one more of each with ``torch.profiler``. For each it prints
+the host wall time, the summed kernel time by category (the port's three
+kernels, GEMMs, convolutions, the rest), the device idle share
+(1 - kernel time / wall), and the top kernels by device time.
+"""
+
+import argparse
+import collections
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+import torch  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+
+def category(name: str) -> str:
+    n = name.lower()
+    for key, cat in (("flash_fwd_kernel", "K1 flash attention"), ("gn_", "K4 group norm"),
+                     ("geglu_kernel", "K5 geglu")):
+        if key in n:
+            return cat
+    if "im2col" in n or "conv" in n or "implicit_convolve" in n or "xmma_fprop" in n:
+        return "convolution"
+    if "gemm" in n or "gemv" in n or "cutlass" in n or "sm90_xmma" in n or "cublas" in n:
+        return "gemm"
+    return "other"
+
+
+def trace(fn, label: str) -> None:
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_cat = collections.Counter()
+    for e in kernels:
+        by_cat[category(e.key)] += e.self_device_time_total / 1000
+    busy = sum(by_cat.values())
+    print(f"== {label}: wall {wall_ms:.1f} ms, kernel time {busy:.1f} ms, "
+          f"device idle share {max(0.0, 1 - busy / wall_ms):.3f}")
+    for cat, ms in by_cat.most_common():
+        print(f"   {cat:20s} {ms:9.2f} ms  {ms / busy:6.1%}")
+    print("   top kernels:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"   {e.self_device_time_total / 1000:9.2f} ms  x{e.count:<5d} {e.key[:100]}")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch-size", type=int, default=4)
+    ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+
+    from pcm_tpu_torch.configs.families import sd15_bundle
+    from pcm_tpu_torch.core.schedule import make_ddpm_schedule
+    from pcm_tpu_torch.data.tokenizer import HashTokenizer
+    from pcm_tpu_torch.sampling.ddim import DDIMSampler
+    from pcm_tpu_torch.serving import EngineConfig, InferenceEngine
+    from pcm_tpu_torch.train.bundles import adapter_like
+
+    dev = torch.device("cuda")
+    bundle = sd15_bundle()
+    gen = torch.Generator(dev).manual_seed(args.seed)
+    frozen, template = bundle.init(gen, dev)
+    sampler = DDIMSampler.create(make_ddpm_schedule(), args.steps)
+    toks = {"input_ids": HashTokenizer()}
+    prompts = [f"a photo of subject {i}" for i in range(args.batch_size)]
+    seeds = list(range(args.batch_size))
+    for label, lora, cfg in (("student", adapter_like(template, gen), 1.0),
+                             ("teacher", None, 7.5)):
+        eng = InferenceEngine(bundle, sampler, frozen, lora, toks,
+                              EngineConfig(batch_size=args.batch_size, guidance_scale=cfg), dev)
+        eng.generate_batch(prompts, seeds)  # warm-up
+        trace(lambda: eng.generate_batch(prompts, seeds),
+              f"{label} batch {args.batch_size} x 512px, {args.steps} steps, guidance {cfg}")
+    print(torch.cuda.get_device_name(0))
+
+
+if __name__ == "__main__":
+    main()

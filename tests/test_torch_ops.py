@@ -1,0 +1,137 @@
+"""Plain versions of the port's kernels against the JAX Pallas kernels.
+
+The JAX side runs with ``interpret=True``, as tests/test_ops.py does, so the
+Pallas kernel bodies themselves execute on the CPU. Inputs come from numpy
+and both sides compute in fp32; only the order of summation differs, so the
+bound is rel-max 1e-5. (At K = 320 the JAX GEGLU does not run its kernel:
+it falls back to its oracle, `pcm_tpu/ops/geglu.py:_forward`.)
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pcm_tpu.ops import flash_attention as jax_flash_attention
+from pcm_tpu.ops import geglu as jax_geglu
+from pcm_tpu.ops import group_norm_silu as jax_group_norm_silu
+from pcm_tpu.ops.flash_attention import _fwd as jax_fa_fwd
+from pcm_tpu_torch.ops import common
+from pcm_tpu_torch.ops.flash_attention import flash_attention_fwd
+from pcm_tpu_torch.ops.geglu import geglu
+from pcm_tpu_torch.ops.groupnorm import group_norm_silu
+
+TOL = 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def rel_max(ours, ref):
+    ours, ref = np.asarray(ours, np.float32), np.asarray(ref, np.float32)
+    return float(np.abs(ours - ref).max() / max(np.abs(ref).max(), 1e-6))
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d", [(2, 50, 77, 2, 16), (1, 70, 77, 2, 40)])
+def test_attention_matches_pallas(b, sq, sk, h, d):
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.standard_normal((b, s, h, d), dtype=np.float32) for s in (sq, sk, sk))
+    o, lse = flash_attention_fwd(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    o_jax = jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True)
+    assert rel_max(o, o_jax) < TOL
+    # base-2 lse of the JAX forward kernel, (b, h, s, d) layout
+    t = lambda a: jnp.transpose(jnp.asarray(a), (0, 2, 1, 3))  # noqa: E731
+    _, lse_jax = jax_fa_fwd(t(q), t(k), t(v), d ** -0.5, True)
+    assert lse.shape == (b, h, sq)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_jax), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("act", ["silu", None])
+def test_group_norm_matches_pallas(act):
+    """77 spatial rows (no dividing block), 320 channels in 32 groups of 10."""
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 7, 11, 320), dtype=np.float32)
+    gamma = rng.standard_normal(320, dtype=np.float32)
+    beta = rng.standard_normal(320, dtype=np.float32)
+    ours = group_norm_silu(torch.from_numpy(x), torch.from_numpy(gamma), torch.from_numpy(beta),
+                           32, 1e-5, act)
+    ref = jax_group_norm_silu(jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta), 32, 1e-5,
+                              act, interpret=True)
+    assert rel_max(ours, ref) < TOL
+
+
+def test_group_norm_one_pass_variance_cancels():
+    """Input offset by 100 with std 1, against a float64 GroupNorm. At 100 an
+    fp32 input carries rounding of 7.6e-6, so the bound here is 5e-5. The
+    Pallas kernel's one-pass E[x²] − μ² cancels and lands further off than
+    the port's two-pass plain version (its CUDA kernel merges shifted sums)."""
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((1, 77, 320), dtype=np.float32) + np.float32(100.0)
+    g, b = np.ones(320, np.float32), np.zeros(320, np.float32)
+    pallas = np.asarray(jax_group_norm_silu(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b),
+                                            32, 1e-5, None, interpret=True))
+    ours = group_norm_silu(torch.from_numpy(x), torch.from_numpy(g), torch.from_numpy(b),
+                           32, 1e-5, None).numpy()
+    xg = x.astype(np.float64).reshape(1, 77, 32, 10)
+    exact = ((xg - xg.mean(axis=(1, 3), keepdims=True))
+             / np.sqrt(xg.var(axis=(1, 3), keepdims=True) + 1e-5)).reshape(x.shape)
+    assert rel_max(ours, exact) < 5e-5
+    assert rel_max(pallas, exact) > rel_max(ours, exact)
+
+
+@pytest.mark.parametrize("k,f", [(320, 128), (256, 128)])
+def test_geglu_matches_pallas(k, f):
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((3, 37, k), dtype=np.float32)
+    w = rng.standard_normal((k, 2 * f), dtype=np.float32) * np.float32(k ** -0.5)
+    b = rng.standard_normal(2 * f, dtype=np.float32)
+    # the port takes the nn.Linear layout (2F, K)
+    ours = geglu(torch.from_numpy(x), torch.from_numpy(np.ascontiguousarray(w.T)),
+                 torch.from_numpy(b))
+    ref = jax_geglu(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), interpret=True)
+    assert ours.shape == (3, 37, f)
+    assert rel_max(ours, ref) < TOL
+
+
+def test_dispatch_by_device():
+    x = torch.zeros(2, 8)
+    assert common.use_kernel(x) is False
+    with pytest.raises(ValueError, match="device"):
+        common.use_kernel(torch.zeros(2, 8, device="meta"))
+    before = common.launch_counts()
+    geglu(torch.ones(2, 8), torch.ones(16, 8), torch.zeros(16))
+    assert common.launch_counts() == before  # the plain version counts nothing
+    with common.reference_ops():
+        assert common.use_kernel(x) is False
+
+
+def test_hash_tokenizer_matches_jax_package():
+    from pcm_tpu.data.tokenizer import HashTokenizer as JaxHash
+    from pcm_tpu_torch.data.tokenizer import HashTokenizer
+
+    texts = ["a red square", "", "An astronaut riding a horse " * 20]
+    np.testing.assert_array_equal(HashTokenizer()(texts), JaxHash(quiet=True)(texts))
+
+
+def test_port_imports_no_jax():
+    """Importing every module of the port (and the serving entry point) loads no jax."""
+    import pkgutil
+    import subprocess
+    import sys
+
+    import pcm_tpu_torch
+
+    mods = [m.name for m in pkgutil.walk_packages(pcm_tpu_torch.__path__, "pcm_tpu_torch.")]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'pcm_tpu.'))]\n"
+            "print(len(sys.modules)); sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "pcm_tpu_torch.serving.__main__" in mods
