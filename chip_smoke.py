@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one CUDA card (H100): the SD1.5 serving path.
+"""Smoke run of the PyTorch port on one CUDA card (H100): the SD1.5 serving
+path and the SD1.5 distillation step.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -8,13 +9,22 @@ Phases, one printed line each:
   2. build: compile the port's CUDA kernels (pcm_tpu_torch/csrc) into one library;
   3. kernels: each kernel against its plain PyTorch version at the SD1.5 shapes
      of the serving path, bf16 on the card, with errors and CUDA-event times;
+     the flash-attention backward (K2 dK/dV, K3 dQ) through its autograd
+     Function against autograd of the plain attention at the training shapes,
+     and twice bit-identical; the GroupNorm Function's gradients;
   4. unet: one full-width SD1.5 UNet forward at batch 4, kernels against the
      plain versions (``reference_ops``);
   5. slice: the full-width SD1.5 bundle with random weights from ``--seed``,
      served through InferenceEngine + BatchingServer (student with a seeded
      adapter, 6 HTTP requests: a full batch of 4 and a partial one) and a
      teacher engine at guidance 7.5; checks images, seed reproducibility
-     across batches and that every kernel of the path was launched.
+     across batches and that every kernel of the path was launched;
+  6. unet-grad: one full-width student forward + backward at batch 2, the
+     LoRA gradients of the kernels against those of the plain versions;
+  7. train: ``python -m pcm_tpu_torch.train``'s ``main`` for 3 full-width
+     ``sd15_4phase`` steps at batch 4 on a seeded cached-latents shard
+     (written under build/), then a resume for one more step; checks the
+     loss, that the LoRA moved and that K1-K5 were all launched.
 Then a JSON line of the kernels, and a last JSON line ``{"ok": true, ...}``.
 Any failed check raises: the script then exits non-zero and prints no result.
 It needs a CUDA device and the repository around it.
@@ -25,6 +35,8 @@ from __future__ import annotations
 import argparse
 import base64
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -173,6 +185,85 @@ def check_kernels(gen) -> dict:
     return results
 
 
+# (b, sq, sk, h, d): the SD1.5 UNet's attentions at 512 px, training batch 4
+BWD_SHAPES = [
+    (4, 4096, 4096, 8, 40), (4, 4096, 77, 8, 40), (4, 1024, 1024, 8, 80),
+    (4, 1024, 77, 8, 80), (4, 256, 256, 8, 160), (4, 256, 77, 8, 160),
+    (4, 64, 64, 8, 160), (4, 64, 77, 8, 160),
+]
+BWD_HEADLINE = (4, 4096, 4096, 8, 40)
+
+
+def _autograd(fn, inputs, grad_out):
+    xs = [t.detach().clone().requires_grad_(True) for t in inputs]
+    fn(*xs).backward(grad_out)
+    return [x.grad for x in xs]
+
+
+def check_backward(gen) -> dict:
+    """K2/K3 through FlashAttentionFn against autograd of the fp32 plain
+    attention on the same bf16 inputs; each kernel timed alone against its
+    plain version (from the same saved o / lse / delta)."""
+    from pcm_tpu_torch.ops.flash_attention import (attention_bwd_dkv_reference,
+                                                   attention_bwd_dq_reference, attention_delta,
+                                                   attention_reference, flash_attention,
+                                                   flash_attention_bwd, flash_attention_bwd_dkv,
+                                                   flash_attention_bwd_dq, flash_attention_fwd)
+    from pcm_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_reference
+
+    results = {k: {"max_abs_err": 0.0} for k in ("flash_attention_bwd_dkv",
+                                                 "flash_attention_bwd_dq")}
+    for shp in BWD_SHAPES:
+        b, sq, sk, h, d = shp
+        scale = d ** -0.5
+        q, k, v = bf16_randn((b, sq, h, d), gen), bf16_randn((b, sk, h, d), gen), \
+            bf16_randn((b, sk, h, d), gen)
+        do = bf16_randn((b, sq, h, d), gen)
+        grads = _autograd(flash_attention, (q, k, v), do)
+        torch.cuda.synchronize()
+        refs = _autograd(attention_reference, [t.float() for t in (q, k, v)], do.float())
+        errs = [rel_max(g, r) for g, r in zip(grads, refs)]
+        o, lse = flash_attention_fwd(q, k, v)
+        first = flash_attention_bwd(q, k, v, o, lse, do, scale)
+        second = flash_attention_bwd(q, k, v, o, lse, do, scale)
+        same = all(torch.equal(a, c) for a, c in zip(first, second))
+        delta = attention_delta(o, do)
+        ms_dkv = cuda_ms(lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale))
+        ms_dq = cuda_ms(lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, scale))
+        plain_dkv = cuda_ms(lambda: attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale))
+        plain_dq = cuda_ms(lambda: attention_bwd_dq_reference(q, k, v, do, lse, delta, scale))
+        log("kernel", name="flash_attention_bwd", shape=shp,
+            rel_max_dq_dk_dv="/".join(f"{e:.3e}" for e in errs), deterministic=same,
+            dkv_ms=f"{ms_dkv:.4f}", dkv_plain_ms=f"{plain_dkv:.4f}",
+            dq_ms=f"{ms_dq:.4f}", dq_plain_ms=f"{plain_dq:.4f}")
+        if not (max(errs) <= 2e-2 and same):
+            raise AssertionError(f"flash attention backward {shp}: rel {errs}, "
+                                 f"bit-identical reruns {same}")
+        for name, err, ms, plain in (
+                ("flash_attention_bwd_dkv", max(abs_max(grads[1], refs[1]), abs_max(grads[2], refs[2])),
+                 ms_dkv, plain_dkv),
+                ("flash_attention_bwd_dq", abs_max(grads[0], refs[0]), ms_dq, plain_dq)):
+            r = results[name]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if shp == BWD_HEADLINE:
+                r["ms"], r["plain_ms"] = ms, plain
+        del q, k, v, do, grads, refs, o, lse, first, second
+
+    # the GroupNorm Function: kernel forward, autograd-of-plain backward
+    x = bf16_randn((4, 64, 64, 320), gen)
+    gamma, beta = bf16_randn((320,), gen, 0.5, 1.0), bf16_randn((320,), gen, 0.5)
+    g = bf16_randn((4, 64, 64, 320), gen)
+    got = _autograd(lambda *a: group_norm_silu(*a, 32, 1e-5, "silu"), (x, gamma, beta), g)
+    ref = _autograd(lambda *a: group_norm_silu_reference(*a, 32, 1e-5, "silu"),
+                    [t.float() for t in (x, gamma, beta)], g.float())
+    errs = [rel_max(a, r) for a, r in zip(got, ref)]
+    log("kernel", name="group_norm_silu_grad", shape=(4, 64, 64, 320),
+        rel_max_x_gamma_beta="/".join(f"{e:.3e}" for e in errs))
+    if not max(errs) <= 2e-2:
+        raise AssertionError(f"group norm gradients: rel {errs}")
+    return results
+
+
 # ---------------------------------------------------------------------------
 # phase 4: full-width UNet, kernels against plain versions
 # ---------------------------------------------------------------------------
@@ -299,6 +390,82 @@ def serve_slice(bundle, frozen, template, gen) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: full-width student gradients, kernels against plain versions
+# ---------------------------------------------------------------------------
+
+
+def unet_grad_vs_reference(bundle, frozen, template, gen) -> dict:
+    from pcm_tpu_torch.ops import reference_ops
+    from pcm_tpu_torch.train.bundles import adapter_like
+
+    adapter = adapter_like(template, gen)  # b != 0: every factor gets a gradient
+    x = torch.randn((2, 64, 64, 4), generator=gen, device="cuda")
+    t = torch.tensor([999, 421], device="cuda")
+    cond = {"prompt_embeds": bf16_randn((2, 77, 768), gen)}
+
+    def lora_grads():
+        lora = {k: v.clone().requires_grad_(True) for k, v in adapter.items()}
+        loss = bundle.student(frozen, lora, x, t, cond).float().square().mean()
+        return torch.autograd.grad(loss, list(lora.values()))
+
+    got = lora_grads()
+    with reference_ops():
+        ref = lora_grads()
+    bad = [k for k, g in zip(adapter, got) if g is None or not torch.isfinite(g).all()]
+    flat, flat_ref = torch.cat([g.flatten() for g in got]), torch.cat([g.flatten() for g in ref])
+    cos = float(torch.nn.functional.cosine_similarity(flat, flat_ref, dim=0))
+    norm_err = float((flat.norm() - flat_ref.norm()).abs() / flat_ref.norm())
+    return {"factors": len(adapter), "bad": bad, "cosine": cos, "norm_rel_err": norm_err}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the training entry point
+# ---------------------------------------------------------------------------
+
+CACHE_SAMPLES = 24  # enough for the recipe's batch of 20 as well
+
+
+def write_cache(bundle, frozen, out_dir: str, seed: int) -> str:
+    """One shard of seeded 64x64x4 latents and prompt embeds of the port's
+    CLIP-L on hash-tokenized prompts, in the cache format (fp16)."""
+    import numpy as np
+
+    from pcm_tpu_torch.data.tokenizer import HashTokenizer
+
+    os.makedirs(out_dir, exist_ok=True)
+    prompts = [f"a photo of subject {i}, {['red', 'blue', 'green'][i % 3]} light"
+               for i in range(CACHE_SAMPLES)]
+    ids = torch.from_numpy(HashTokenizer()(prompts)).long().cuda()
+    with torch.no_grad():
+        embeds = bundle.encode_prompts(frozen, ids)["prompt_embeds"]
+    latents = np.random.default_rng(seed).standard_normal((CACHE_SAMPLES, 64, 64, 4))
+    np.savez(os.path.join(out_dir, "shard_00000.npz"), latents=latents.astype(np.float16),
+             prompt_embeds=embeds.float().cpu().numpy().astype(np.float16))
+    return out_dir
+
+
+def train_slice(cache_dir: str, out_dir: str, seed: int) -> dict:
+    from pcm_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pcm_tpu_torch.train.__main__ import main as train_main
+
+    argv = ["--recipe", "sd15_4phase", "--cached-latents-dir", cache_dir, "--output-dir", out_dir,
+            "--batch-size", "4", "--seed", str(seed), "--log-every", "1",
+            "--checkpointing-steps", "3"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    trainer = train_main(argv + ["--max-train-steps", "3", "--no-resume"])
+    counts = launch_counts()
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    lora_b = max(float(v.abs().max()) for k, v in trainer.state.params.items()
+                 if k.endswith("lora_b"))
+    resumed = train_main(argv + ["--max-train-steps", "4"])
+    return {"counts": counts, "rows": rows, "lora_b_max": lora_b,
+            "resumed_from": resumed.resumed_from, "resumed_step": resumed.global_step}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -326,6 +493,7 @@ def main() -> int:
 
     gen = torch.Generator("cuda").manual_seed(args.seed)
     kernels = check_kernels(gen)
+    kernels.update(check_backward(gen))
 
     bundle = sd15_bundle()
     t0 = time.perf_counter()
@@ -349,13 +517,41 @@ def main() -> int:
         peak_gib=f"{s['peak_bytes'] / 2**30:.3f}", same_seed_identical=s["same_seed_identical"],
         occupancy=s["server_stats"]["batch_occupancy"])
 
+    g = unet_grad_vs_reference(bundle, frozen, template, gen)
+    log("unet-grad", factors=g["factors"], cosine=f"{g['cosine']:.6f}",
+        norm_rel_err=f"{g['norm_rel_err']:.3e}", bounds="cos>=0.99,norm<=5e-2")
+    if g["bad"] or not (g["cosine"] >= 0.99 and g["norm_rel_err"] <= 5e-2):
+        raise AssertionError(f"student gradients, kernels vs plain: {g}")
+    cache = write_cache(bundle, frozen, "build/chip_smoke/cache", args.seed)
+    del frozen, template
+    tr = train_slice(cache, "build/chip_smoke/train", args.seed)
+    steps = [r for r in tr["rows"] if r["step"] <= 3]
+    log("train", losses=json.dumps([round(r["loss"], 6) for r in steps]),
+        grad_norms=json.dumps([round(r["grad_norm"], 6) for r in steps]),
+        step_ms=json.dumps([round(r["step_ms"], 1) for r in steps]),
+        peak_gib=f"{max(r['peak_gib'] for r in steps):.3f}", lora_b_max=f"{tr['lora_b_max']:.3e}",
+        counts=json.dumps(tr["counts"]), resumed=f"{tr['resumed_from']}->{tr['resumed_step']}")
+    if not (len(steps) == 3 and all(math.isfinite(r["loss"]) for r in steps)
+            and tr["lora_b_max"] > 0):
+        raise AssertionError(f"training: {steps}, lora_b max {tr['lora_b_max']}")
+    missing = [k for k, n in tr["counts"].items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the training path: {missing}")
+    if (tr["resumed_from"], tr["resumed_step"]) != (3, 4):
+        raise AssertionError(f"resume: from {tr['resumed_from']} to {tr['resumed_step']}")
+
     sources = {"flash_attention_fwd": ("pcm_tpu_torch/csrc/flash_attention.cu",
                                        "pcm_tpu/ops/flash_attention.py:105"),
+               "flash_attention_bwd_dkv": ("pcm_tpu_torch/csrc/flash_attention_bwd.cu",
+                                           "pcm_tpu/ops/flash_attention.py:201"),
+               "flash_attention_bwd_dq": ("pcm_tpu_torch/csrc/flash_attention_bwd.cu",
+                                          "pcm_tpu/ops/flash_attention.py:259"),
                "group_norm_silu": ("pcm_tpu_torch/csrc/groupnorm.cu",
                                    "pcm_tpu/ops/groupnorm.py:33"),
                "geglu": ("pcm_tpu_torch/csrc/geglu.cu", "pcm_tpu/ops/geglu.py:47")}
+    launches = {k: s["counts"][k] + tr["counts"][k] for k in sources}
     line = {"kernels": [{"name": k, "route": "cuda", "source": sources[k][0],
-                         "replaces": sources[k][1], "launches": s["counts"][k],
+                         "replaces": sources[k][1], "launches": launches[k],
                          "max_abs_err": kernels[k]["max_abs_err"], "ms": kernels[k]["ms"],
                          "plain_ms": kernels[k]["plain_ms"]} for k in sources]}
     print(json.dumps(line))

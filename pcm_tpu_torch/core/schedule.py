@@ -1,24 +1,84 @@
 """DDPM noise-schedule tables (counterpart of `pcm_tpu/core/schedule.py`).
 
-Host-side fp32 tables; the sampler reads scalars from them, so nothing here
-runs on the device.
+Host-side fp32 tables. The sampler reads scalars from them; the training step
+gathers per-sample coefficients from a copy of each table on the device of
+its tensors (`DeviceTables`), made once per device. `FlowSchedule` (SD3) is
+not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
+import torch
+
+
+class DeviceTables:
+    """Mixin of the frozen table dataclasses: ``table(name, device)`` is the
+    named numpy field as a tensor on ``device``, copied there once."""
+
+    def table(self, name: str, device: torch.device) -> torch.Tensor:
+        cache = self.__dict__.setdefault("_device_tables", {})
+        key = (name, torch.device(device))
+        if key not in cache:
+            cache[key] = torch.from_numpy(np.asarray(getattr(self, name))).to(device)
+        return cache[key]
+
+
+def bcast(x: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Right-pad ``x``'s shape with singleton dims up to ``ndim`` (`_bcast`)."""
+    return x.reshape(x.shape + (1,) * (ndim - x.ndim)) if x.ndim < ndim else x
 
 
 @dataclasses.dataclass(frozen=True)
-class DDPMSchedule:
-    """``alphas_cumprod[t]``: cumulative product of (1 - beta) through step t."""
+class DDPMSchedule(DeviceTables):
+    """``alphas_cumprod[t]``: cumulative product of (1 - beta) through step t.
+
+    The methods take per-sample integer timesteps ``t`` (N,) and tensors whose
+    leading dim is N, and compute in fp32 (`pcm_tpu/core/schedule.py:47-95`).
+    """
 
     num_train_timesteps: int
     betas: np.ndarray  # (T,) float32
     alphas_cumprod: np.ndarray  # (T,) float32
     prediction_type: str = "epsilon"  # or "v_prediction"
+
+    def _coefs(self, t: torch.Tensor, like: torch.Tensor):
+        """(sqrt(a_t), sqrt(1 - a_t)) broadcast against ``like``."""
+        a = self.table("alphas_cumprod", like.device)[t.long()]
+        return bcast(torch.sqrt(a), like.ndim), bcast(torch.sqrt(1.0 - a), like.ndim)
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """q(x_t | x_0): sqrt(a_t) x0 + sqrt(1-a_t) eps."""
+        a, s = self._coefs(t, x0)
+        return a * x0 + s * noise
+
+    def noise_travel(self, x_cur: torch.Tensor, noise: torch.Tensor, t_cur: torch.Tensor,
+                     t_tgt: torch.Tensor) -> torch.Tensor:
+        """Re-noise from ``t_cur`` to a later ``t_tgt`` with the ratio
+        r = a_tgt / a_cur: sqrt(r) x + sqrt(1-r) eps."""
+        ac = self.table("alphas_cumprod", x_cur.device)
+        r = ac[t_tgt.long()] / ac[t_cur.long()]
+        return bcast(torch.sqrt(r), x_cur.ndim) * x_cur + bcast(torch.sqrt(1.0 - r), x_cur.ndim) * noise
+
+    def velocity(self, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """v-prediction target: sqrt(a_t) eps - sqrt(1-a_t) x0."""
+        a, s = self._coefs(t, x0)
+        return a * noise - s * x0
+
+    def predicted_origin(self, model_output: torch.Tensor, t: torch.Tensor,
+                         sample: torch.Tensor, prediction_type: Optional[str] = None
+                         ) -> torch.Tensor:
+        """x0 from an epsilon- or v-prediction at per-sample t."""
+        pt = prediction_type or self.prediction_type
+        a, s = self._coefs(t, sample)
+        if pt == "epsilon":
+            return (sample - s * model_output) / a
+        if pt == "v_prediction":
+            return a * sample - s * model_output
+        raise ValueError(f"unknown prediction_type: {pt}")
 
 
 def make_ddpm_schedule(num_train_timesteps: int = 1000, beta_start: float = 0.00085,

@@ -99,6 +99,43 @@ def lora_state_from_jax(lora_tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]
     return _flatten(lora_tree)
 
 
+def train_state_from_jax(state):
+    """JAX ``TrainState`` (step, LoRA tree, optax AdamW state) -> the port's
+    `TrainState`: the params and Adam's mu/nu by the leaf rules of
+    `lora_state_from_jax`, Adam's count as the optimizer count. The 8-bit
+    state is refused: its int8 codes are blocked in the JAX layout, so a
+    transposed factor would need requantizing."""
+    from ..train.state import TrainState
+
+    adam = _find_adam(state.opt_state)
+    if adam is None:
+        raise ValueError("train_state_from_jax takes an optax AdamW state (clip + adamw)")
+    return TrainState(step=int(np.asarray(state.step)),
+                      params=lora_state_from_jax(state.params),
+                      opt_state={"count": int(np.asarray(adam.count)),
+                                 "mu": lora_state_from_jax(adam.mu),
+                                 "nu": lora_state_from_jax(adam.nu)})
+
+
+def _find_adam(node):
+    """The ``ScaleByAdamState`` (count, mu, nu of arrays) inside an optax chain state."""
+    if all(hasattr(node, f) for f in ("count", "mu", "nu")):
+        leaves, stack = [], [node.mu]
+        while stack:
+            n = stack.pop()
+            if isinstance(n, Mapping):
+                stack.extend(n.values())
+            else:
+                leaves.append(n)
+        return node if leaves and not isinstance(leaves[0], tuple) else None
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            found = _find_adam(child)
+            if found is not None:
+                return found
+    return None
+
+
 def clip_tree_from_jax(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
     """JAX ``CLIPTextModel`` params regrouped under the transformers module names."""
     def layer(p):

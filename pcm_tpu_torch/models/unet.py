@@ -1,20 +1,25 @@
 """UNet2DCondition for SD1.5 (counterpart of `pcm_tpu/models/unet.py`).
 
 NCHW tensors in ``torch.channels_last`` memory; diffusers state-dict names;
-LoRA factors passed per call (``lora=None`` is the teacher). Not yet ported:
-the SDXL addition embedding, ``time_cond_proj_dim``, the feature taps and
-``stop_after_mid``.
+LoRA factors passed per call (``lora=None`` is the teacher). ``remat=True``
+checkpoints every ResnetBlock2D and Transformer2D while grad is enabled (the
+JAX package's ``--remat full --remat-gran block`` of training). Not yet
+ported: the SDXL addition embedding, ``time_cond_proj_dim``, the feature
+taps and ``stop_after_mid``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Tuple
 
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
 from ..lora.layers import LoRA, LoRAConv
+from ..ops import common, reference_ops
 from .attention import Transformer2D
 from .embeddings import TimestepEmbedding, sinusoidal_embedding
 from .normalization import GroupNorm
@@ -59,10 +64,19 @@ class _Block(nn.Module):
         self.attentions = nn.ModuleList()
 
 
+def _remat_contexts():
+    """(forward, recompute) contexts of a checkpointed block: the recompute,
+    which autograd may run on another thread, keeps the caller's choice of
+    kernels or plain versions."""
+    plain = common.reference_forced()
+    return contextlib.nullcontext(), reference_ops() if plain else contextlib.nullcontext()
+
+
 class UNet2DCondition(nn.Module):
-    def __init__(self, cfg: UNetConfig = SD15_CONFIG):
+    def __init__(self, cfg: UNetConfig = SD15_CONFIG, remat: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.remat = remat
         chans = cfg.block_out_channels
         ch0, temb = chans[0], cfg.time_embed_dim
         g = cfg.norm_groups
@@ -112,9 +126,16 @@ class UNet2DCondition(nn.Module):
         self.conv_norm_out = GroupNorm(g, ch0, act="silu")
         self.conv_out = LoRAConv(ch0, cfg.out_channels, 3, padding=1)
 
+    def _block(self, module: nn.Module, *args) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(module, *args, use_reentrant=False,
+                                                     context_fn=_remat_contexts)
+        return module(*args)
+
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor, lora: LoRA = None) -> torch.Tensor:
         """sample (N, C, H, W), timesteps (N,), encoder_hidden_states (N, S, D)."""
+        run = self._block
         dtype = self.conv_in.weight.dtype
         t_emb = sinusoidal_embedding(timesteps, self.cfg.block_out_channels[0]).to(dtype)
         temb = self.time_embedding(t_emb)
@@ -125,25 +146,25 @@ class UNet2DCondition(nn.Module):
         skips = [h]
         for blk in self.down_blocks:
             for j, resnet in enumerate(blk.resnets):
-                h = resnet(h, temb, lora)
+                h = run(resnet, h, temb, lora)
                 if len(blk.attentions):
-                    h = blk.attentions[j](h, context, lora)
+                    h = run(blk.attentions[j], h, context, lora)
                 skips.append(h)
             if hasattr(blk, "downsamplers"):
                 h = blk.downsamplers[0](h, lora)
                 skips.append(h)
 
         mid = self.mid_block
-        h = mid.resnets[0](h, temb, lora)
-        h = mid.attentions[0](h, context, lora)
-        h = mid.resnets[1](h, temb, lora)
+        h = run(mid.resnets[0], h, temb, lora)
+        h = run(mid.attentions[0], h, context, lora)
+        h = run(mid.resnets[1], h, temb, lora)
 
         for blk in self.up_blocks:
             for j, resnet in enumerate(blk.resnets):
                 h = torch.cat([h, skips.pop()], dim=1)
-                h = resnet(h, temb, lora)
+                h = run(resnet, h, temb, lora)
                 if len(blk.attentions):
-                    h = blk.attentions[j](h, context, lora)
+                    h = run(blk.attentions[j], h, context, lora)
             if hasattr(blk, "upsamplers"):
                 h = blk.upsamplers[0](h, lora)
 

@@ -3,9 +3,9 @@
 Counterpart of `pcm_tpu/ops/common.py`. All CUDA kernels of the port live in
 `pcm_tpu_torch/csrc/*.cu` and are compiled by `nvcc` into ONE shared library
 with a plain C interface, loaded through `ctypes` at the first call that
-needs it. The build goes to ``<repo>/build/pcm_tpu_torch/<source-hash>/``
-under a file lock, so concurrent processes build once and a source edit
-builds anew.
+needs it: one `nvcc -c` per source, all started together, then one link.
+The build goes to ``<repo>/build/pcm_tpu_torch/<source-hash>/`` under a file
+lock, so concurrent processes build once and a source edit builds anew.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes the
 kernel's plain PyTorch version, a CUDA tensor takes the kernel (or the
@@ -33,14 +33,15 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pcm_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _FORCE_REFERENCE = contextvars.ContextVar("pcm_torch_force_reference", default=False)
 
 # One launch counter per kernel; a wrapper adds one where it launches its
 # kernel and nowhere else.
-KERNELS = ("flash_attention_fwd", "group_norm_silu", "geglu")
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+           "group_norm_silu", "geglu")
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
@@ -54,6 +55,11 @@ def reference_ops():
         yield
     finally:
         _FORCE_REFERENCE.reset(tok)
+
+
+def reference_forced() -> bool:
+    """Whether the caller is inside ``reference_ops()``."""
+    return _FORCE_REFERENCE.get()
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:
@@ -81,6 +87,14 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for k in _launches:
         _launches[k] = 0
+
+
+def vjp_of(fn, inputs, args, g):
+    """Gradients of ``fn(*inputs, *args)`` w.r.t. ``inputs`` by autograd: the
+    backward of the ops whose JAX custom VJP differentiates the plain version."""
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_(True) for t in inputs]
+        return torch.autograd.grad(fn(*xs, *args), xs, g)
 
 
 def check_cuda(err: int, what: str) -> None:
@@ -139,20 +153,40 @@ def build() -> Path:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if not out.exists():
-                tmp = out.with_suffix(".so.tmp")
-                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                       *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-                res = subprocess.run(cmd, capture_output=True, text=True)
-                (out.parent / "build.log").write_text(
-                    " ".join(cmd) + "\n" + res.stdout + res.stderr)
-                if res.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-                os.replace(tmp, out)
+                _compile_and_link(out)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     build_seconds = time.perf_counter() - t0
     return out
+
+
+def _compile_and_link(out: Path) -> None:
+    """One ``nvcc -c`` per source in parallel, then ``nvcc -shared``; every
+    command and its output (ptxas' register and spill report) go to
+    ``build.log`` beside the library."""
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(out.parent / (src.stem + ".o"))]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, proc in jobs:
+        text = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-3]} ({proc.returncode}):\n{text[-4000:]}")
+    tmp = out.with_suffix(".so.tmp")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *[c[-1] for c, _ in jobs]]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(f"link ({res.returncode}):\n{res.stderr[-4000:]}")
+    (out.parent / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    os.replace(tmp, out)
 
 
 def lib() -> ctypes.CDLL:
@@ -176,6 +210,15 @@ def _declare(h: ctypes.CDLL) -> None:
         + [L] * 9  # q/k/v strides (b, s, h)
         + [F, P]  # alpha (scale*log2e), stream
     )
+    for name, n_out in (("pcm_flash_attention_bwd_dkv", 2), ("pcm_flash_attention_bwd_dq", 1)):
+        fn = getattr(h, name)
+        fn.restype = I
+        fn.argtypes = (
+            [P] * (6 + n_out)  # q k v do lse delta, then dk dv | dq
+            + [I] * 5  # b h sq sk d
+            + [L] * 12  # q/k/v/do strides (b, s, h)
+            + [F, F, P]  # alpha (scale*log2e), scale, stream
+        )
     h.pcm_group_norm_silu.restype = I
     h.pcm_group_norm_silu.argtypes = (
         [P, P, P, P, P]  # x gamma beta out scratch

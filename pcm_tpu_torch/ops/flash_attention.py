@@ -1,11 +1,15 @@
-"""Flash attention forward: CUDA kernel (`csrc/flash_attention.cu`) and its
-plain PyTorch version.
+"""Flash attention, forward and backward: CUDA kernels
+(`csrc/flash_attention.cu`, `csrc/flash_attention_bwd.cu`) and their plain
+PyTorch versions, joined by one `torch.autograd.Function`.
 
-Counterpart of `pcm_tpu/ops/flash_attention.py` (forward only; the dK/dV and
-dQ kernels come with the training slice). Public layout is the projection
-layout ``(batch, seq, heads, head_dim)``; the kernel reads it through its
-strides, so no transpose is materialized. SD1.5 runs head_dim 40/80/160 in
-the UNet and a single 512-wide head in the VAE mid-block.
+Counterpart of `pcm_tpu/ops/flash_attention.py`: the forward saves ``o`` and
+the base-2 logsumexp, and the backward recomputes the probabilities from them
+in a dK/dV kernel and a dQ kernel, with ``delta = rowsum(dO * O)`` computed
+between the two passes in plain torch (as `_bwd` does in XLA). Public layout
+is the projection layout ``(batch, seq, heads, head_dim)``; the kernels read
+it through its strides, so no transpose is materialized. SD1.5 runs head_dim
+40/80/160 in the UNet (forward and backward) and a single 512-wide head in
+the VAE mid-block (forward only).
 """
 
 from __future__ import annotations
@@ -19,12 +23,49 @@ from .common import check_cuda, count_launch, lib, require, stream_ptr, use_kern
 
 LOG2E = 1.4426950408889634  # exp(x) == exp2(x * LOG2E)
 MAX_HEAD_DIM = 512
+MAX_HEAD_DIM_BWD = 160
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """softmax(q kᵀ · scale) v with the flash backward (the port of the JAX
+    custom VJP, `pcm_tpu/ops/flash_attention.py:382-402`). The same Function
+    runs on both devices: kernels on CUDA tensors, plain versions on CPU ones.
+    The backward takes the forward's choice: autograd runs it on another
+    thread, where a ``reference_ops()`` context of the caller is not set."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale):
+        o, lse = flash_attention_fwd(q, k, v, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.sm_scale, ctx.kernel = sm_scale, use_kernel(q, k, v)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd if ctx.kernel else attention_bwd_reference
+        dq, dk, dv = bwd(q, k, v, o, lse, do, ctx.sm_scale)
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
-    """softmax(q kᵀ · scale) v over ``(b, s, h, d)``; returns q's dtype."""
-    return flash_attention_fwd(q, k, v, sm_scale)[0]
+    """softmax(q kᵀ · scale) v over ``(b, s, h, d)``; returns q's dtype and
+    is differentiable in q, k and v."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    return FlashAttentionFn.apply(q, k, v, sm_scale)
+
+
+def _kernel_layout(t: torch.Tensor) -> bool:
+    """Whether the kernels can read ``t`` through its ``(b, s, h)`` strides."""
+    return (t.stride(3) == 1 and all(s % 8 == 0 for s in t.stride()[:3])
+            and t.data_ptr() % 16 == 0)
+
+
+def _check_bshd(name: str, t: torch.Tensor) -> None:
+    require(_kernel_layout(t), f"{name} needs unit stride along head_dim, other strides "
+            f"multiples of 8 and 16-byte alignment (strides {t.stride()})")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -32,7 +73,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(o, lse)``: ``o`` as `flash_attention`, ``lse`` the base-2
     logsumexp of the scaled scores, fp32 ``(b, h, sq)`` (the residual the
-    backward kernels will consume)."""
+    backward kernels consume). Not differentiable: `flash_attention` is."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if not use_kernel(q, k, v):
@@ -46,10 +87,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"shape mismatch q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
     require(d % 8 == 0 and d <= MAX_HEAD_DIM, f"head_dim {d} must be a multiple of 8 <= 512")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        require(t.stride(3) == 1, f"{name} needs unit stride along head_dim")
-        require(all(s % 8 == 0 for s in t.stride()[:3]),
-                f"{name} strides {t.stride()} must be multiples of 8")
-        require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
+        _check_bshd(name, t)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     err = lib().pcm_flash_attention_fwd(
@@ -63,6 +101,71 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_cuda(err, "flash_attention_fwd")
     count_launch("flash_attention_fwd")
     return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, sm_scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of `flash_attention` from the forward's ``o`` and
+    base-2 ``lse``: delta = rowsum(dO * O) in plain torch, then K2 (dK/dV)
+    and K3 (dQ) on CUDA tensors; the plain `attention_bwd_reference` on CPU
+    ones. Outputs are contiguous ``(b, s, h, d)`` in q's dtype."""
+    if not use_kernel(q, k, v, o, lse, do):
+        return attention_bwd_reference(q, k, v, o, lse, do, sm_scale)
+    require(o.dtype == q.dtype and o.shape == do.shape == q.shape,
+            f"shape mismatch q{tuple(q.shape)} o{tuple(o.shape)} do{tuple(do.shape)}")
+    do = do.to(q.dtype)  # as `_bwd`: the cotangent in q's dtype
+    if not _kernel_layout(do):  # e.g. a transposed view from the caller's reshape
+        do = do.contiguous()
+    delta = attention_delta(o, do)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, sm_scale)
+    return flash_attention_bwd_dq(q, k, v, do, lse, delta, sm_scale), dk, dv
+
+
+def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """rowsum(dO * O) in fp32, ``(b, h, sq)`` contiguous (computed outside the
+    kernels, as `_bwd` does in XLA)."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _bwd_launch(which: str, q, k, v, do, lse, delta, sm_scale, outs) -> None:
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    require(all(t.is_cuda for t in (q, k, v, do, lse, delta)),
+            "the backward kernels take CUDA tensors (flash_attention_bwd dispatches)")
+    require(q.dtype == k.dtype == v.dtype == do.dtype == torch.bfloat16,
+            f"flash attention backward takes bf16, got {q.dtype}/{k.dtype}/{v.dtype}/{do.dtype}")
+    require(k.shape == v.shape == (b, sk, h, d) and do.shape == q.shape,
+            f"shape mismatch q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)} "
+            f"do{tuple(do.shape)}")
+    require(d % 8 == 0 and d <= MAX_HEAD_DIM_BWD,
+            f"head_dim {d} must be a multiple of 8 <= {MAX_HEAD_DIM_BWD} in the backward")
+    for name, t in (("lse", lse), ("delta", delta)):
+        require(t.dtype == torch.float32 and t.shape == (b, h, sq) and t.is_contiguous(),
+                f"{name} must be a contiguous fp32 (b, h, sq) tensor")
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        _check_bshd(name, t)
+    fn = getattr(lib(), "pcm_flash_attention_" + which)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+             delta.data_ptr(), *[t.data_ptr() for t in outs], b, h, sq, sk, d,
+             q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+             v.stride(0), v.stride(1), v.stride(2), do.stride(0), do.stride(1), do.stride(2),
+             ctypes.c_float(sm_scale * LOG2E), ctypes.c_float(sm_scale), stream_ptr(q.device))
+    check_cuda(err, "flash_attention_" + which)
+    count_launch("flash_attention_" + which)
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float):
+    """K2: ``(dk, dv)``, contiguous ``(b, sk, h, d)`` bf16 (CUDA tensors only)."""
+    dk, dv = (torch.empty(k.shape, dtype=q.dtype, device=q.device) for _ in range(2))
+    _bwd_launch("bwd_dkv", q, k, v, do, lse, delta, sm_scale, (dk, dv))
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, sm_scale: float):
+    """K3: ``dq``, contiguous ``(b, sq, h, d)`` bf16 (CUDA tensors only)."""
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _bwd_launch("bwd_dq", q, k, v, do, lse, delta, sm_scale, (dq,))
+    return dq
 
 
 def attention_reference(q, k, v, sm_scale=None):
@@ -80,3 +183,36 @@ def attention_lse_reference(q, k, sm_scale=None):
         sm_scale = q.shape[-1] ** -0.5
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
     return torch.logsumexp(s, dim=-1) * LOG2E
+
+
+def _bwd_scores_reference(q, k, v, lse, do, delta, sm_scale):
+    """fp32 P and dS, the probabilities from the saved base-2 ``lse``."""
+    qf, kf, do = q.float(), k.float(), do.float()
+    p = torch.exp2(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * (sm_scale * LOG2E)
+                   - lse.float()[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v.float())
+    return p, p * (dp - delta[..., None]) * sm_scale
+
+
+def attention_bwd_dkv_reference(q, k, v, do, lse, delta, sm_scale):
+    """Plain K2: ``(dk, dv)`` in q's dtype."""
+    p, ds = _bwd_scores_reference(q, k, v, lse, do, delta, sm_scale)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    return dk.to(q.dtype).contiguous(), dv.to(q.dtype).contiguous()
+
+
+def attention_bwd_dq_reference(q, k, v, do, lse, delta, sm_scale):
+    """Plain K3: ``dq`` in q's dtype."""
+    _, ds = _bwd_scores_reference(q, k, v, lse, do, delta, sm_scale)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(q.dtype).contiguous()
+
+
+def attention_bwd_reference(q, k, v, o, lse, do, sm_scale):
+    """Plain version of K2 + K3 in fp32, computing P from the saved base-2
+    ``lse`` as the kernels do (not by autograd of a softmax). Returns
+    contiguous ``(dq, dk, dv)`` in q's dtype."""
+    do = do.to(q.dtype)
+    delta = attention_delta(o, do)
+    dk, dv = attention_bwd_dkv_reference(q, k, v, do, lse, delta, sm_scale)
+    return attention_bwd_dq_reference(q, k, v, do, lse, delta, sm_scale), dk, dv

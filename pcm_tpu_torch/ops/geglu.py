@@ -1,9 +1,10 @@
 """Fused GEGLU projection: CUDA kernel (`csrc/geglu.cu`) and its plain
 PyTorch version.
 
-Counterpart of `pcm_tpu/ops/geglu.py` (forward). The weight is the
-``nn.Linear`` layout ``(2F, K)`` (value rows first, gate rows second), where
-the JAX op took ``(K, 2F)``.
+Counterpart of `pcm_tpu/ops/geglu.py`. The weight is the ``nn.Linear``
+layout ``(2F, K)`` (value rows first, gate rows second), where the JAX op
+took ``(K, 2F)``. The backward is autograd of the plain version on the saved
+inputs, as `_geglu_bwd` is in the JAX package.
 """
 
 from __future__ import annotations
@@ -11,11 +12,31 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .common import check_cuda, count_launch, lib, require, stream_ptr, use_kernel
+from .common import check_cuda, count_launch, lib, require, stream_ptr, use_kernel, vjp_of
+
+
+class GEGLUFn(torch.autograd.Function):
+    """Forward: the K5 kernel (plain version on the CPU). Backward: autograd
+    of `geglu_reference` (`pcm_tpu/ops/geglu.py:133`)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w, b)
+        return geglu_fwd(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        return vjp_of(geglu_reference, ctx.saved_tensors, (), g)
 
 
 def geglu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x (..., K), w (2F, K), b (2F,) -> (x·Waᵀ + ba) · gelu(x·Wbᵀ + bb), (..., F)."""
+    """x (..., K), w (2F, K), b (2F,) -> (x·Waᵀ + ba) · gelu(x·Wbᵀ + bb), (..., F);
+    differentiable in x, w and b."""
+    return GEGLUFn.apply(x, w, b)
+
+
+def geglu_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The forward alone (not differentiable): K5 on CUDA tensors."""
     if not use_kernel(x, w, b):
         return geglu_reference(x, w, b)
 

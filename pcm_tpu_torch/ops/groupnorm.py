@@ -1,9 +1,11 @@
 """GroupNorm(+SiLU) over channels-last input: CUDA kernel
 (`csrc/groupnorm.cu`) and its plain PyTorch version.
 
-Counterpart of `pcm_tpu/ops/groupnorm.py` (forward). Layout ``(N, *spatial,
-C)``: the models keep NCHW tensors in ``torch.channels_last`` memory, so
-``x.permute(0, 2, 3, 1)`` is the contiguous view this op takes.
+Counterpart of `pcm_tpu/ops/groupnorm.py`. Layout ``(N, *spatial, C)``: the
+models keep NCHW tensors in ``torch.channels_last`` memory, so
+``x.permute(0, 2, 3, 1)`` is the contiguous view this op takes. The backward
+is autograd of the plain version on the saved inputs, as `_gn_bwd` is in the
+JAX package (which has no backward kernel either).
 """
 
 from __future__ import annotations
@@ -14,17 +16,40 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .common import cdiv, check_cuda, count_launch, lib, require, stream_ptr, use_kernel
+from .common import (cdiv, check_cuda, count_launch, lib, require, stream_ptr, use_kernel,
+                     vjp_of)
 
 MAX_CHANNELS = 4096
 _TARGET_BLOCKS = 1024  # stats-pass blocks over the whole batch (>= 7 per SM)
 
 
+class GroupNormSiLUFn(torch.autograd.Function):
+    """Forward: the K4 kernel (plain version on the CPU). Backward: autograd
+    of `group_norm_silu_reference` (`pcm_tpu/ops/groupnorm.py:135-143`)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, num_groups, eps, act):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.args = (num_groups, eps, act)
+        return group_norm_silu_fwd(x, gamma, beta, num_groups, eps, act)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*vjp_of(group_norm_silu_reference, ctx.saved_tensors, ctx.args, g),
+                None, None, None)
+
+
 def group_norm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                     num_groups: int = 32, eps: float = 1e-5,
                     act: Optional[str] = "silu") -> torch.Tensor:
-    """GroupNorm over ``x`` (N, *spatial, C) with an optional SiLU."""
+    """GroupNorm over ``x`` (N, *spatial, C) with an optional SiLU;
+    differentiable in x, gamma and beta."""
     require(act in (None, "silu"), f"unknown act {act!r}")
+    return GroupNormSiLUFn.apply(x, gamma, beta, num_groups, eps, act)
+
+
+def group_norm_silu_fwd(x, gamma, beta, num_groups=32, eps=1e-5, act="silu"):
+    """The forward alone (not differentiable): K4 on CUDA tensors."""
     if not use_kernel(x, gamma, beta):
         return group_norm_silu_reference(x, gamma, beta, num_groups, eps, act)
 

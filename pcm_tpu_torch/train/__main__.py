@@ -1,0 +1,146 @@
+"""Distill an SD1.5 teacher into a PCM LoRA student on a CUDA card.
+
+  python -m pcm_tpu_torch.train --recipe sd15_4phase --cached-latents-dir cache/ \\
+      --output-dir runs/sd15_4phase
+  python -m pcm_tpu_torch.train --recipe sd15_4phase --tiny --device cpu \\
+      --cached-latents-dir tiny_cache/ --output-dir runs/tiny --max-train-steps 2
+
+The flags are those of `scripts/train.py` for this path: the consistency-only
+sd15 recipes on cached latents (``shard_*.npz`` with ``latents`` and
+``prompt_embeds``). Without ``--teacher-checkpoint`` the weights are drawn on
+the device from ``--seed``. The uncond embeddings are encoded once, from
+empty prompts. ``--tiny --device cpu`` runs the tiny configuration on the
+CPU through the kernels' plain versions (a smoke mode). A run resumes from
+the newest checkpoint in ``--output-dir`` unless ``--no-resume``.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+NOT_PORTED = "not yet ported to pcm_tpu_torch"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m pcm_tpu_torch.train")
+    ap.add_argument("--recipe", required=True)
+    ap.add_argument("--output-dir", required=True)
+    ap.add_argument("--cached-latents-dir", default=None,
+                    help="dir of shard_*.npz (latents, prompt_embeds)")
+    ap.add_argument("--train-data-dir", default=None, help="image folder (" + NOT_PORTED + ")")
+    ap.add_argument("--teacher-checkpoint", default=None,
+                    help="torch.save'd {'unet': sd, 'vae': sd, 'text': sd} state dicts")
+    ap.add_argument("--max-train-steps", type=int, default=None)
+    ap.add_argument("--batch-size", type=int, default=None, help="per-card batch")
+    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--learning-rate", type=float, default=None,
+                    help="override the recipe learning rate")
+    ap.add_argument("--lr-scheduler", default="constant", choices=["constant", "cosine"])
+    ap.add_argument("--lr-warmup-steps", type=int, default=0)
+    ap.add_argument("--gradient-accumulation-steps", type=int, default=1)
+    ap.add_argument("--use-8bit-adam", action="store_true",
+                    help="blockwise int8 Adam moments")
+    ap.add_argument("--optimizer", default="adamw", choices=["adamw", "prodigy"])
+    ap.add_argument("--checkpointing-steps", type=int, default=500)
+    ap.add_argument("--checkpoints-total-limit", type=int, default=5)
+    ap.add_argument("--log-every", type=int, default=10,
+                    help="metrics cadence (each log reads the device back)")
+    ap.add_argument("--no-resume", action="store_true")
+    ap.add_argument("--remat", default="full",
+                    help="full = checkpoint every UNet block (least memory), none = keep "
+                         "all activations")
+    ap.add_argument("--frozen-weights", default="bf16", choices=["bf16", "int8"])
+    ap.add_argument("--int8-matmul", default=None, choices=["scoped", "dense", "fused"])
+    ap.add_argument("--validation-steps", type=int, default=0,
+                    help="validation image grids (" + NOT_PORTED + ")")
+    ap.add_argument("--validation-prompts", nargs="*", default=None,
+                    help="(" + NOT_PORTED + ")")
+    ap.add_argument("--tiny", action="store_true", help="tiny-model smoke mode")
+    ap.add_argument("--device", default="cuda")
+    return ap
+
+
+def main(argv=None):
+    """Parse ``argv``, build the run and train it; returns the Trainer."""
+    ap = build_parser()
+    args = ap.parse_args(argv)
+
+    from ..configs.families import RECIPES, sd15_bundle
+
+    if args.recipe not in RECIPES:
+        ap.error(f"unknown recipe {args.recipe!r} (one of {sorted(RECIPES)})")
+    recipe = RECIPES[args.recipe]
+    if recipe.family != "sd15" or recipe.adversarial:
+        ap.error(f"recipe {args.recipe} ({recipe.family}, "
+                 f"{'adversarial' if recipe.adversarial else 'consistency'}) is {NOT_PORTED}: "
+                 "sd15_4phase and sd15_4phase_nocfg are")
+    if args.optimizer == "prodigy":
+        ap.error(f"--optimizer prodigy is {NOT_PORTED}")
+    if args.frozen_weights != "bf16":
+        ap.error(f"--frozen-weights {args.frozen_weights} is {NOT_PORTED}")
+    if args.int8_matmul:
+        ap.error(f"--int8-matmul {args.int8_matmul} is {NOT_PORTED}")
+    if args.validation_steps or args.validation_prompts:
+        ap.error(f"validation grids are {NOT_PORTED}")
+    if not args.cached_latents_dir:
+        ap.error(f"training from --train-data-dir (VAE-encoding images) is {NOT_PORTED}: "
+                 "pass --cached-latents-dir")
+    if args.remat not in ("full", "none"):
+        ap.error(f"--remat {args.remat} is {NOT_PORTED} (full|none)")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --device cpu (with --tiny) to smoke-test on the CPU")
+
+    from ..core.schedule import make_ddpm_schedule
+    from ..data.cached import CachedLatentsDataset, batches
+    from ..data.tokenizer import HashTokenizer
+    from .distill import build_ddim_distill_step
+    from .loop import LoopConfig, Trainer
+    from .state import TrainState, make_optimizer
+
+    ds = CachedLatentsDataset(args.cached_latents_dir)
+    if "prompt_embeds" not in ds.get(0):
+        ap.error(f"cached shards without prompt_embeds (captions through the text tower) are "
+                 f"{NOT_PORTED}")
+    batch = args.batch_size or recipe.batch_per_chip
+    accum = args.gradient_accumulation_steps
+    max_steps = args.max_train_steps or recipe.max_steps
+    lr = args.learning_rate if args.learning_rate is not None else recipe.lr
+
+    dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
+    bundle = sd15_bundle(recipe.lora_rank, dtype=dtype, tiny=args.tiny,
+                         remat=args.remat == "full")
+    gen = torch.Generator(device).manual_seed(args.seed)
+    frozen, lora = bundle.init(gen, device)
+    if args.teacher_checkpoint:
+        frozen = bundle.from_states(torch.load(args.teacher_checkpoint, weights_only=True), device)
+
+    tx = make_optimizer(lr, max_grad_norm=1.0, use_8bit=args.use_8bit_adam,
+                        warmup_steps=args.lr_warmup_steps, schedule=args.lr_scheduler,
+                        total_steps=max_steps)
+    state = TrainState.create(lora, tx)
+
+    # uncond embeds, encoded once from empty prompts (scripts/train.py:348-352)
+    proc_batch = batch * accum
+    ids = torch.from_numpy(HashTokenizer()([""] * proc_batch)).long().to(device)
+    with torch.no_grad():
+        uncond = bundle.encode_prompts(frozen, ids)["prompt_embeds"]
+
+    loop_cfg = LoopConfig(output_dir=args.output_dir, max_train_steps=max_steps,
+                          checkpointing_steps=args.checkpointing_steps,
+                          checkpoints_total_limit=args.checkpoints_total_limit,
+                          log_every=args.log_every, seed=args.seed, resume=not args.no_resume)
+    step_fn = build_ddim_distill_step(bundle, make_ddpm_schedule(), recipe.distill, tx,
+                                      grad_accum_steps=accum)
+    trainer = Trainer(loop_cfg, frozen, state, step_fn, recipe.distill, device, accum)
+    print(f"# {args.recipe}: batch {batch} x accum {accum}, {max_steps} steps on {device}"
+          + (f", resumed at step {trainer.resumed_from}" if trainer.resumed_from else ""),
+          flush=True)
+    trainer.run(batches(ds, proc_batch, args.seed), {"uncond_embeds": uncond})
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

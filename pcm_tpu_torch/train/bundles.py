@@ -68,12 +68,13 @@ class SD15Bundle:
     text_cfg: CLIPTextConfig
     lora: LoRASpec
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = False  # checkpoint each UNet block while grad is on (training)
 
     def build(self, device: torch.device) -> Frozen:
         """The bundle's modules with uninitialized weights on ``device``
         (``torch.device("meta")`` builds the structure only)."""
         with torch.device("meta"):
-            frozen = {"unet": UNet2DCondition(self.unet_cfg),
+            frozen = {"unet": UNet2DCondition(self.unet_cfg, remat=self.remat),
                       "vae": AutoencoderKL(self.vae_cfg),
                       "text": CLIPTextModel(self.text_cfg)}
         attach_lora(frozen["unet"], self.lora)
@@ -110,6 +111,23 @@ class SD15Bundle:
     def encode_prompts(self, frozen: Frozen, input_ids: torch.Tensor) -> Cond:
         _, last, _ = frozen["text"](input_ids)
         return {"prompt_embeds": last}
+
+    def encode(self, frozen: Frozen, batch: Mapping[str, torch.Tensor]
+               ) -> Tuple[torch.Tensor, Cond, Cond]:
+        """(latents, cond, uncond) of a training batch (`pcm_tpu/train/bundles.py:177-198`):
+        cached ``latents``, ``prompt_embeds`` (or ``input_ids`` through the
+        text tower) and ``uncond_embeds``."""
+        if "latents" not in batch:
+            raise NotImplementedError(
+                "training from pixels (the VAE encoder) is not yet ported to pcm_tpu_torch: "
+                "train on cached latents (--cached-latents-dir)")
+        if "prompt_embeds" in batch:
+            prompt_embeds = batch["prompt_embeds"]
+        else:
+            with torch.no_grad():
+                prompt_embeds = self.encode_prompts(frozen, batch["input_ids"])["prompt_embeds"]
+        return (batch["latents"], {"prompt_embeds": prompt_embeds},
+                {"prompt_embeds": batch["uncond_embeds"]})
 
     def decode_latents(self, frozen: Frozen, latents: torch.Tensor) -> torch.Tensor:
         """(N, h, w, C) latents -> (N, H, W, 3) pixels in [-1, 1]."""

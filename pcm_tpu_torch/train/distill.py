@@ -1,0 +1,169 @@
+"""The phased-consistency distillation step for the epsilon / DDIM family
+(counterpart of `pcm_tpu/train/distill.py:38-221`, SD1.5).
+
+One step: the CFG teacher forward (cond and uncond batched into one pass)
+and the stop-grad target forward under ``torch.no_grad``, the phased solver
+jumps, then the student forward with gradients, the consistency loss, its
+backward and the optimizer update. Gradient accumulation averages the
+microbatches' (loss, grads) before one update.
+
+The random draws come from outside: per microbatch ``{"noise", "index",
+"w"}``. `sample_draws` makes them from a ``torch.Generator`` for the trainer;
+tests feed in the values JAX's `ddim_prepare` draws, so both packages run
+the same step. The flow-matching (SD3) step, the adversarial steps and the
+int8 no-grad forwards are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..core.losses import cfg_combine, consistency_loss
+from ..core.schedule import DDPMSchedule
+from ..core.solver import PhasedDDIMSolver, boundary_scalings, phase_boundaries
+from .state import TrainState, apply_updates, global_norm
+
+Draws = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class DistillConfig:
+    num_solver_steps: int = 50
+    multiphase: int = 4
+    w_min: float = 4.0
+    w_max: float = 5.0
+    fixed_w: Optional[float] = None  # SD3 uses fixed w=3
+    not_apply_cfg_solver: bool = False
+    loss_type: str = "huber"
+    huber_c: float = 0.001
+    int8_no_grad_fwd: bool = False  # not yet ported
+
+
+def sample_draws(cfg: DistillConfig, generator: torch.Generator, latents: torch.Tensor
+                 ) -> Draws:
+    """One microbatch's draws on the latents' device: Gaussian noise shaped
+    like the latents, solver indices in [0, S) and guidance scales w in
+    [w_min, w_max) (or ``fixed_w``)."""
+    bsz, dev = latents.shape[0], latents.device
+    noise = torch.randn(latents.shape, generator=generator, device=dev, dtype=latents.dtype)
+    index = torch.randint(0, cfg.num_solver_steps, (bsz,), generator=generator, device=dev)
+    if cfg.fixed_w is not None:
+        w = torch.full((bsz,), cfg.fixed_w, device=dev)
+    else:
+        w = torch.rand((bsz,), generator=generator, device=dev) * (cfg.w_max - cfg.w_min) + cfg.w_min
+    return {"noise": noise, "index": index, "w": w}
+
+
+def split_microbatches(batch: Dict[str, torch.Tensor], accum: int) -> List[Dict[str, torch.Tensor]]:
+    """Interleaved split: microbatch a holds rows a::accum (`accumulate_grads`)."""
+    if accum <= 1:
+        return [batch]
+    for k, v in batch.items():
+        if v.shape[0] % accum:
+            raise ValueError(f"batch axis {v.shape[0]} of {k!r} not divisible by "
+                             f"grad_accum_steps={accum}")
+    return [{k: v[a::accum] for k, v in batch.items()} for a in range(accum)]
+
+
+def accumulate_grads(grad_fn: Callable, batch: Dict[str, torch.Tensor], draws: Sequence[Draws],
+                     accum: int):
+    """Mean of ``grad_fn(microbatch, draws[a])`` -> (loss, grads) over the
+    ``accum`` interleaved microbatches, summed in microbatch order."""
+    micro = split_microbatches(batch, accum)
+    if len(draws) != len(micro):
+        raise ValueError(f"{len(draws)} draws for {len(micro)} microbatches")
+    if accum <= 1:
+        return grad_fn(micro[0], draws[0])
+    total_loss, total = None, None
+    for mb, dr in zip(micro, draws):
+        loss, grads = grad_fn(mb, dr)
+        if total is None:
+            total_loss, total = loss, grads
+        else:
+            total_loss = total_loss + loss
+            total = {k: total[k] + g for k, g in grads.items()}
+    return total_loss / accum, {k: g / accum for k, g in total.items()}
+
+
+def _merge_cond(cond, uncond):
+    return {k: torch.cat([cond[k], uncond[k]], dim=0) for k in cond}
+
+
+@torch.no_grad()
+def ddim_prepare(bundle, schedule: DDPMSchedule, solver: PhasedDDIMSolver,
+                 boundaries: torch.Tensor, cfg: DistillConfig, frozen, lora, batch,
+                 draws: Draws) -> Dict[str, Any]:
+    """Everything up to the stop-grad target: noising, the CFG teacher ODE
+    step and the target network's jump (`ddim_prepare`, :137-184).
+    ``lora`` is the student's current adapter."""
+    if cfg.int8_no_grad_fwd:
+        raise NotImplementedError("int8 no-grad forwards are not yet ported to pcm_tpu_torch")
+    latents, cond, uncond = bundle.encode(frozen, batch)
+    noise, index, w = draws["noise"], draws["index"].long(), draws["w"]
+    start_t = solver.table("timesteps", latents.device)[index]
+    topk = schedule.num_train_timesteps // cfg.num_solver_steps
+    t_prev = torch.clamp(start_t - topk, min=0)
+    noisy = schedule.add_noise(latents, noise, start_t)
+
+    if cfg.not_apply_cfg_solver:
+        cond_out = uncond_out = bundle.teacher(frozen, noisy, start_t, cond)
+    else:
+        both = bundle.teacher(frozen, torch.cat([noisy, noisy]), torch.cat([start_t, start_t]),
+                              _merge_cond(cond, uncond))
+        cond_out, uncond_out = both.chunk(2)
+    cond_x0 = schedule.predicted_origin(cond_out, start_t, noisy)
+    uncond_x0 = schedule.predicted_origin(uncond_out, start_t, noisy)
+    pred_x0 = cfg_combine(cond_x0, uncond_x0, w)
+    pred_noise = cfg_combine(cond_out, uncond_out, w)
+    x_prev = solver.ddim_step(pred_x0, pred_noise, index)
+
+    target_out = bundle.student(frozen, lora, x_prev, t_prev, cond)
+    t_x0 = schedule.predicted_origin(target_out, t_prev, x_prev)
+    target_jump, end_t = solver.multiphase_pred(t_x0, target_out, index, cfg.multiphase)
+    c_skip, c_out = boundary_scalings(index, boundaries, latents.ndim)
+    target = c_skip * x_prev + c_out * target_jump
+    return dict(latents=latents, noise=noise, index=index, start_t=start_t, t_prev=t_prev,
+                noisy=noisy, w=w, cond=cond, uncond=uncond, x_prev=x_prev, target=target,
+                end_t=end_t)
+
+
+def ddim_model_pred(bundle, schedule, solver, cfg, frozen, lora, parts) -> torch.Tensor:
+    """The online student prediction, differentiable w.r.t. ``lora``
+    (online boundary scalings are c_skip = 0, c_out = 1)."""
+    noise_pred = bundle.student(frozen, lora, parts["noisy"], parts["start_t"], parts["cond"])
+    px0 = schedule.predicted_origin(noise_pred, parts["start_t"], parts["noisy"])
+    model_pred, _ = solver.multiphase_pred(px0, noise_pred, parts["index"], cfg.multiphase)
+    return model_pred
+
+
+def build_ddim_distill_step(bundle, schedule: DDPMSchedule, cfg: DistillConfig, tx,
+                            grad_accum_steps: int = 1) -> Callable:
+    """``step(state, frozen, batch, draws) -> (new_state, {"loss", "grad_norm"})``
+    with ``draws`` one dict per microbatch. ``grad_norm`` is the global norm
+    of the averaged grads before clipping."""
+    solver = PhasedDDIMSolver.create(schedule, cfg.num_solver_steps)
+    bounds = phase_boundaries(cfg.num_solver_steps, cfg.multiphase)
+
+    def step(state: TrainState, frozen, batch, draws: Sequence[Draws]
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        device = next(iter(state.params.values())).device
+        boundaries = torch.from_numpy(bounds).to(device)
+
+        def grad_fn(mb, dr):
+            parts = ddim_prepare(bundle, schedule, solver, boundaries, cfg, frozen,
+                                 state.params, mb, dr)
+            lora = {k: p.detach().requires_grad_(True) for k, p in state.params.items()}
+            with torch.enable_grad():
+                model_pred = ddim_model_pred(bundle, schedule, solver, cfg, frozen, lora, parts)
+                loss = consistency_loss(model_pred, parts["target"], cfg.loss_type, cfg.huber_c)
+                grads = torch.autograd.grad(loss, list(lora.values()))
+            return loss.detach(), dict(zip(lora, grads))
+
+        loss, grads = accumulate_grads(grad_fn, batch, draws, grad_accum_steps)
+        new_state = apply_updates(state, grads, tx)
+        return new_state, {"loss": loss, "grad_norm": global_norm(grads)}
+
+    return step

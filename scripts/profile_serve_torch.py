@@ -25,7 +25,9 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 def category(name: str) -> str:
     n = name.lower()
-    for key, cat in (("flash_fwd_kernel", "K1 flash attention"), ("gn_", "K4 group norm"),
+    for key, cat in (("flash_fwd_kernel", "K1 flash attention"),
+                     ("flash_bwd_dkv_kernel", "K2 flash attention dK/dV"),
+                     ("flash_bwd_dq_kernel", "K3 flash attention dQ"), ("gn_", "K4 group norm"),
                      ("geglu_kernel", "K5 geglu")):
         if key in n:
             return cat

@@ -6,9 +6,9 @@ imports no jax so that it runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m gpu -q
 
 Inputs are bf16 on the card; the plain versions compute in fp32 from the
-same bf16 inputs with TF32 off. Bounds: rel-max 2e-2 for attention and
-GEGLU (bf16 rounding of P and of the output), 1e-2 for GroupNorm, base-2
-lse abs 5e-3.
+same bf16 inputs with TF32 off. Bounds: rel-max 2e-2 for attention (forward
+and the K2/K3 gradients: bf16 rounding of P, dS and the outputs) and GEGLU,
+1e-2 for GroupNorm, base-2 lse abs 5e-3.
 """
 
 import numpy as np
@@ -16,8 +16,9 @@ import pytest
 import torch
 
 from pcm_tpu_torch.ops import common
-from pcm_tpu_torch.ops.flash_attention import (attention_lse_reference, attention_reference,
-                                               flash_attention_fwd)
+from pcm_tpu_torch.ops.flash_attention import (attention_bwd_reference, attention_lse_reference,
+                                               attention_reference, flash_attention,
+                                               flash_attention_bwd, flash_attention_fwd)
 from pcm_tpu_torch.ops.geglu import geglu, geglu_reference
 from pcm_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_reference
 
@@ -131,3 +132,89 @@ def test_wrappers_reject_unsupported(cuda):
     x = torch.zeros((1, 4, 12), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 8"):
         group_norm_silu(x, x[0, 0], x[0, 0], num_groups=4)
+    q = torch.zeros((1, 8, 1, 512), device=cuda, dtype=torch.bfloat16)
+    o, lse = flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match="backward"):
+        flash_attention_bwd(q, q, q, o, lse, o, 512 ** -0.5)
+
+
+BWD_SHAPES = [(2, 256, 256, 8, 40), (2, 1024, 77, 8, 40), (1, 300, 300, 8, 80),
+              (2, 64, 77, 8, 160), (2, 77, 77, 4, 16), (1, 130, 70, 2, 64)]
+
+
+def _grads(fn, inputs, do):
+    xs = [t.detach().clone().requires_grad_(True) for t in inputs]
+    fn(*xs).backward(do)
+    return [x.grad for x in xs]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d", BWD_SHAPES)
+def test_flash_attention_backward_kernels(cuda, b, sq, sk, h, d):
+    """K2 (dK/dV) and K3 (dQ) through the autograd Function against autograd
+    of the fp32 plain attention on the same bf16 inputs; ragged sq and sk."""
+    q, k, v = _randn((b, sq, h, d), 20, cuda), _randn((b, sk, h, d), 21, cuda), \
+        _randn((b, sk, h, d), 22, cuda)
+    do = _randn((b, sq, h, d), 23, cuda)
+    common.reset_launch_counts()
+    grads = _grads(flash_attention, (q, k, v), do)
+    torch.cuda.synchronize()
+    counts = common.launch_counts()
+    assert counts["flash_attention_bwd_dkv"] == 1 and counts["flash_attention_bwd_dq"] == 1
+    refs = _grads(lambda *a: attention_reference(*a), [t.float() for t in (q, k, v)], do.float())
+    for name, g, r in zip("qkv", grads, refs):
+        assert g.dtype == torch.bfloat16 and g.shape == r.shape, name
+        assert rel_max(g, r) <= 2e-2, (name, rel_max(g, r))
+    # and against the plain K2+K3 on the kernel forward's own o / lse
+    o, lse = flash_attention_fwd(q, k, v)
+    plain = attention_bwd_reference(q, k, v, o, lse, do, d ** -0.5)
+    for name, g, r in zip("qkv", grads, plain):
+        assert rel_max(g, r) <= 2e-2, (name, rel_max(g, r))
+
+
+def test_flash_attention_backward_is_deterministic(cuda):
+    q, k, v = (_randn((2, 1024, 8, 40), s, cuda) for s in (24, 25, 26))
+    do = _randn((2, 1024, 8, 40), 27, cuda)
+    o, lse = flash_attention_fwd(q, k, v)
+    first = flash_attention_bwd(q, k, v, o, lse, do, 40 ** -0.5)
+    second = flash_attention_bwd(q, k, v, o, lse, do, 40 ** -0.5)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_backward_noncontiguous_do(cuda):
+    """dO as a transposed view (unit stride along head_dim: read through its
+    strides) and with a non-unit head_dim stride (copied): same bits."""
+    b, s, h, d = 2, 256, 8, 80
+    q, k, v = (_randn((b, s, h, d), sd, cuda) for sd in (28, 29, 30))
+    do = _randn((b, s, h, d), 31, cuda)
+    o, lse = flash_attention_fwd(q, k, v)
+    ref = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5)
+    do_bhsd = do.transpose(1, 2).contiguous().transpose(1, 2)  # strides (h s d, d, s d, 1)
+    do_dlast = do.permute(0, 1, 3, 2).contiguous().permute(0, 1, 3, 2)  # head_dim stride h
+    assert not do_bhsd.is_contiguous() and do_dlast.stride(3) != 1
+    for view in (do_bhsd, do_dlast):
+        for a, r in zip(flash_attention_bwd(q, k, v, o, lse, view, d ** -0.5), ref):
+            assert torch.equal(a, r)
+
+
+def test_group_norm_and_geglu_function_grads(cuda):
+    """Kernel forwards with autograd-of-plain backwards: grads of x, gamma and
+    beta (GroupNorm) and of x, w, b (GEGLU) against fp32 plain autograd."""
+    x = _randn((2, 32, 32, 640), 32, cuda)
+    gamma, beta = _randn((640,), 33, cuda, 0.5, 1.0), _randn((640,), 34, cuda, 0.5)
+    g = _randn((2, 32, 32, 640), 35, cuda)
+    common.reset_launch_counts()
+    got = _grads(lambda *a: group_norm_silu(*a, 32, 1e-5, "silu"), (x, gamma, beta), g)
+    assert common.launch_counts()["group_norm_silu"] == 1
+    ref = _grads(lambda *a: group_norm_silu_reference(*a, 32, 1e-5, "silu"),
+                 [t.float() for t in (x, gamma, beta)], g.float())
+    for a, r in zip(got, ref):
+        assert rel_max(a, r) <= 2e-2
+    xg = _randn((2, 1024, 320), 36, cuda)
+    w, bias = _randn((2560, 320), 37, cuda, 320 ** -0.5), _randn((2560,), 38, cuda, 0.1)
+    gg = _randn((2, 1024, 1280), 39, cuda)
+    got = _grads(geglu, (xg, w, bias), gg)
+    assert common.launch_counts()["geglu"] == 1
+    ref = _grads(geglu_reference, [t.float() for t in (xg, w, bias)], gg.float())
+    for a, r in zip(got, ref):
+        assert rel_max(a, r) <= 2e-2

@@ -4,9 +4,12 @@ The JAX side runs with ``interpret=True``, as tests/test_ops.py does, so the
 Pallas kernel bodies themselves execute on the CPU. Inputs come from numpy
 and both sides compute in fp32; only the order of summation differs, so the
 bound is rel-max 1e-5. (At K = 320 the JAX GEGLU does not run its kernel:
-it falls back to its oracle, `pcm_tpu/ops/geglu.py:_forward`.)
+it falls back to its oracle, `pcm_tpu/ops/geglu.py:_forward`.) The gradients
+go through the port's autograd Functions and JAX's custom VJPs, whose
+flash-attention backward runs the Pallas K2/K3 bodies (`_bwd`).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,11 +18,14 @@ import torch
 from pcm_tpu.ops import flash_attention as jax_flash_attention
 from pcm_tpu.ops import geglu as jax_geglu
 from pcm_tpu.ops import group_norm_silu as jax_group_norm_silu
+from pcm_tpu.ops.flash_attention import _bwd as jax_fa_bwd
 from pcm_tpu.ops.flash_attention import _fwd as jax_fa_fwd
 from pcm_tpu_torch.ops import common
-from pcm_tpu_torch.ops.flash_attention import flash_attention_fwd
-from pcm_tpu_torch.ops.geglu import geglu
-from pcm_tpu_torch.ops.groupnorm import group_norm_silu
+from pcm_tpu_torch.ops.flash_attention import (FlashAttentionFn, attention_bwd_reference,
+                                               attention_reference, flash_attention,
+                                               flash_attention_fwd)
+from pcm_tpu_torch.ops.geglu import GEGLUFn, geglu
+from pcm_tpu_torch.ops.groupnorm import GroupNormSiLUFn, group_norm_silu
 
 TOL = 1e-5
 
@@ -49,6 +55,97 @@ def test_attention_matches_pallas(b, sq, sk, h, d):
     _, lse_jax = jax_fa_fwd(t(q), t(k), t(v), d ** -0.5, True)
     assert lse.shape == (b, h, sq)
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_jax), rtol=TOL, atol=TOL)
+
+
+def _bhsd(a):
+    return jnp.transpose(jnp.asarray(a), (0, 2, 1, 3))
+
+
+def _grads(fn, arrays, g):
+    xs = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    fn(*xs).backward(torch.from_numpy(g))
+    return [x.grad for x in xs]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d", [(2, 50, 77, 2, 16), (1, 70, 77, 2, 40)])
+def test_attention_backward_matches_pallas(b, sq, sk, h, d):
+    """The plain K2 + K3 from the saved base-2 lse against the Pallas `_bwd`
+    (interpret mode) on the JAX forward's own o / lse, and against torch
+    autograd of the plain attention: ragged sq and sk = 77."""
+    rng = np.random.default_rng(4)
+    q, k, v = (rng.standard_normal((b, s, h, d), dtype=np.float32) for s in (sq, sk, sk))
+    do = rng.standard_normal((b, sq, h, d), dtype=np.float32)
+    scale = d ** -0.5
+    o_j, lse_j = jax_fa_fwd(_bhsd(q), _bhsd(k), _bhsd(v), scale, True)
+    dq_j, dk_j, dv_j = jax_fa_bwd(scale, True, None, None,
+                                  (_bhsd(q), _bhsd(k), _bhsd(v), o_j, lse_j), _bhsd(do))
+    ours = attention_bwd_reference(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                   torch.from_numpy(np.array(jnp.transpose(o_j, (0, 2, 1, 3)))),
+                                   torch.from_numpy(np.array(lse_j)), torch.from_numpy(do),
+                                   scale)
+    for name, a, r in zip("qkv", ours, (dq_j, dk_j, dv_j)):
+        assert a.shape == (b, sq if name == "q" else sk, h, d)
+        assert rel_max(a, jnp.transpose(r, (0, 2, 1, 3))) < TOL, name
+    auto = _grads(lambda *a: attention_reference(*a, scale), (q, k, v), do)
+    for name, a, r in zip("qkv", ours, auto):
+        assert rel_max(a, r) < TOL, name
+
+
+def test_function_grads_match_jax_custom_vjps():
+    """Grads of the three autograd Functions against jax.grad of the Pallas
+    ops (interpret mode; GEGLU at K = 256 so its kernel runs)."""
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.standard_normal((1, s, 2, 40), dtype=np.float32) for s in (70, 77, 77))
+    g = rng.standard_normal((1, 70, 2, 40), dtype=np.float32)
+    jfa = jax.vjp(lambda *a: jax_flash_attention(*a, interpret=True),
+                  *map(jnp.asarray, (q, k, v)))[1](jnp.asarray(g))
+    for a, r in zip(_grads(flash_attention, (q, k, v), g), jfa):
+        assert rel_max(a, r) < TOL
+
+    x = rng.standard_normal((2, 7, 11, 320), dtype=np.float32)
+    gamma, beta = (rng.standard_normal(320, dtype=np.float32) for _ in range(2))
+    gx = rng.standard_normal(x.shape, dtype=np.float32)
+    jgn = jax.vjp(lambda *a: jax_group_norm_silu(*a, 32, 1e-5, "silu", interpret=True),
+                  *map(jnp.asarray, (x, gamma, beta)))[1](jnp.asarray(gx))
+    for a, r in zip(_grads(lambda *a: group_norm_silu(*a, 32, 1e-5, "silu"), (x, gamma, beta),
+                           gx), jgn):
+        assert rel_max(a, r) < TOL
+
+    xg = rng.standard_normal((3, 37, 256), dtype=np.float32)
+    w = rng.standard_normal((256, 256), dtype=np.float32) * np.float32(256 ** -0.5)
+    bias = rng.standard_normal(256, dtype=np.float32)
+    gg = rng.standard_normal((3, 37, 128), dtype=np.float32)
+    jgg = jax.vjp(lambda *a: jax_geglu(*a, interpret=True),
+                  *map(jnp.asarray, (xg, w, bias)))[1](jnp.asarray(gg))
+    ours = _grads(geglu, (xg, np.ascontiguousarray(w.T), bias), gg)
+    for a, r in zip(ours, (jgg[0], jnp.transpose(jgg[1]), jgg[2])):  # w: nn.Linear layout
+        assert rel_max(a, r) < TOL
+
+
+def test_ops_carry_their_functions_and_student_lora_gets_grads():
+    """On the CPU, as on the card, every op's output hangs off its autograd
+    Function, so a TINY student forward gives every LoRA factor a gradient
+    (a kernel output made with torch.empty would cut the graph there)."""
+    from pcm_tpu_torch.configs.families import sd15_bundle
+    from pcm_tpu_torch.train.bundles import adapter_like
+
+    x = torch.randn(1, 8, 2, 16, requires_grad=True)
+    assert flash_attention(x, x, x).grad_fn.__class__.__name__ == FlashAttentionFn.__name__ + "Backward"
+    y = torch.randn(1, 4, 4, 32, requires_grad=True)
+    assert group_norm_silu(y, torch.ones(32), torch.zeros(32), 8).grad_fn.__class__.__name__ \
+        == GroupNormSiLUFn.__name__ + "Backward"
+    assert geglu(y, torch.randn(16, 32), torch.zeros(16)).grad_fn.__class__.__name__ \
+        == GEGLUFn.__name__ + "Backward"
+
+    bundle = sd15_bundle(lora_rank=4, dtype=torch.float32, tiny=True)
+    gen = torch.Generator().manual_seed(0)
+    frozen, template = bundle.init(gen, torch.device("cpu"))
+    lora = {k: v.requires_grad_(True) for k, v in adapter_like(template, gen).items()}
+    out = bundle.student(frozen, lora, torch.randn(2, 8, 8, 4), torch.tensor([10, 900]),
+                         {"prompt_embeds": torch.randn(2, 7, 32)})
+    out.square().mean().backward()
+    missing = [k for k, v in lora.items() if v.grad is None or not torch.isfinite(v.grad).all()]
+    assert not missing and len(lora) > 100
 
 
 @pytest.mark.parametrize("act", ["silu", None])
