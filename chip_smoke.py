@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card (H100): the SD1.5 serving
-path and the SD1.5 distillation step.
+path, the SD1.5 distillation step (bf16 and int8 frozen weights) and the
+SDXL-1024 cached distillation step on int8 frozen weights.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -8,10 +9,14 @@ Phases, one printed line each:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile the port's CUDA kernels (pcm_tpu_torch/csrc) into one library;
   3. kernels: each kernel against its plain PyTorch version at the SD1.5 shapes
-     of the serving path, bf16 on the card, with errors and CUDA-event times;
+     of the serving path and the SDXL-1024 shapes of the SDXL step, bf16 on the
+     card, with errors and CUDA-event times;
      the flash-attention backward (K2 dK/dV, K3 dQ) through its autograd
      Function against autograd of the plain attention at the training shapes,
-     and twice bit-identical; the GroupNorm Function's gradients;
+     and twice bit-identical; the GroupNorm Function's gradients; the fused
+     int8 matmul (K6) at the SD1.5 and SDXL shapes of the int8 paths; beside
+     each kernel the least time the card could take (``bound_ms``) and the
+     one PyTorch call that computes the same function, where there is one;
   4. unet: one full-width SD1.5 UNet forward at batch 4, kernels against the
      plain versions (``reference_ops``);
   5. slice: the full-width SD1.5 bundle with random weights from ``--seed``,
@@ -24,8 +29,21 @@ Phases, one printed line each:
   7. train: ``python -m pcm_tpu_torch.train``'s ``main`` for 3 full-width
      ``sd15_4phase`` steps at batch 4 on a seeded cached-latents shard
      (written under build/), then a resume for one more step; checks the
-     loss, that the LoRA moved and that K1-K5 were all launched.
-Then a JSON line of the kernels, and a last JSON line ``{"ok": true, ...}``.
+     loss, that the LoRA moved and that K1-K5 were all launched;
+  8. train-int8: the same entry point with ``--frozen-weights int8
+     --int8-matmul fused`` for 3 steps; checks that K1-K6 were all launched;
+  9. sdxl-unet: the full-width SDXL UNet, one forward at 1024 px, on bf16
+     weights and on int8 weights under ``fused``: kernels against all plain
+     versions and against K1, K4, K5 each plain alone, beside a yardstick of
+     bf16 round-off (a half-step nudge of the input, all plain); on int8, the
+     output with K6's plain version alone equal bit for bit;
+ 10. sdxl-step: the SDXL-1024 cached consistency step (`sdxl_bundle` +
+     `build_ddim_distill_step`, 40 solver steps, 4 phases, w in [6, 7), remat
+     full) on int8 frozen weights under ``fused``, batch 4, 3 steps: finite
+     losses, peak memory, K1-K6 all launched.
+Each main path runs with the launch counts set to 0 just before it and read
+just after. Then a JSON line of the kernels, the nvidia-smi line, and a last
+JSON line ``{"ok": true, ...}``.
 Any failed check raises: the script then exits non-zero and prints no result.
 It needs a CUDA device and the repository around it.
 """
@@ -34,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import json
 import math
 import os
@@ -79,27 +98,61 @@ def bf16_randn(shape, gen, scale=1.0, offset=0.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale + offset).bfloat16()
 
 
+# published H100 SXM peaks (dense): bytes/s of HBM3, operations/s by type
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+
+
+def bound(ops: float, kind: str, nbytes: float) -> dict:
+    """The least time of a function on the card: the larger of its bytes
+    (each input read once, each output written once) over the memory rate
+    and its operations over the peak rate of their type."""
+    t_ops, t_bytes = ops / PEAK_OPS_S[kind] * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def attn_bound(shape, products: int, outputs: int) -> dict:
+    """Attention forward / backward: ``products`` matmuls of 2·sq·sk·d per
+    (b, h); q, k, v (+ dO) in bf16 and the fp32 row statistics read,
+    ``outputs`` bf16 tensors shaped like q or k written."""
+    b, sq, sk, h, d = shape
+    ops = 2.0 * products * b * h * sq * sk * d
+    ins = 2.0 * (2 * b * sq * h * d + 2 * b * sk * h * d) + 4.0 * 2 * b * h * sq
+    outs = 2.0 * outputs * b * max(sq, sk) * h * d
+    return bound(ops, "bf16", ins + outs)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-# (b, sq, sk, h, d): SD1.5 at 512 px, batch 4 (UNet self/cross, mid, VAE mid)
+# (b, sq, sk, h, d): SD1.5 at 512 px, batch 4 (UNet self/cross, mid, VAE mid);
+# then the SDXL UNet at 1024 px, batch 4 (self/cross at 64x64 and 32x32)
 ATTN_SHAPES = [
     (4, 4096, 4096, 8, 40), (4, 4096, 77, 8, 40), (4, 1024, 1024, 8, 80),
     (4, 1024, 77, 8, 80), (4, 256, 256, 8, 160), (4, 256, 77, 8, 160),
     (4, 64, 64, 8, 160), (4, 4096, 4096, 1, 512),
+    (4, 4096, 4096, 10, 64), (4, 4096, 77, 10, 64), (4, 1024, 1024, 20, 64),
+    (4, 1024, 77, 20, 64),
 ]
-# (shape NHWC, eps, act): UNet resnets / transformer norms, VAE decoder
+# (shape NHWC, eps, act): UNet resnets / transformer norms, VAE decoder; then
+# SDXL at 1024 px, batch 4 (resnets of each level, an up-path concat, a
+# transformer norm)
 GN_SHAPES = [
     ((4, 64, 64, 320), 1e-5, "silu"), ((4, 64, 64, 960), 1e-5, "silu"),
     ((4, 32, 32, 1920), 1e-5, "silu"), ((4, 16, 16, 2560), 1e-5, "silu"),
     ((4, 8, 8, 1280), 1e-5, "silu"), ((4, 64, 64, 320), 1e-6, None),
     ((4, 64, 64, 512), 1e-6, None), ((4, 512, 512, 128), 1e-6, "silu"),
     ((4, 512, 512, 256), 1e-6, "silu"),
+    ((4, 128, 128, 320), 1e-5, "silu"), ((4, 64, 64, 640), 1e-5, "silu"),
+    ((4, 32, 32, 2560), 1e-5, "silu"), ((4, 128, 128, 960), 1e-5, "silu"),
+    ((4, 32, 32, 1280), 1e-6, None),
 ]
-# (M = b*s, K, F): the SD1.5 feed-forward in-projections (teacher; CFG doubles M)
+# (M = b*s, K, F): the SD1.5 feed-forward in-projections (teacher; CFG doubles
+# M), then SDXL's at batch 4 under CFG
 GEGLU_SHAPES = [(16384, 320, 1280), (32768, 320, 1280), (4096, 640, 2560),
-                (1024, 1280, 5120), (256, 1280, 5120)]
+                (1024, 1280, 5120), (256, 1280, 5120), (32768, 640, 2560), (8192, 1280, 5120)]
 # the shape whose times go into the kernels JSON line
 HEADLINE = {"flash_attention_fwd": (4, 4096, 4096, 8, 40),
             "group_norm_silu": ((4, 512, 512, 256), 1e-6, "silu"),
@@ -112,7 +165,7 @@ def check_kernels(gen) -> dict:
     from pcm_tpu_torch.ops.geglu import geglu, geglu_reference
     from pcm_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_reference
 
-    results = {k: {"max_abs_err": 0.0} for k in HEADLINE}
+    results = {k: {"max_abs_err": 0.0, "library_ms": None} for k in HEADLINE}
 
     def record(name, key, err_abs, ms, plain_ms):
         r = results[name]
@@ -137,6 +190,13 @@ def check_kernels(gen) -> dict:
         if not (err <= 2e-2 and err_lse <= 5e-3):
             raise AssertionError(f"flash attention {shp}: rel {err:.3e}, lse {err_lse:.3e}")
         record("flash_attention_fwd", shp, abs_max(o, ref), ms, plain)
+        if shp == HEADLINE["flash_attention_fwd"]:  # the library call, on (b, h, s, d)
+            qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+            lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
+            results["flash_attention_fwd"].update(library_ms=lib, **attn_bound(shp, 2, 1))
+            log("kernel", name="flash_attention_fwd", shape=shp, library_ms=f"{lib:.4f}",
+                **{k: results["flash_attention_fwd"][k] for k in ("bound_ms", "bound_by")})
+            del qt, kt, vt
         del q, k, v, o, ref
 
     for key in GN_SHAPES:
@@ -155,6 +215,8 @@ def check_kernels(gen) -> dict:
         if not err <= 1e-2:
             raise AssertionError(f"group norm {key}: rel {err:.3e}")
         record("group_norm_silu", key, abs_max(out, ref), ms, plain)
+        if key == HEADLINE["group_norm_silu"]:  # read x, write y (bf16); ~8 fp32 ops each
+            results["group_norm_silu"].update(bound(8.0 * x.numel(), "fp32", 4.0 * x.numel()))
         del x, out, ref
 
     # stability on a large mean (the Pallas one-pass variance cancels here)
@@ -182,14 +244,20 @@ def check_kernels(gen) -> dict:
         if not err <= 2e-2:
             raise AssertionError(f"geglu {shp}: rel {err:.3e}")
         record("geglu", shp, abs_max(out, ref), ms, plain)
+        if shp == HEADLINE["geglu"]:
+            results["geglu"].update(bound(2.0 * m * kk * 2 * f, "bf16",
+                                          2.0 * (m * kk + 2 * f * kk + 2 * f + m * f)))
     return results
 
 
-# (b, sq, sk, h, d): the SD1.5 UNet's attentions at 512 px, training batch 4
+# (b, sq, sk, h, d): the SD1.5 UNet's attentions at 512 px, training batch 4,
+# then SDXL's at 1024 px
 BWD_SHAPES = [
     (4, 4096, 4096, 8, 40), (4, 4096, 77, 8, 40), (4, 1024, 1024, 8, 80),
     (4, 1024, 77, 8, 80), (4, 256, 256, 8, 160), (4, 256, 77, 8, 160),
     (4, 64, 64, 8, 160), (4, 64, 77, 8, 160),
+    (4, 4096, 4096, 10, 64), (4, 4096, 77, 10, 64), (4, 1024, 1024, 20, 64),
+    (4, 1024, 77, 20, 64),
 ]
 BWD_HEADLINE = (4, 4096, 4096, 8, 40)
 
@@ -198,6 +266,15 @@ def _autograd(fn, inputs, grad_out):
     xs = [t.detach().clone().requires_grad_(True) for t in inputs]
     fn(*xs).backward(grad_out)
     return [x.grad for x in xs]
+
+
+def sdpa_backward_ms(q, k, v, do) -> float:
+    """CUDA-event time of the backward of `scaled_dot_product_attention`
+    (dQ, dK and dV in one call) on (b, h, s, d) copies of the inputs."""
+    qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_(True) for a in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
+    return cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True))
 
 
 def check_backward(gen) -> dict:
@@ -213,6 +290,8 @@ def check_backward(gen) -> dict:
 
     results = {k: {"max_abs_err": 0.0} for k in ("flash_attention_bwd_dkv",
                                                  "flash_attention_bwd_dq")}
+    results["flash_attention_bwd_dkv"].update(attn_bound(BWD_HEADLINE, 4, 2))  # S, dV, dP, dK
+    results["flash_attention_bwd_dq"].update(attn_bound(BWD_HEADLINE, 3, 1))  # S, dP, dQ
     for shp in BWD_SHAPES:
         b, sq, sk, h, d = shp
         scale = d ** -0.5
@@ -247,6 +326,12 @@ def check_backward(gen) -> dict:
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if shp == BWD_HEADLINE:
                 r["ms"], r["plain_ms"] = ms, plain
+        if shp == BWD_HEADLINE:  # the library call: one backward gives dQ, dK and dV
+            lib = sdpa_backward_ms(q, k, v, do)
+            for name in results:
+                results[name]["library_ms"] = lib
+            log("kernel", name="flash_attention_bwd", shape=shp, library_ms=f"{lib:.4f}",
+                note="sdpa backward: dq+dk+dv in one call")
         del q, k, v, do, grads, refs, o, lse, first, second
 
     # the GroupNorm Function: kernel forward, autograd-of-plain backward
@@ -262,6 +347,51 @@ def check_backward(gen) -> dict:
     if not max(errs) <= 2e-2:
         raise AssertionError(f"group norm gradients: rel {errs}")
     return results
+
+
+# (M, K, N) of the int8 products: SD1.5 1x1 convs over 64x64 latents at batch 4,
+# SDXL-1024 at batch 4 (proj at 64x64, attention/FF at 32x32, cross-attention
+# K/V over 4 x 77 tokens of 2048)
+K6_SHAPES = [(16384, 320, 320), (16384, 1280, 320), (16384, 640, 640), (4096, 1280, 1280),
+             (4096, 5120, 1280), (4096, 1280, 10240), (308, 2048, 1280)]
+K6_HEADLINE = (16384, 320, 320)
+
+
+def check_int8(gen) -> dict:
+    """K6 against its plain version on the same bf16 activations and int8
+    weights (per-channel codes of a seeded weight): both do the same fp32
+    operations in the same order, so every output must be equal bit for bit,
+    and the all-zero row x[1] must give a zero row."""
+    from pcm_tpu_torch.ops.int8_matmul import (fused_quantized_dot_fwd,
+                                               fused_quantized_dot_reference)
+    from pcm_tpu_torch.utils.quant import quantize
+
+    result = {"max_abs_err": 0.0, "library_ms": None}
+    for shp in K6_SHAPES:
+        m, k, n = shp
+        x = bf16_randn((m, k), gen)
+        x[1] = 0  # an all-zero row: scale 1, codes 0
+        qt = quantize(torch.randn((n, k), generator=gen, device="cuda") * k ** -0.5)
+        values, scale = qt.values, qt.scale.reshape(-1)
+        out = fused_quantized_dot_fwd(x, values, scale)
+        torch.cuda.synchronize()
+        ref = fused_quantized_dot_reference(x, values, scale)
+        err, n_diff = rel_max(out, ref), int((out != ref).sum())
+        zero_row = not bool(out[1].any())
+        ms = cuda_ms(lambda: fused_quantized_dot_fwd(x, values, scale))
+        plain = cuda_ms(lambda: fused_quantized_dot_reference(x, values, scale), iters=5)
+        b = bound(2.0 * m * k * n, "int8", 2.0 * m * k + n * k + 4.0 * n + 2.0 * m * n)
+        log("kernel", name="int8_matmul", shape=shp, rel_max=f"{err:.3e}",
+            entries_differing=n_diff, zero_row=zero_row, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+            bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"])
+        if n_diff or not (torch.equal(out, ref) and zero_row):
+            raise AssertionError(f"int8 matmul {shp}: {n_diff} entries differ from the plain "
+                                 f"version (rel {err:.3e}), zero row kept zero: {zero_row}")
+        result["max_abs_err"] = max(result["max_abs_err"], abs_max(out, ref))
+        if shp == K6_HEADLINE:
+            result.update(ms=ms, plain_ms=plain, **b)
+        del x, out, ref, qt, values, scale
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -444,13 +574,13 @@ def write_cache(bundle, frozen, out_dir: str, seed: int) -> str:
     return out_dir
 
 
-def train_slice(cache_dir: str, out_dir: str, seed: int) -> dict:
+def train_slice(cache_dir: str, out_dir: str, seed: int, extra=(), resume: bool = True) -> dict:
     from pcm_tpu_torch.ops import launch_counts, reset_launch_counts
     from pcm_tpu_torch.train.__main__ import main as train_main
 
     argv = ["--recipe", "sd15_4phase", "--cached-latents-dir", cache_dir, "--output-dir", out_dir,
             "--batch-size", "4", "--seed", str(seed), "--log-every", "1",
-            "--checkpointing-steps", "3"]
+            "--checkpointing-steps", "3", *extra]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -460,9 +590,137 @@ def train_slice(cache_dir: str, out_dir: str, seed: int) -> dict:
         rows = [json.loads(line) for line in f]
     lora_b = max(float(v.abs().max()) for k, v in trainer.state.params.items()
                  if k.endswith("lora_b"))
-    resumed = train_main(argv + ["--max-train-steps", "4"])
-    return {"counts": counts, "rows": rows, "lora_b_max": lora_b,
-            "resumed_from": resumed.resumed_from, "resumed_step": resumed.global_step}
+    out = {"counts": counts, "rows": rows, "lora_b_max": lora_b, "trainer": trainer}
+    if resume:
+        resumed = train_main(argv + ["--max-train-steps", "4"])
+        out.update(resumed_from=resumed.resumed_from, resumed_step=resumed.global_step)
+    return out
+
+
+def check_train(tag: str, tr: dict, kernels) -> None:
+    steps = [r for r in tr["rows"] if r["step"] <= 3]
+    log(tag, losses=json.dumps([round(r["loss"], 6) for r in steps]),
+        grad_norms=json.dumps([round(r["grad_norm"], 6) for r in steps]),
+        step_ms=json.dumps([round(r["step_ms"], 1) for r in steps]),
+        peak_gib=f"{max(r['peak_gib'] for r in steps):.3f}", lora_b_max=f"{tr['lora_b_max']:.3e}",
+        counts=json.dumps(tr["counts"]))
+    if not (len(steps) == 3 and all(math.isfinite(r["loss"]) for r in steps)
+            and tr["lora_b_max"] > 0):
+        raise AssertionError(f"{tag}: {steps}, lora_b max {tr['lora_b_max']}")
+    missing = [k for k in kernels if tr["counts"][k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {tag} path: {missing}")
+
+
+# ---------------------------------------------------------------------------
+# phases 9 and 10: SDXL-1024 on int8 frozen weights
+# ---------------------------------------------------------------------------
+
+def sdxl_batch(n: int, gen) -> dict:
+    """A cached SDXL batch drawn on the card: 128x128x4 latents, (77, 2048)
+    prompt embeds, 1280 pooled embeds, 1024-px time_ids."""
+    from pcm_tpu_torch.configs.families import SDXL_CACHED_STEP
+
+    return {"latents": torch.randn((n, 128, 128, 4), generator=gen, device="cuda"),
+            "prompt_embeds": bf16_randn((n, 77, 2048), gen),
+            "pooled_embeds": bf16_randn((n, 1280), gen),
+            "time_ids": torch.tensor([SDXL_CACHED_STEP.time_ids] * n, device="cuda")}
+
+
+def rel_l2(out: torch.Tensor, ref: torch.Tensor) -> float:
+    out, ref = out.float(), ref.float()
+    return float((out - ref).norm() / ref.norm().clamp_min(1e-12))
+
+
+# the kernels of the SDXL teacher forward besides K6, each swapped alone
+SDXL_SWAPS = ("flash_attention_fwd", "group_norm_silu", "geglu")
+
+
+def sdxl_unet_vs_reference(bundle, frozen, gen, int8: bool) -> dict:
+    """One full-width SDXL teacher forward at batch 2 with every kernel
+    (under ``fused`` when ``int8``), against: every plain version (``all``);
+    each of K1, K4, K5 plain alone, the other kernels launched; and, as the
+    yardstick of bf16 round-off, the all-plain forward on latents scaled by
+    1 + 2**-8 (half a bf16 step) against the all-plain forward (``noise``).
+    Each reading is (max |diff| / max |ref|, ||diff|| / ||ref||). On int8
+    weights also whether the output with K6's plain version alone is equal
+    bit for bit."""
+    from pcm_tpu_torch.ops import reference_ops
+    from pcm_tpu_torch.utils.quant import int8_matmul
+
+    batch = sdxl_batch(2, gen)
+    _, cond, _ = bundle.encode(frozen, batch)
+    x, t = batch["latents"], torch.tensor([999, 421], device="cuda")
+
+    def run(lat):
+        return bundle.teacher(frozen, lat, t, cond)
+
+    res = {}
+    with torch.inference_mode(), int8_matmul("fused") if int8 else contextlib.nullcontext():
+        out = run(x)
+        with reference_ops():
+            ref = run(x)
+            nudged = run(x * (1 + 2 ** -8))
+        res["all"] = (rel_max(out, ref), rel_l2(out, ref))
+        res["noise"] = (rel_max(nudged, ref), rel_l2(nudged, ref))
+        for name in SDXL_SWAPS:
+            with reference_ops(name):
+                one = run(x)
+            res[name] = (rel_max(out, one), rel_l2(out, one))
+        if int8:
+            with reference_ops("int8_matmul"):
+                res["k6_plain_identical"] = torch.equal(out, run(x))
+    if not torch.isfinite(out).all():
+        raise AssertionError("non-finite SDXL UNet output")
+    return res
+
+
+def check_sdxl_unet(weights: str, r: dict) -> None:
+    """Each kernel-against-plain reading (``all`` and every swap), max-wise
+    and norm-wise, within 2e-2 or twice the yardstick's, whichever is
+    larger (the random-weight SDXL UNet moves ~2e-2 on a half-step nudge of
+    its input); on bf16 weights also ``all`` within 5e-2 max-wise."""
+    readings = {k: r[k] for k in ("all", "noise", *SDXL_SWAPS)}
+    log("sdxl-unet", weights=weights, **{k: "%.3e/%.3e" % v for k, v in readings.items()},
+        **({"k6_plain_bit_identical": r["k6_plain_identical"]} if "k6_plain_identical" in r else {}),
+        bounds="max(2e-2,2*noise)")
+    caps = [max(2e-2, 2 * n) for n in r["noise"]]
+    bad = {k: v for k, v in readings.items()
+           if k != "noise" and not all(e <= c for e, c in zip(v, caps))}
+    if weights == "bf16" and not r["all"][0] <= 5e-2:
+        bad["all"] = r["all"]
+    if bad or r.get("k6_plain_identical") is False:
+        raise AssertionError(f"full-width SDXL UNet, {weights} weights, kernels vs plain: {r}")
+
+
+def sdxl_step(bundle, frozen, template, gen, batch_size: int = 4, steps: int = 3) -> dict:
+    from pcm_tpu_torch.configs.families import SDXL_CACHED_STEP
+    from pcm_tpu_torch.core.schedule import make_ddpm_schedule
+    from pcm_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pcm_tpu_torch.train.distill import build_ddim_distill_step, sample_draws
+    from pcm_tpu_torch.train.state import TrainState, make_optimizer
+    from pcm_tpu_torch.utils.quant import int8_matmul
+
+    cfg = SDXL_CACHED_STEP.distill
+    tx = make_optimizer(SDXL_CACHED_STEP.lr)
+    step = build_ddim_distill_step(bundle, make_ddpm_schedule(), cfg, tx)
+    state = TrainState.create(template, tx)
+    batch = sdxl_batch(batch_size, gen)
+    losses, norms, times = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with int8_matmul("fused"):
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, metrics = step(state, frozen, batch, [sample_draws(cfg, gen, batch["latents"])])
+            losses.append(float(metrics["loss"]))  # a readback: the step has run
+            times.append((time.perf_counter() - t0) * 1000)
+            norms.append(float(metrics["grad_norm"]))
+    counts = launch_counts()
+    lora_b = max(float(v.abs().max()) for k, v in state.params.items() if k.endswith("lora_b"))
+    return {"losses": losses, "grad_norms": norms, "step_ms": times, "counts": counts,
+            "peak_bytes": torch.cuda.max_memory_allocated(), "lora_b_max": lora_b}
 
 
 # ---------------------------------------------------------------------------
@@ -494,6 +752,7 @@ def main() -> int:
     gen = torch.Generator("cuda").manual_seed(args.seed)
     kernels = check_kernels(gen)
     kernels.update(check_backward(gen))
+    k6 = check_int8(gen)
 
     bundle = sd15_bundle()
     t0 = time.perf_counter()
@@ -524,22 +783,52 @@ def main() -> int:
         raise AssertionError(f"student gradients, kernels vs plain: {g}")
     cache = write_cache(bundle, frozen, "build/chip_smoke/cache", args.seed)
     del frozen, template
+    bf16_kernels = [k for k in common.KERNELS if k != "int8_matmul"]
     tr = train_slice(cache, "build/chip_smoke/train", args.seed)
-    steps = [r for r in tr["rows"] if r["step"] <= 3]
-    log("train", losses=json.dumps([round(r["loss"], 6) for r in steps]),
-        grad_norms=json.dumps([round(r["grad_norm"], 6) for r in steps]),
-        step_ms=json.dumps([round(r["step_ms"], 1) for r in steps]),
-        peak_gib=f"{max(r['peak_gib'] for r in steps):.3f}", lora_b_max=f"{tr['lora_b_max']:.3e}",
-        counts=json.dumps(tr["counts"]), resumed=f"{tr['resumed_from']}->{tr['resumed_step']}")
-    if not (len(steps) == 3 and all(math.isfinite(r["loss"]) for r in steps)
-            and tr["lora_b_max"] > 0):
-        raise AssertionError(f"training: {steps}, lora_b max {tr['lora_b_max']}")
-    missing = [k for k, n in tr["counts"].items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the training path: {missing}")
+    check_train("train", tr, bf16_kernels)
+    log("train", resumed=f"{tr['resumed_from']}->{tr['resumed_step']}")
     if (tr["resumed_from"], tr["resumed_step"]) != (3, 4):
         raise AssertionError(f"resume: from {tr['resumed_from']} to {tr['resumed_step']}")
+    del tr["trainer"]  # its bf16 weights would count in the next run's peak
+    ti = train_slice(cache, "build/chip_smoke/train_int8", args.seed, resume=False,
+                     extra=("--frozen-weights", "int8", "--int8-matmul", "fused"))
+    from pcm_tpu_torch.utils.quant import quantized_bytes_saved
 
+    log("train-int8", bytes_saved_gib=f"{quantized_bytes_saved(ti['trainer'].frozen) / 2**30:.3f}")
+    check_train("train-int8", ti, common.KERNELS)
+    del ti["trainer"]
+
+    from pcm_tpu_torch.configs.families import sdxl_bundle
+    from pcm_tpu_torch.utils.quant import quantize_frozen
+
+    xl = sdxl_bundle(remat=True)
+    t0 = time.perf_counter()
+    frozen, template = xl.init(gen, torch.device("cuda"))
+    torch.cuda.synchronize()
+    log("sdxl-init", seconds=f"{time.perf_counter() - t0:.2f}",
+        unet_params_m=round(sum(p.numel() for p in frozen["unet"].parameters()) / 1e6, 1))
+    check_sdxl_unet("bf16", sdxl_unet_vs_reference(xl, frozen, gen, int8=False))
+    quantize_frozen(frozen)
+    log("sdxl-unet", int8_params_m=round(sum(b.numel() for n, b in frozen["unet"].named_buffers()
+                                             if n.endswith("weight_values")) / 1e6, 1),
+        bytes_saved_gib=f"{quantized_bytes_saved(frozen) / 2**30:.3f}")
+    # On int8 weights a bf16 difference upstream can flip an activation code
+    # (a step of amax/127), so the max-wise readings grow with the noise
+    # yardstick; K6 is held to its plain version bit for bit inside the model.
+    check_sdxl_unet("int8-fused", sdxl_unet_vs_reference(xl, frozen, gen, int8=True))
+    sx = sdxl_step(xl, frozen, template, gen)
+    log("sdxl-step", batch=4, losses=json.dumps([round(x, 6) for x in sx["losses"]]),
+        grad_norms=json.dumps([round(x, 6) for x in sx["grad_norms"]]),
+        step_ms=json.dumps([round(x, 1) for x in sx["step_ms"]]),
+        peak_gib=f"{sx['peak_bytes'] / 2**30:.3f}", lora_b_max=f"{sx['lora_b_max']:.3e}",
+        counts=json.dumps(sx["counts"]))
+    if not (all(math.isfinite(x) for x in sx["losses"]) and sx["lora_b_max"] > 0):
+        raise AssertionError(f"SDXL step: losses {sx['losses']}, lora_b max {sx['lora_b_max']}")
+    missing = [k for k in common.KERNELS if sx["counts"][k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the SDXL step: {missing}")
+
+    kernels["int8_matmul"] = k6
     sources = {"flash_attention_fwd": ("pcm_tpu_torch/csrc/flash_attention.cu",
                                        "pcm_tpu/ops/flash_attention.py:105"),
                "flash_attention_bwd_dkv": ("pcm_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -548,12 +837,14 @@ def main() -> int:
                                           "pcm_tpu/ops/flash_attention.py:259"),
                "group_norm_silu": ("pcm_tpu_torch/csrc/groupnorm.cu",
                                    "pcm_tpu/ops/groupnorm.py:33"),
-               "geglu": ("pcm_tpu_torch/csrc/geglu.cu", "pcm_tpu/ops/geglu.py:47")}
-    launches = {k: s["counts"][k] + tr["counts"][k] for k in sources}
+               "geglu": ("pcm_tpu_torch/csrc/geglu.cu", "pcm_tpu/ops/geglu.py:47"),
+               "int8_matmul": ("pcm_tpu_torch/csrc/int8_matmul.cu",
+                               "pcm_tpu/ops/int8_matmul.py:56")}
+    launches = {k: sum(run["counts"][k] for run in (s, tr, ti, sx)) for k in sources}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [{"name": k, "route": "cuda", "source": sources[k][0],
                          "replaces": sources[k][1], "launches": launches[k],
-                         "max_abs_err": kernels[k]["max_abs_err"], "ms": kernels[k]["ms"],
-                         "plain_ms": kernels[k]["plain_ms"]} for k in sources]}
+                         **{f: kernels[k][f] for f in keys}} for k in sources]}
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,5 +1,6 @@
 """Model-family bundle constructors and the training recipes (counterpart
-of `pcm_tpu/configs/families.py`; bundles for SD1.5 only so far)."""
+of `pcm_tpu/configs/families.py`; bundles for SD1.5 and, on cached
+embeddings, SDXL so far)."""
 
 from __future__ import annotations
 
@@ -9,9 +10,9 @@ import torch
 
 from ..lora.layers import LoRASpec
 from ..models.clip import CLIP_L_CONFIG, CLIPTextConfig
-from ..models.unet import SD15_CONFIG, TINY_UNET_CONFIG
+from ..models.unet import SD15_CONFIG, SDXL_CONFIG, TINY_SDXL_CONFIG, TINY_UNET_CONFIG
 from ..models.vae import SD15_VAE_CONFIG, TINY_VAE_CONFIG
-from ..train.bundles import SD15Bundle, SD_UNET_LORA_TARGETS
+from ..train.bundles import SD15Bundle, SDXLBundle, SD_UNET_LORA_TARGETS
 from ..train.distill import DistillConfig
 
 # tiny text tower for `tiny=True` (CPU smoke mode): CLIP-width vocab, width
@@ -25,6 +26,17 @@ def sd15_bundle(lora_rank: int = 64, dtype: torch.dtype = torch.bfloat16,
         unet_cfg=TINY_UNET_CONFIG if tiny else SD15_CONFIG,
         vae_cfg=TINY_VAE_CONFIG if tiny else SD15_VAE_CONFIG,
         text_cfg=_TINY_CLIP_SD15 if tiny else CLIP_L_CONFIG,
+        lora=LoRASpec(rank=lora_rank, alpha=8.0, targets=SD_UNET_LORA_TARGETS),
+        dtype=dtype,
+        remat=remat,
+    )
+
+
+def sdxl_bundle(lora_rank: int = 64, dtype: torch.dtype = torch.bfloat16,
+                tiny: bool = False, remat: bool = False) -> SDXLBundle:
+    """SDXL on cached latents and text embeddings (the bundle holds the UNet)."""
+    return SDXLBundle(
+        unet_cfg=TINY_SDXL_CONFIG if tiny else SDXL_CONFIG,
         lora=LoRASpec(rank=lora_rank, alpha=8.0, targets=SD_UNET_LORA_TARGETS),
         dtype=dtype,
         remat=remat,
@@ -102,3 +114,20 @@ RECIPES = {
         lora_rank=32, adversarial=True, stochastic=True,
     ),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class CachedStep:
+    """A consistency step on cached latents that no CLI recipe names."""
+    distill: DistillConfig
+    lr: float
+    time_ids: tuple  # SDXL micro-conditioning: original size, crop, target size
+
+
+# The SDXL-1024 cached step, as `pcm_tpu/bench.py:175-181` builds it for
+# ``--family sdxl --mode train``; the lr is the SDXL recipe's.
+SDXL_CACHED_STEP = CachedStep(
+    distill=DistillConfig(num_solver_steps=40, multiphase=4, w_min=6, w_max=7),
+    lr=RECIPES["sdxl_4phase_adv"].lr,
+    time_ids=(1024.0, 1024.0, 0.0, 0.0, 1024.0, 1024.0),
+)

@@ -3,7 +3,9 @@
 
 A cache is a directory of ``shard_*.npz`` files (written by
 `scripts/cache_latents.py`), each holding same-length arrays per key: at
-least ``latents`` (N, h, w, C), optionally ``prompt_embeds`` (N, 77, D).
+least ``latents`` (N, h, w, C), optionally ``prompt_embeds`` (N, 77, D) and,
+for SDXL, ``pooled_embeds`` (N, 1280) and ``time_ids`` (N, 6). Every key of
+a shard is read.
 Batches come out as numpy dicts; fp16 arrays (how the cache stores bf16
 tensors) are promoted to fp32, as `scripts/train.py:325-329` does.
 """

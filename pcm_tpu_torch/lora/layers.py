@@ -10,6 +10,12 @@ The student path is ``y = x Wᵀ + b + s · (x Aᵀ) Bᵀ``, two skinny products
 ``W + s·B A`` is never formed. Shapes: linear ``A (r, in)``, ``B (out, r)``;
 conv ``A (r, in, kh, kw)`` with the layer's stride and padding, then
 ``B (out, r, 1, 1)``.
+
+The base weight ``W`` is bf16 or, after `utils.quant.quantize_frozen`, int8
+codes with per-channel scales. Then the base product routes as `_base_dot`
+/ `_base_conv` do (`pcm_tpu/lora/layers.py:62-84`): through an int8 path
+inside an `int8_matmul` context, else through the dequantized weight. The
+LoRA factors stay in the activations' dtype over their fp32 masters.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..utils.quant import QuantizableWeight, int8_mode, quantized_conv, quantized_dot
 
 LoRA = Optional[Dict[str, torch.Tensor]]
 
@@ -57,14 +65,21 @@ class LoRASpec:
 NO_LORA = LoRASpec()
 
 
-class LoRALinear(nn.Linear):
+class LoRALinear(QuantizableWeight, nn.Linear):
     """``nn.Linear`` that adds ``s·(x Aᵀ) Bᵀ`` when its factors are passed."""
 
     lora_key: Optional[str] = None  # set by `attach_lora` on matching layers
     lora_scale: float = 1.0
 
     def forward(self, x: torch.Tensor, lora: LoRA = None) -> torch.Tensor:
-        y = F.linear(x, self.weight, self.bias)
+        qt = self.qweight()
+        if qt is None:
+            y = F.linear(x, self.weight, self.bias)
+        elif int8_mode():
+            y = quantized_dot(x, qt)
+            y = y if self.bias is None else y + self.bias
+        else:
+            y = F.linear(x, qt.astype(x.dtype), self.bias)
         if lora is not None and self.lora_key is not None:
             a = lora[self.lora_key + ".lora_a"].to(x.dtype)
             b = lora[self.lora_key + ".lora_b"].to(x.dtype)
@@ -72,14 +87,18 @@ class LoRALinear(nn.Linear):
         return y
 
 
-class LoRAConv(nn.Conv2d):
+class LoRAConv(QuantizableWeight, nn.Conv2d):
     """``nn.Conv2d`` that adds ``s·conv(conv(x, A), B)`` when its factors are passed."""
 
     lora_key: Optional[str] = None
     lora_scale: float = 1.0
 
     def forward(self, x: torch.Tensor, lora: LoRA = None) -> torch.Tensor:
-        y = self._conv_forward(x, self.weight, self.bias)
+        qt = self.qweight()
+        if qt is None:
+            y = self._conv_forward(x, self.weight, self.bias)
+        else:
+            y = quantized_conv(x, qt, self.bias, self.stride, self.padding)
         if lora is not None and self.lora_key is not None:
             a = lora[self.lora_key + ".lora_a"].to(x.dtype)
             b = lora[self.lora_key + ".lora_b"].to(x.dtype)

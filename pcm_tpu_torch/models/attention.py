@@ -2,13 +2,16 @@
 
 Counterpart of `pcm_tpu/models/attention.py`: attention runs through the
 flash attention kernel, and the feed-forward in-projection runs through the
-fused GEGLU kernel whenever it carries no LoRA (the teacher); with LoRA it
-takes the split form ``a · gelu(gate)`` so the adapter applies (the student).
-The 1x1-conv projections of SD1.5 are the only ``proj_in``/``proj_out`` form.
+fused GEGLU kernel whenever it carries no LoRA (the teacher, on a
+dequantized weight when it is int8); with LoRA it takes the split form
+``a · gelu(gate)`` so the adapter applies (the student). ``proj_in`` /
+``proj_out`` are 1x1 convs (SD1.5) or linear (``use_linear_projection``,
+SDXL).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -66,7 +69,7 @@ class FeedForward(nn.Module):
             a, gate = proj(x, lora).chunk(2, dim=-1)
             h = a * F.gelu(gate)
         else:
-            h = geglu(x, proj.weight, proj.bias)
+            h = geglu(x, proj.dense_weight(x.dtype), proj.bias)
         return self.net[2](h, lora)
 
 
@@ -89,27 +92,37 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2D(nn.Module):
-    """Spatial transformer: GroupNorm, 1x1-conv ``proj_in``, ``depth`` blocks,
-    1x1-conv ``proj_out``, residual. NCHW in and out."""
+    """Spatial transformer: GroupNorm, ``proj_in`` (1x1 conv, or linear with
+    ``use_linear_projection``), ``depth`` blocks, ``proj_out``, residual.
+    NCHW in and out."""
 
     def __init__(self, channels: int, heads: int, head_dim: int, depth: int,
-                 cross_attention_dim: int, norm_groups: int = 32):
+                 cross_attention_dim: int, norm_groups: int = 32,
+                 use_linear_projection: bool = False):
         super().__init__()
         inner = heads * head_dim
+        self.linear = use_linear_projection
+        proj = LoRALinear if use_linear_projection else functools.partial(LoRAConv, kernel_size=1)
         self.norm = GroupNorm(norm_groups, channels, eps=1e-6)
-        self.proj_in = LoRAConv(channels, inner, 1)
+        self.proj_in = proj(channels, inner)
         self.transformer_blocks = nn.ModuleList(
             BasicTransformerBlock(inner, heads, head_dim, cross_attention_dim)
             for _ in range(depth))
-        self.proj_out = LoRAConv(inner, channels, 1)
+        self.proj_out = proj(inner, channels)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, lora: LoRA = None) -> torch.Tensor:
-        n, _, h, w = x.shape
-        hidden = self.proj_in(self.norm(x), lora)
-        inner = hidden.shape[1]
-        # channels-last memory makes this (n, h*w, inner) view free
-        hidden = hidden.permute(0, 2, 3, 1).reshape(n, h * w, inner)
+        n, c, h, w = x.shape
+        hidden = self.norm(x)
+        if self.linear:
+            # channels-last memory makes these (n, h*w, c) views free
+            hidden = self.proj_in(hidden.permute(0, 2, 3, 1).reshape(n, h * w, c), lora)
+        else:
+            hidden = self.proj_in(hidden, lora)
+            hidden = hidden.permute(0, 2, 3, 1).reshape(n, h * w, hidden.shape[1])
         for block in self.transformer_blocks:
             hidden = block(hidden, context, lora)
-        hidden = hidden.reshape(n, h, w, inner).permute(0, 3, 1, 2)
-        return self.proj_out(hidden, lora) + x
+        if self.linear:
+            hidden = self.proj_out(hidden, lora).reshape(n, h, w, c).permute(0, 3, 1, 2)
+        else:
+            hidden = self.proj_out(hidden.reshape(n, h, w, -1).permute(0, 3, 1, 2), lora)
+        return hidden + x

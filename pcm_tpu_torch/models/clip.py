@@ -2,6 +2,8 @@
 
 The causal self-attention over <= 77 tokens is a plain matmul, mask and
 softmax: the JAX package leaves it to XLA, and it is no kernel here either.
+Its linear layers are the JAX package's stock ``nn.Dense``: an int8 weight
+is dequantized at each use (`DequantLinear`), never an int8 product.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..utils.quant import DequantLinear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,8 +45,8 @@ class _SelfAttention(nn.Module):
     def __init__(self, d: int, heads: int):
         super().__init__()
         self.heads = heads
-        self.q_proj, self.k_proj = nn.Linear(d, d), nn.Linear(d, d)
-        self.v_proj, self.out_proj = nn.Linear(d, d), nn.Linear(d, d)
+        self.q_proj, self.k_proj = DequantLinear(d, d), DequantLinear(d, d)
+        self.v_proj, self.out_proj = DequantLinear(d, d), DequantLinear(d, d)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         b, s, d = x.shape
@@ -62,7 +66,7 @@ class _SelfAttention(nn.Module):
 class _MLP(nn.Module):
     def __init__(self, d: int, inner: int, act: str):
         super().__init__()
-        self.fc1, self.fc2 = nn.Linear(d, inner), nn.Linear(inner, d)
+        self.fc1, self.fc2 = DequantLinear(d, inner), DequantLinear(inner, d)
         self.act = _act(act)
 
     def forward(self, x):
@@ -115,7 +119,7 @@ class CLIPTextModel(nn.Module):
         self.cfg = cfg
         self.text_model = _TextTransformer(cfg)
         if cfg.projection_dim is not None:
-            self.text_projection = nn.Linear(cfg.hidden_size, cfg.projection_dim, bias=False)
+            self.text_projection = DequantLinear(cfg.hidden_size, cfg.projection_dim, bias=False)
 
     def forward(self, input_ids: torch.Tensor
                 ) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:

@@ -11,6 +11,13 @@ transformers keys. Conventions:
   scale                         -> weight
   LoRA a (in, r) / (kh, kw, in, r) -> lora_a (r, in) / (r, in, kh, kw)
   LoRA b (r, out) / (1, 1, r, out) -> lora_b (out, r) / (out, r, 1, 1)
+  int8 kernel (`quantize_frozen`'s QTensor: values in the kernel's layout,
+  scale (1, out) / (1, 1, 1, out))
+                                -> weight_values (the weight's layout, int8)
+                                   + weight_scale (out, 1) / (out, 1, 1, 1)
+
+The int8 entries load into a module that `utils.quant.quantize_frozen` has
+quantized; the codes are the JAX package's, bit for bit.
 
 Module names map by rule: ``down_blocks_0_resnets_1`` -> ``down_blocks.0.resnets.1``,
 ``to_out_0`` -> ``to_out.0``, ``net_0_proj`` -> ``net.0.proj``, and the mid
@@ -48,13 +55,28 @@ def _leaf_rule(name: str, ndim: int):
     return _RENAMED.get(name, name), perm
 
 
-def _leaf(name: str, arr: np.ndarray):
-    """JAX leaf -> (torch leaf name, tensor)."""
+def _is_qtensor(v) -> bool:
+    """A JAX `QTensor` leaf (int8 ``values`` + ``scale``), told by its fields."""
+    return hasattr(v, "scale") and hasattr(v, "values") and not callable(v.values)
+
+
+def _qscale(qt) -> np.ndarray:
+    """JAX scale (1, .., 1, out) -> torch (out, 1, .., 1)."""
+    nd = np.ndim(qt.values)
+    return np.array(qt.scale, np.float32).reshape((-1,) + (1,) * (nd - 1))
+
+
+def _leaf(name: str, arr):
+    """JAX leaf -> [(torch leaf name, tensor)]."""
+    if _is_qtensor(arr):
+        (wname, values), = _leaf(name, arr.values)
+        return [(wname + "_values", values),
+                (wname + "_scale", torch.from_numpy(_qscale(arr)))]
     arr = np.asarray(arr)
     name, perm = _leaf_rule(name, arr.ndim)
     if perm is not None:
         arr = arr.transpose(perm)
-    return name, torch.from_numpy(np.ascontiguousarray(arr))
+    return [(name, torch.from_numpy(np.ascontiguousarray(arr)))]
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "", leaf=_leaf) -> Dict[str, Any]:
@@ -63,14 +85,13 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "", leaf=_leaf) -> Dict[str,
         if isinstance(v, Mapping):
             out.update(_flatten(v, prefix + _segment(k) + ".", leaf))
         else:
-            name, t = leaf(k, v)
-            out[prefix + name] = t
+            out.update((prefix + name, t) for name, t in leaf(k, v))
     return out
 
 
 def _shape_leaf(name: str, v):
     name, perm = _leaf_rule(name, len(v.shape))
-    return name, tuple(v.shape[i] for i in perm) if perm else tuple(v.shape)
+    return [(name, tuple(v.shape[i] for i in perm) if perm else tuple(v.shape))]
 
 
 def state_shapes_from_jax(tree: Mapping[str, Any]) -> Dict[str, tuple]:

@@ -8,6 +8,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..lora.layers import LoRALinear
+
 
 def sinusoidal_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0,
                          flip_sin_to_cos: bool = True,
@@ -25,12 +27,13 @@ def sinusoidal_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0,
 
 
 class TimestepEmbedding(nn.Module):
-    """linear -> SiLU -> linear lifting the sinusoid to the model width."""
+    """linear -> SiLU -> linear lifting the sinusoid to the model width (the
+    JAX module's `LoRADense` layers: an int8 weight takes the int8 path)."""
 
     def __init__(self, in_dim: int, embed_dim: int):
         super().__init__()
-        self.linear_1 = nn.Linear(in_dim, embed_dim)
-        self.linear_2 = nn.Linear(embed_dim, embed_dim)
+        self.linear_1 = LoRALinear(in_dim, embed_dim)
+        self.linear_2 = LoRALinear(embed_dim, embed_dim)
 
     def forward(self, sample: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(sample)))

@@ -1,18 +1,19 @@
-"""UNet2DCondition for SD1.5 (counterpart of `pcm_tpu/models/unet.py`).
+"""UNet2DCondition for SD1.5 and SDXL (counterpart of `pcm_tpu/models/unet.py`).
 
 NCHW tensors in ``torch.channels_last`` memory; diffusers state-dict names;
-LoRA factors passed per call (``lora=None`` is the teacher). ``remat=True``
+LoRA factors passed per call (``lora=None`` is the teacher). SDXL adds the
+micro-conditioning ``added_cond`` ({"text_embeds", "time_ids"}) through
+``add_embedding`` and linear transformer projections. ``remat=True``
 checkpoints every ResnetBlock2D and Transformer2D while grad is enabled (the
 JAX package's ``--remat full --remat-gran block`` of training). Not yet
-ported: the SDXL addition embedding, ``time_cond_proj_dim``, the feature
-taps and ``stop_after_mid``.
+ported: ``time_cond_proj_dim``, the feature taps and ``stop_after_mid``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -20,6 +21,7 @@ import torch.utils.checkpoint
 
 from ..lora.layers import LoRA, LoRAConv
 from ..ops import common, reference_ops
+from ..utils import quant
 from .attention import Transformer2D
 from .embeddings import TimestepEmbedding, sinusoidal_embedding
 from .normalization import GroupNorm
@@ -36,7 +38,11 @@ class UNetConfig:
     transformer_depth: Tuple[int, ...] = (1, 1, 1, 1)
     layers_per_block: int = 2
     cross_attention_dim: int = 768
+    use_linear_projection: bool = False
     norm_groups: int = 32
+    # SDXL micro-conditioning: sinusoid width per time_id and the concat width
+    addition_embed_dim: Optional[int] = None
+    addition_in_dim: Optional[int] = None
 
     @property
     def time_embed_dim(self) -> int:
@@ -45,6 +51,17 @@ class UNetConfig:
 
 SD15_CONFIG = UNetConfig()
 
+SDXL_CONFIG = UNetConfig(
+    block_out_channels=(320, 640, 1280),
+    attn_blocks=(False, True, True),
+    num_heads=(5, 10, 20),
+    transformer_depth=(1, 2, 10),
+    cross_attention_dim=2048,
+    use_linear_projection=True,
+    addition_embed_dim=256,
+    addition_in_dim=2816,
+)
+
 TINY_UNET_CONFIG = UNetConfig(
     block_out_channels=(32, 64),
     attn_blocks=(True, False),
@@ -52,6 +69,18 @@ TINY_UNET_CONFIG = UNetConfig(
     transformer_depth=(1, 1),
     layers_per_block=1,
     cross_attention_dim=32,
+)
+
+TINY_SDXL_CONFIG = UNetConfig(
+    block_out_channels=(32, 64),
+    attn_blocks=(False, True),
+    num_heads=(2, 2),
+    transformer_depth=(1, 1),
+    layers_per_block=1,
+    cross_attention_dim=32,
+    use_linear_projection=True,
+    addition_embed_dim=32,
+    addition_in_dim=32 * 6 + 32,
 )
 
 
@@ -64,12 +93,19 @@ class _Block(nn.Module):
         self.attentions = nn.ModuleList()
 
 
+@contextlib.contextmanager
+def _kernel_choice(plain: frozenset, int8_mode: Optional[str]):
+    names = () if common.ALL_KERNELS in plain else tuple(plain)
+    with reference_ops(*names) if plain else contextlib.nullcontext():
+        with quant.int8_matmul(int8_mode) if int8_mode else contextlib.nullcontext():
+            yield
+
+
 def _remat_contexts():
     """(forward, recompute) contexts of a checkpointed block: the recompute,
     which autograd may run on another thread, keeps the caller's choice of
-    kernels or plain versions."""
-    plain = common.reference_forced()
-    return contextlib.nullcontext(), reference_ops() if plain else contextlib.nullcontext()
+    kernels or plain versions and its int8 mode."""
+    return contextlib.nullcontext(), _kernel_choice(common.reference_forced(), quant.int8_mode())
 
 
 class UNet2DCondition(nn.Module):
@@ -84,10 +120,12 @@ class UNet2DCondition(nn.Module):
         def transformer(level: int, ch: int) -> Transformer2D:
             heads = cfg.num_heads[level]
             return Transformer2D(ch, heads, ch // heads, cfg.transformer_depth[level],
-                                 cfg.cross_attention_dim, g)
+                                 cfg.cross_attention_dim, g, cfg.use_linear_projection)
 
         self.conv_in = LoRAConv(cfg.in_channels, ch0, 3, padding=1)
         self.time_embedding = TimestepEmbedding(ch0, temb)
+        if cfg.addition_in_dim is not None:
+            self.add_embedding = TimestepEmbedding(cfg.addition_in_dim, temb)
 
         skips = [ch0]
         h_ch = ch0
@@ -133,12 +171,23 @@ class UNet2DCondition(nn.Module):
         return module(*args)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                encoder_hidden_states: torch.Tensor, lora: LoRA = None) -> torch.Tensor:
-        """sample (N, C, H, W), timesteps (N,), encoder_hidden_states (N, S, D)."""
+                encoder_hidden_states: torch.Tensor, lora: LoRA = None,
+                added_cond: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """sample (N, C, H, W), timesteps (N,), encoder_hidden_states (N, S, D);
+        SDXL: added_cond {"text_embeds": (N, 1280), "time_ids": (N, 6)}."""
         run = self._block
-        dtype = self.conv_in.weight.dtype
-        t_emb = sinusoidal_embedding(timesteps, self.cfg.block_out_channels[0]).to(dtype)
+        cfg = self.cfg
+        dtype = self.conv_norm_out.weight.dtype  # a norm scale: never quantized
+        t_emb = sinusoidal_embedding(timesteps, cfg.block_out_channels[0]).to(dtype)
         temb = self.time_embedding(t_emb)
+        if cfg.addition_in_dim is not None:
+            if added_cond is None:
+                raise ValueError("an SDXL UNet needs added_cond (text_embeds, time_ids)")
+            time_ids = added_cond["time_ids"]
+            aug = sinusoidal_embedding(time_ids.reshape(-1), cfg.addition_embed_dim)
+            aug = torch.cat([added_cond["text_embeds"].float(),
+                             aug.reshape(time_ids.shape[0], -1)], dim=-1)
+            temb = temb + self.add_embedding(aug.to(dtype))
         context = encoder_hidden_states.to(dtype)
         sample = sample.to(dtype).contiguous(memory_format=torch.channels_last)
 

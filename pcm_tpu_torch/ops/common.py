@@ -36,40 +36,45 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_FORCE_REFERENCE = contextvars.ContextVar("pcm_torch_force_reference", default=False)
+_FORCE_REFERENCE = contextvars.ContextVar("pcm_torch_force_reference", default=frozenset())
+ALL_KERNELS = "*"
 
 # One launch counter per kernel; a wrapper adds one where it launches its
 # kernel and nowhere else.
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
-           "group_norm_silu", "geglu")
+           "group_norm_silu", "geglu", "int8_matmul")
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
 @contextlib.contextmanager
-def reference_ops():
-    """Run the plain PyTorch versions of every kernel within the context
-    (tests and ``chip_smoke.py`` only: it is how a kernel is held to its
-    plain version on the same inputs)."""
-    tok = _FORCE_REFERENCE.set(True)
+def reference_ops(*kernels: str):
+    """Run the plain PyTorch versions of the named kernels (of every kernel
+    when none is named) within the context (tests and ``chip_smoke.py``
+    only: it is how a kernel is held to its plain version on the same inputs)."""
+    unknown = set(kernels) - set(KERNELS)
+    if unknown:
+        raise ValueError(f"unknown kernels {sorted(unknown)}")
+    tok = _FORCE_REFERENCE.set(frozenset(kernels or (ALL_KERNELS,)))
     try:
         yield
     finally:
         _FORCE_REFERENCE.reset(tok)
 
 
-def reference_forced() -> bool:
-    """Whether the caller is inside ``reference_ops()``."""
+def reference_forced() -> frozenset:
+    """The kernels the caller forces to their plain versions (``"*"``: all)."""
     return _FORCE_REFERENCE.get()
 
 
-def use_kernel(*tensors: torch.Tensor) -> bool:
-    """True when the inputs must take the CUDA kernel, False for the plain
-    version. Raises on mixed or unsupported devices."""
+def use_kernel(*tensors: torch.Tensor, name: Optional[str] = None) -> bool:
+    """True when the inputs must take the CUDA kernel ``name``, False for the
+    plain version. Raises on mixed or unsupported devices."""
     devs = {t.device.type for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {sorted(devs)}")
     dev = devs.pop()
-    if dev == "cpu" or _FORCE_REFERENCE.get():
+    forced = _FORCE_REFERENCE.get()
+    if dev == "cpu" or ALL_KERNELS in forced or name in forced:
         return False
     if dev == "cuda":
         return True
@@ -227,6 +232,8 @@ def _declare(h: ctypes.CDLL) -> None:
     )
     h.pcm_geglu.restype = I
     h.pcm_geglu.argtypes = [P, P, P, P] + [I] * 3 + [P]  # x w b out, m k f, stream
+    h.pcm_int8_matmul.restype = I
+    h.pcm_int8_matmul.argtypes = [P, P, P, P] + [I] * 4 + [P]  # x w ws out, m n k bk, stream
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -37,7 +37,7 @@ class FlashAttentionFn(torch.autograd.Function):
     def forward(ctx, q, k, v, sm_scale):
         o, lse = flash_attention_fwd(q, k, v, sm_scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.sm_scale, ctx.kernel = sm_scale, use_kernel(q, k, v)
+        ctx.sm_scale, ctx.kernel = sm_scale, use_kernel(q, k, v, name="flash_attention_fwd")
         return o
 
     @staticmethod
@@ -76,7 +76,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     backward kernels consume). Not differentiable: `flash_attention` is."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    if not use_kernel(q, k, v):
+    if not use_kernel(q, k, v, name="flash_attention_fwd"):
         return attention_reference(q, k, v, sm_scale), attention_lse_reference(q, k, sm_scale)
 
     b, sq, h, d = q.shape

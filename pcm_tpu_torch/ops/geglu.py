@@ -37,7 +37,7 @@ def geglu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def geglu_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The forward alone (not differentiable): K5 on CUDA tensors."""
-    if not use_kernel(x, w, b):
+    if not use_kernel(x, w, b, name="geglu"):
         return geglu_reference(x, w, b)
 
     k = x.shape[-1]

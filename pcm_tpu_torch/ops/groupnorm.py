@@ -50,7 +50,7 @@ def group_norm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 def group_norm_silu_fwd(x, gamma, beta, num_groups=32, eps=1e-5, act="silu"):
     """The forward alone (not differentiable): K4 on CUDA tensors."""
-    if not use_kernel(x, gamma, beta):
+    if not use_kernel(x, gamma, beta, name="group_norm_silu"):
         return group_norm_silu_reference(x, gamma, beta, num_groups, eps, act)
 
     n, c = x.shape[0], x.shape[-1]

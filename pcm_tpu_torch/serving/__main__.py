@@ -3,10 +3,14 @@
   python -m pcm_tpu_torch.serving --steps 2 --batch-size 4 --port 8000
   curl -s localhost:8000/generate -d '{"prompt": "an astronaut", "seed": 1}'
 
-The flags are those of `scripts/serve.py`. So far only ``--family sd15`` with
-``--weights bf16`` is ported. Without ``--teacher-checkpoint`` the weights are
-drawn on the device from ``--seed``. ``--tiny --device cpu`` runs the tiny
-configuration on the CPU through the kernels' plain versions (a smoke mode).
+The flags are those of `scripts/serve.py`. So far only ``--family sd15`` is
+ported. ``--weights int8`` stores the UNet and text weights as per-channel
+int8 and dequantizes each at its use (weight-only: the products stay bf16).
+Without ``--teacher-checkpoint`` the weights are drawn on the device from
+``--seed``. ``--tiny --device cpu`` runs the tiny configuration on the CPU
+through the kernels' plain versions (a smoke mode; with ``--weights int8``
+it quantizes every Linear and conv weight: all but a few TINY weights are
+under the 65536-element threshold).
 """
 
 from __future__ import annotations
@@ -46,8 +50,6 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.family != "sd15":
         ap.error(f"--family {args.family} is not yet ported (sd15 only)")
-    if args.weights != "bf16":
-        ap.error(f"--weights {args.weights} is not yet ported (bf16 only)")
     if args.lora:
         ap.error("--lora: loading a kohya LoRA file is not yet ported")
     if args.stochastic or args.data_parallel != 1:
@@ -68,16 +70,15 @@ def main(argv=None) -> None:
     frozen, template = bundle.init(gen, device)
     if args.teacher_checkpoint:
         frozen = bundle.from_states(torch.load(args.teacher_checkpoint, weights_only=True), device)
+    if args.weights == "int8":
+        from ..utils.quant import quantize_frozen
+
+        frozen = quantize_frozen(frozen, min_size=0 if args.tiny else 65536)
     lora = template if args.enable_lora_swap else None
 
-    if args.tokenizer_dir:
-        from pcm_tpu.data.tokenizer import resolve_tokenizers
+    from ..data.tokenizer import resolve_tokenizers
 
-        toks = resolve_tokenizers(args.tokenizer_dir, ["input_ids"])
-    else:
-        from ..data.tokenizer import HashTokenizer
-
-        toks = {"input_ids": HashTokenizer()}
+    toks = resolve_tokenizers(args.tokenizer_dir, ["input_ids"])
     res = args.resolution or 512
     engine = InferenceEngine(
         bundle, DDIMSampler.create(make_ddpm_schedule(), args.steps), frozen, lora, toks,

@@ -12,6 +12,14 @@ the device from ``--seed``. The uncond embeddings are encoded once, from
 empty prompts. ``--tiny --device cpu`` runs the tiny configuration on the
 CPU through the kernels' plain versions (a smoke mode). A run resumes from
 the newest checkpoint in ``--output-dir`` unless ``--no-resume``.
+
+``--frozen-weights int8`` stores the frozen UNet and text weights as int8
+codes with per-channel scales (`utils/quant.py`); ``--int8-matmul`` then
+computes their products on an int8 path: ``scoped`` in the teacher and
+target forwards only, ``dense`` everywhere (whole-row activation scales),
+``fused`` everywhere through the K6 kernel (pointwise convs included). With
+``--tiny`` every Linear and conv weight is quantized (all but a few TINY
+weights are under the 65536-element threshold).
 """
 
 from __future__ import annotations
@@ -51,8 +59,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--remat", default="full",
                     help="full = checkpoint every UNet block (least memory), none = keep "
                          "all activations")
-    ap.add_argument("--frozen-weights", default="bf16", choices=["bf16", "int8"])
-    ap.add_argument("--int8-matmul", default=None, choices=["scoped", "dense", "fused"])
+    ap.add_argument("--frozen-weights", default="bf16", choices=["bf16", "int8"],
+                    help="int8 = frozen UNet/text weights as per-channel int8 (the VAE "
+                         "stays bf16)")
+    ap.add_argument("--int8-matmul", default=None, choices=["scoped", "dense", "fused"],
+                    help="int8 products of the int8 weights (needs --frozen-weights int8): "
+                         "scoped = teacher and target forwards only, dense = every Linear, "
+                         "fused = every Linear and 1x1 conv through the fused kernel")
     ap.add_argument("--validation-steps", type=int, default=0,
                     help="validation image grids (" + NOT_PORTED + ")")
     ap.add_argument("--validation-prompts", nargs="*", default=None,
@@ -78,10 +91,9 @@ def main(argv=None):
                  "sd15_4phase and sd15_4phase_nocfg are")
     if args.optimizer == "prodigy":
         ap.error(f"--optimizer prodigy is {NOT_PORTED}")
-    if args.frozen_weights != "bf16":
-        ap.error(f"--frozen-weights {args.frozen_weights} is {NOT_PORTED}")
-    if args.int8_matmul:
-        ap.error(f"--int8-matmul {args.int8_matmul} is {NOT_PORTED}")
+    if args.int8_matmul and args.frozen_weights != "int8":
+        ap.error(f"--int8-matmul {args.int8_matmul} requires --frozen-weights int8 (it "
+                 "quantizes activations against int8 weights)")
     if args.validation_steps or args.validation_prompts:
         ap.error(f"validation grids are {NOT_PORTED}")
     if not args.cached_latents_dir:
@@ -93,9 +105,13 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu (with --tiny) to smoke-test on the CPU")
 
+    import contextlib
+    import dataclasses
+
     from ..core.schedule import make_ddpm_schedule
     from ..data.cached import CachedLatentsDataset, batches
     from ..data.tokenizer import HashTokenizer
+    from ..utils.quant import int8_matmul, quantize_frozen
     from .distill import build_ddim_distill_step
     from .loop import LoopConfig, Trainer
     from .state import TrainState, make_optimizer
@@ -116,6 +132,11 @@ def main(argv=None):
     frozen, lora = bundle.init(gen, device)
     if args.teacher_checkpoint:
         frozen = bundle.from_states(torch.load(args.teacher_checkpoint, weights_only=True), device)
+    if args.frozen_weights == "int8":  # --tiny: quantize the small TINY weights too
+        frozen = quantize_frozen(frozen, min_size=0 if args.tiny else 65536)
+    distill_cfg = recipe.distill
+    if args.int8_matmul == "scoped":
+        distill_cfg = dataclasses.replace(distill_cfg, int8_no_grad_fwd=True)
 
     tx = make_optimizer(lr, max_grad_norm=1.0, use_8bit=args.use_8bit_adam,
                         warmup_steps=args.lr_warmup_steps, schedule=args.lr_scheduler,
@@ -132,13 +153,19 @@ def main(argv=None):
                           checkpointing_steps=args.checkpointing_steps,
                           checkpoints_total_limit=args.checkpoints_total_limit,
                           log_every=args.log_every, seed=args.seed, resume=not args.no_resume)
-    step_fn = build_ddim_distill_step(bundle, make_ddpm_schedule(), recipe.distill, tx,
+    step_fn = build_ddim_distill_step(bundle, make_ddpm_schedule(), distill_cfg, tx,
                                       grad_accum_steps=accum)
-    trainer = Trainer(loop_cfg, frozen, state, step_fn, recipe.distill, device, accum)
-    print(f"# {args.recipe}: batch {batch} x accum {accum}, {max_steps} steps on {device}"
+    trainer = Trainer(loop_cfg, frozen, state, step_fn, distill_cfg, device, accum)
+    print(f"# {args.recipe}: batch {batch} x accum {accum}, {max_steps} steps on {device}, "
+          f"{args.frozen_weights} frozen weights"
+          + (f", int8 matmul {args.int8_matmul}" if args.int8_matmul else "")
           + (f", resumed at step {trainer.resumed_from}" if trainer.resumed_from else ""),
           flush=True)
-    trainer.run(batches(ds, proc_batch, args.seed), {"uncond_embeds": uncond})
+    # dense/fused: every int8 product of the run (the scoped mode is in the step)
+    run_ctx = (int8_matmul(args.int8_matmul) if args.int8_matmul in ("dense", "fused")
+               else contextlib.nullcontext())
+    with run_ctx:
+        trainer.run(batches(ds, proc_batch, args.seed), {"uncond_embeds": uncond})
     return trainer
 
 

@@ -1,4 +1,4 @@
-"""Model bundle for SD1.5 (counterpart of `pcm_tpu/train/bundles.py:SD15Bundle`).
+"""Model bundles for SD1.5 and SDXL (counterpart of `pcm_tpu/train/bundles.py`).
 
 ``frozen`` is a dict of the bundle's modules (``unet``, ``vae``, ``text``);
 adapters are dicts of LoRA factors (`lora/layers.py`). The bundle-level API
@@ -8,7 +8,7 @@ keeps the JAX package's layout: latents and images are ``(N, H, W, C)``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, Mapping, Tuple
 
 import torch
 import torch.nn as nn
@@ -59,6 +59,32 @@ def _owner(root: nn.Module, param_name: str) -> nn.Module:
     return root.get_submodule(param_name.rsplit(".", 1)[0])
 
 
+def _build(make: Callable[[], Frozen], lora: LoRASpec, dtype: torch.dtype,
+           device: torch.device) -> Frozen:
+    """The modules ``make()`` builds, with uninitialized weights on ``device``
+    (``torch.device("meta")`` builds the structure only); LoRA marked on the
+    UNet, every module but the text tower in channels-last memory."""
+    with torch.device("meta"):
+        frozen = make()
+    attach_lora(frozen["unet"], lora)
+    if torch.device(device).type == "meta":
+        return frozen
+    out = {}
+    for k, m in frozen.items():
+        m = m.to_empty(device=device).to(dtype).eval().requires_grad_(False)
+        if k != "text":
+            m = m.to(memory_format=torch.channels_last)
+        out[k] = m
+    return out
+
+
+def _from_states(frozen: Frozen, states: Mapping[str, Mapping[str, torch.Tensor]]) -> Frozen:
+    for k, m in frozen.items():
+        own = m.state_dict()
+        m.load_state_dict({n: v for n, v in states[k].items() if n in own}, strict=True)
+    return frozen
+
+
 @dataclasses.dataclass(frozen=True)
 class SD15Bundle:
     """SD1.5: single CLIP-L, last hidden state conditioning."""
@@ -73,20 +99,10 @@ class SD15Bundle:
     def build(self, device: torch.device) -> Frozen:
         """The bundle's modules with uninitialized weights on ``device``
         (``torch.device("meta")`` builds the structure only)."""
-        with torch.device("meta"):
-            frozen = {"unet": UNet2DCondition(self.unet_cfg, remat=self.remat),
-                      "vae": AutoencoderKL(self.vae_cfg),
-                      "text": CLIPTextModel(self.text_cfg)}
-        attach_lora(frozen["unet"], self.lora)
-        if torch.device(device).type == "meta":
-            return frozen
-        out = {}
-        for k, m in frozen.items():
-            m = m.to_empty(device=device).to(self.dtype).eval().requires_grad_(False)
-            if k != "text":
-                m = m.to(memory_format=torch.channels_last)
-            out[k] = m
-        return out
+        return _build(lambda: {"unet": UNet2DCondition(self.unet_cfg, remat=self.remat),
+                               "vae": AutoencoderKL(self.vae_cfg),
+                               "text": CLIPTextModel(self.text_cfg)},
+                      self.lora, self.dtype, device)
 
     def init(self, generator: torch.Generator, device: torch.device
              ) -> Tuple[Frozen, Dict[str, torch.Tensor]]:
@@ -101,11 +117,7 @@ class SD15Bundle:
                     device: torch.device) -> Frozen:
         """Modules loaded from state dicts ``{"unet": ..., "vae": ..., "text": ...}``;
         keys a module lacks (the VAE encoder's) are ignored, missing ones raise."""
-        frozen = self.build(device)
-        for k, m in frozen.items():
-            own = m.state_dict()
-            m.load_state_dict({n: v for n, v in states[k].items() if n in own}, strict=True)
-        return frozen
+        return _from_states(self.build(device), states)
 
     # -- encoding / decoding ---------------------------------------------
     def encode_prompts(self, frozen: Frozen, input_ids: torch.Tensor) -> Cond:
@@ -136,7 +148,8 @@ class SD15Bundle:
     # -- forwards ----------------------------------------------------------
     def student(self, frozen: Frozen, lora: LoRA, x: torch.Tensor, t: torch.Tensor,
                 cond: Cond) -> torch.Tensor:
-        return _nhwc(frozen["unet"](_nchw(x), t, cond["prompt_embeds"], lora))
+        return _nhwc(frozen["unet"](_nchw(x), t, cond["prompt_embeds"], lora,
+                                    cond.get("added_cond")))
 
     def teacher(self, frozen: Frozen, x: torch.Tensor, t: torch.Tensor,
                 cond: Cond) -> torch.Tensor:
@@ -149,6 +162,52 @@ class SD15Bundle:
     @property
     def vae_scale(self) -> int:
         return 2 ** (len(self.vae_cfg.block_out_channels) - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class SDXLBundle:
+    """SDXL on cached text embeddings (`pcm_tpu/train/bundles.py:SDXLBundle`,
+    its cached path): the shard holds ``prompt_embeds`` (N, 77, 2048), the
+    pooled CLIP-bigG ``pooled_embeds`` (N, 1280) and ``time_ids`` (N, 6). The
+    text towers (CLIP-L + CLIP-bigG), ``encode_prompts`` and the SDXL VAE
+    are not yet ported, so ``frozen`` holds the UNet alone."""
+
+    unet_cfg: UNetConfig
+    lora: LoRASpec
+    dtype: torch.dtype = torch.bfloat16
+    remat: bool = False
+
+    def build(self, device: torch.device) -> Frozen:
+        return _build(lambda: {"unet": UNet2DCondition(self.unet_cfg, remat=self.remat)},
+                      self.lora, self.dtype, device)
+
+    init = SD15Bundle.init
+
+    def from_states(self, states: Mapping[str, Mapping[str, torch.Tensor]],
+                    device: torch.device) -> Frozen:
+        return _from_states(self.build(device), states)
+
+    def encode(self, frozen: Frozen, batch: Mapping[str, torch.Tensor]
+               ) -> Tuple[torch.Tensor, Cond, Cond]:
+        """(latents, cond, uncond) of a cached batch; the uncond branch is
+        zero embeds and zero pooled embeds with the same ``time_ids``
+        (`pcm_tpu/train/bundles.py:315-326`)."""
+        missing = [k for k in ("latents", "prompt_embeds", "pooled_embeds", "time_ids")
+                   if k not in batch]
+        if missing:
+            raise NotImplementedError(
+                f"SDXL batches without {missing} (the VAE encoder and the text towers) are "
+                "not yet ported to pcm_tpu_torch: train on cached latents and embeddings")
+        prompt_embeds, pooled = batch["prompt_embeds"], batch["pooled_embeds"]
+        time_ids = batch["time_ids"]
+        cond = {"prompt_embeds": prompt_embeds,
+                "added_cond": {"text_embeds": pooled, "time_ids": time_ids}}
+        uncond = {"prompt_embeds": torch.zeros_like(prompt_embeds),
+                  "added_cond": {"text_embeds": torch.zeros_like(pooled), "time_ids": time_ids}}
+        return batch["latents"], cond, uncond
+
+    student = SD15Bundle.student
+    teacher = SD15Bundle.teacher
 
 
 def adapter_like(template: Mapping[str, torch.Tensor], generator: torch.Generator,

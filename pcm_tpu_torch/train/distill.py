@@ -1,5 +1,5 @@
 """The phased-consistency distillation step for the epsilon / DDIM family
-(counterpart of `pcm_tpu/train/distill.py:38-221`, SD1.5).
+(counterpart of `pcm_tpu/train/distill.py:38-221`, SD1.5 and SDXL).
 
 One step: the CFG teacher forward (cond and uncond batched into one pass)
 and the stop-grad target forward under ``torch.no_grad``, the phased solver
@@ -10,12 +10,15 @@ microbatches' (loss, grads) before one update.
 The random draws come from outside: per microbatch ``{"noise", "index",
 "w"}``. `sample_draws` makes them from a ``torch.Generator`` for the trainer;
 tests feed in the values JAX's `ddim_prepare` draws, so both packages run
-the same step. The flow-matching (SD3) step, the adversarial steps and the
-int8 no-grad forwards are not ported yet.
+the same step. With ``int8_no_grad_fwd`` (the CLI's ``--int8-matmul
+scoped``) the teacher and target forwards run under ``int8_matmul("dense")``
+and the differentiated student keeps the dequantized weights. The
+flow-matching (SD3) step and the adversarial steps are not ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -24,6 +27,7 @@ import torch
 from ..core.losses import cfg_combine, consistency_loss
 from ..core.schedule import DDPMSchedule
 from ..core.solver import PhasedDDIMSolver, boundary_scalings, phase_boundaries
+from ..utils.quant import int8_matmul
 from .state import TrainState, apply_updates, global_norm
 
 Draws = Dict[str, torch.Tensor]
@@ -39,7 +43,9 @@ class DistillConfig:
     not_apply_cfg_solver: bool = False
     loss_type: str = "huber"
     huber_c: float = 0.001
-    int8_no_grad_fwd: bool = False  # not yet ported
+    # teacher + target forwards on the int8 "dense" path, the student on the
+    # dequantized weights (`pcm_tpu/train/distill.py:49-68`)
+    int8_no_grad_fwd: bool = False
 
 
 def sample_draws(cfg: DistillConfig, generator: torch.Generator, latents: torch.Tensor
@@ -89,7 +95,14 @@ def accumulate_grads(grad_fn: Callable, batch: Dict[str, torch.Tensor], draws: S
 
 
 def _merge_cond(cond, uncond):
-    return {k: torch.cat([cond[k], uncond[k]], dim=0) for k in cond}
+    """cond and uncond batched into one, leaf by leaf (SDXL's nest too)."""
+    if isinstance(cond, dict):
+        return {k: _merge_cond(cond[k], uncond[k]) for k in cond}
+    return torch.cat([cond, uncond], dim=0)
+
+
+def _no_grad_fwd_ctx(cfg: DistillConfig):
+    return int8_matmul("dense") if cfg.int8_no_grad_fwd else contextlib.nullcontext()
 
 
 @torch.no_grad()
@@ -99,8 +112,6 @@ def ddim_prepare(bundle, schedule: DDPMSchedule, solver: PhasedDDIMSolver,
     """Everything up to the stop-grad target: noising, the CFG teacher ODE
     step and the target network's jump (`ddim_prepare`, :137-184).
     ``lora`` is the student's current adapter."""
-    if cfg.int8_no_grad_fwd:
-        raise NotImplementedError("int8 no-grad forwards are not yet ported to pcm_tpu_torch")
     latents, cond, uncond = bundle.encode(frozen, batch)
     noise, index, w = draws["noise"], draws["index"].long(), draws["w"]
     start_t = solver.table("timesteps", latents.device)[index]
@@ -108,19 +119,21 @@ def ddim_prepare(bundle, schedule: DDPMSchedule, solver: PhasedDDIMSolver,
     t_prev = torch.clamp(start_t - topk, min=0)
     noisy = schedule.add_noise(latents, noise, start_t)
 
-    if cfg.not_apply_cfg_solver:
-        cond_out = uncond_out = bundle.teacher(frozen, noisy, start_t, cond)
-    else:
-        both = bundle.teacher(frozen, torch.cat([noisy, noisy]), torch.cat([start_t, start_t]),
-                              _merge_cond(cond, uncond))
-        cond_out, uncond_out = both.chunk(2)
+    with _no_grad_fwd_ctx(cfg):
+        if cfg.not_apply_cfg_solver:
+            cond_out = uncond_out = bundle.teacher(frozen, noisy, start_t, cond)
+        else:
+            both = bundle.teacher(frozen, torch.cat([noisy, noisy]),
+                                  torch.cat([start_t, start_t]), _merge_cond(cond, uncond))
+            cond_out, uncond_out = both.chunk(2)
     cond_x0 = schedule.predicted_origin(cond_out, start_t, noisy)
     uncond_x0 = schedule.predicted_origin(uncond_out, start_t, noisy)
     pred_x0 = cfg_combine(cond_x0, uncond_x0, w)
     pred_noise = cfg_combine(cond_out, uncond_out, w)
     x_prev = solver.ddim_step(pred_x0, pred_noise, index)
 
-    target_out = bundle.student(frozen, lora, x_prev, t_prev, cond)
+    with _no_grad_fwd_ctx(cfg):
+        target_out = bundle.student(frozen, lora, x_prev, t_prev, cond)
     t_x0 = schedule.predicted_origin(target_out, t_prev, x_prev)
     target_jump, end_t = solver.multiphase_pred(t_x0, target_out, index, cfg.multiphase)
     c_skip, c_out = boundary_scalings(index, boundaries, latents.ndim)

@@ -8,7 +8,8 @@ imports no jax so that it runs on a machine without it:
 Inputs are bf16 on the card; the plain versions compute in fp32 from the
 same bf16 inputs with TF32 off. Bounds: rel-max 2e-2 for attention (forward
 and the K2/K3 gradients: bf16 rounding of P, dS and the outputs) and GEGLU,
-1e-2 for GroupNorm, base-2 lse abs 5e-3.
+1e-2 for GroupNorm, base-2 lse abs 5e-3. The fused int8 matmul (K6) is
+held bit for bit to its plain version.
 """
 
 import numpy as np
@@ -125,6 +126,23 @@ def test_wrappers_count_launches(cuda):
     assert common.launch_counts()["geglu"] == 1
 
 
+@pytest.mark.parametrize("name", ["flash_attention_fwd", "group_norm_silu", "geglu"])
+def test_reference_ops_by_name(cuda, name):
+    """``reference_ops(name)`` sends that kernel alone to its plain version
+    (how ``chip_smoke.py`` swaps one kernel at a time inside a model)."""
+    q = _randn((1, 64, 2, 40), 14, cuda)
+    xn, gamma, beta = _randn((1, 8, 8, 64), 15, cuda), _randn((64,), 16, cuda), _randn((64,), 17, cuda)
+    x, w, b = _randn((2, 16, 64), 11, cuda), _randn((128, 64), 12, cuda), _randn((128,), 13, cuda)
+    common.reset_launch_counts()
+    with common.reference_ops(name):
+        flash_attention(q, q, q)
+        group_norm_silu(xn, gamma, beta, 32, 1e-5, "silu")
+        geglu(x, w, b)
+    counts = common.launch_counts()
+    for k in ("flash_attention_fwd", "group_norm_silu", "geglu"):
+        assert counts[k] == (0 if k == name else 1), counts
+
+
 def test_wrappers_reject_unsupported(cuda):
     q = torch.zeros((1, 8, 1, 40), device=cuda, dtype=torch.float32)
     with pytest.raises(ValueError, match="bf16"):
@@ -218,3 +236,69 @@ def test_group_norm_and_geglu_function_grads(cuda):
     ref = _grads(geglu_reference, [t.float() for t in (xg, w, bias)], gg.float())
     for a, r in zip(got, ref):
         assert rel_max(a, r) <= 2e-2
+
+
+# ---------------------------------------------------------------------------
+# K6: the fused int8 matmul
+# ---------------------------------------------------------------------------
+
+
+def _int8_weight(n, k, seed, device):
+    from pcm_tpu_torch.utils.quant import quantize
+
+    qt = quantize(_randn((n, k), seed, device, k ** -0.5).float())
+    return qt.values, qt.scale.reshape(-1)
+
+
+@pytest.mark.parametrize("m,k,n", [(16384, 320, 320), (300, 640, 640), (4, 2816, 1280),
+                                   (308, 2048, 1280), (1000, 768, 3072), (77, 5120, 1280),
+                                   (130, 1024, 136)])
+def test_int8_matmul_kernel(cuda, m, k, n):
+    """Bit-identical to the plain version: the same per-(row, K-tile)
+    scales, exact int32 tile products and fp32 sums in the same order;
+    ragged M (rows past M never stored) and an all-zero row included."""
+    from pcm_tpu_torch.ops.int8_matmul import (fused_quantized_dot_fwd,
+                                               fused_quantized_dot_reference)
+
+    x = _randn((m, k), 60, cuda)
+    x[min(3, m - 1)] = 0
+    values, scale = _int8_weight(n, k, 61, cuda)
+    got = fused_quantized_dot_fwd(x, values, scale)
+    torch.cuda.synchronize()
+    ref = fused_quantized_dot_reference(x, values, scale)
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    assert torch.equal(got, ref)
+    assert torch.equal(got[min(3, m - 1)], torch.zeros_like(got[0]))
+
+
+def test_int8_matmul_function_and_paths(cuda):
+    """`fused` routes through K6 (one launch a product) with the dequantized
+    backward; `dense` (torch._int_mm, padded to 17 rows) equals its CPU
+    computation bit for bit, at M = 4 as in SDXL's add_embedding."""
+    from pcm_tpu_torch.ops.int8_matmul import dequantized_dx, fused_quantized_dot
+    from pcm_tpu_torch.utils import quant
+
+    values, scale = _int8_weight(1280, 2816, 62, cuda)
+    x = _randn((4, 2816), 63, cuda).requires_grad_(True)
+    g = _randn((4, 1280), 64, cuda)
+    common.reset_launch_counts()
+    y = fused_quantized_dot(x, values, scale)
+    (dx,) = torch.autograd.grad(y, x, g)
+    assert common.launch_counts()["int8_matmul"] == 1
+    assert torch.equal(dx, dequantized_dx(g, values, scale, torch.bfloat16))
+    for m in (4, 300):
+        xd = _randn((m, 2816), 65 + m, cuda)
+        got = quant.dense_quantized_dot_fwd(xd, values, scale)
+        ref = quant.dense_quantized_dot_fwd(xd.cpu(), values.cpu(), scale.cpu())
+        assert torch.equal(got.cpu(), ref)
+
+
+def test_int8_matmul_rejects_unsupported(cuda):
+    from pcm_tpu_torch.ops.int8_matmul import fused_quantized_dot_fwd
+
+    values, scale = _int8_weight(64, 80, 66, cuda)  # K-tile 80: not a multiple of 32
+    with pytest.raises(ValueError, match="K-tile"):
+        fused_quantized_dot_fwd(_randn((8, 80), 67, cuda), values, scale)
+    values, scale = _int8_weight(64, 256, 68, cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        fused_quantized_dot_fwd(_randn((8, 256), 69, cuda).float(), values, scale)

@@ -243,7 +243,7 @@ def test_serve_entry_point_tiny_cpu():
 
 @pytest.mark.parametrize("argv,msg", [
     (["--family", "sdxl"], "not yet ported"),
-    (["--weights", "int8"], "not yet ported"),
+    (["--stochastic"], "not yet ported"),
     (["--lora", "x.safetensors"], "not yet ported"),
 ])
 def test_serve_entry_point_rejects_unported(argv, msg, capsys):
@@ -252,3 +252,29 @@ def test_serve_entry_point_rejects_unported(argv, msg, capsys):
     with pytest.raises(SystemExit) as e:
         main(argv + ["--device", "cpu"])
     assert e.value.code != 0 and msg in capsys.readouterr().err
+
+
+def test_port_tokenizers_match_jax_package(tmp_path):
+    """`resolve_tokenizers` of the port (its own ctypes binding of the native
+    CLIP BPE) gives the JAX package's ids on a toy vocab, tower directories
+    included; without a directory it falls back to hash tokenizers."""
+    from pcm_tpu.data.tokenizer import resolve_tokenizers as jax_resolve
+    from pcm_tpu_torch.data.tokenizer import NativeCLIPTokenizer, resolve_tokenizers
+
+    d = tmp_path / "tokenizer"
+    d.mkdir()
+    vocab = {}
+    for ch in "abcdehlortw12!,":
+        vocab[ch], vocab[ch + "</w>"] = len(vocab), len(vocab) + 1
+    merges = [("h", "e"), ("l", "l"), ("he", "ll"), ("hell", "o</w>"), ("c", "a"), ("ca", "t</w>")]
+    for a, b in merges:
+        vocab[a + b] = len(vocab)
+    (d / "vocab.json").write_text(json.dumps(vocab))
+    (d / "merges.txt").write_text("#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in merges))
+    texts = ["hello world", "Hello, Cat!", "a cat 12", ""]
+    ours = resolve_tokenizers(str(tmp_path), ["input_ids"], max_length=16)["input_ids"]
+    ref = jax_resolve(str(tmp_path), ["input_ids"], max_length=16)["input_ids"]
+    assert isinstance(ours, NativeCLIPTokenizer)
+    np.testing.assert_array_equal(ours(texts), ref(texts))
+    hashed = resolve_tokenizers(None, ["input_ids"])["input_ids"]
+    np.testing.assert_array_equal(hashed(texts), HashTokenizer()(texts))
