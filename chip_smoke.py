@@ -13,7 +13,8 @@ Phases, one printed line each:
      card, with errors and CUDA-event times;
      the flash-attention backward (K2 dK/dV, K3 dQ) through its autograd
      Function against autograd of the plain attention at the training shapes,
-     and twice bit-identical; the GroupNorm Function's gradients; the fused
+     and twice bit-identical, with the SDPA backward and the bounds at the
+     SD1.5 and SDXL headline shapes; the GroupNorm Function's gradients; the fused
      int8 matmul (K6) at the SD1.5 and SDXL shapes of the int8 paths; beside
      each kernel the least time the card could take (``bound_ms``) and the
      one PyTorch call that computes the same function, where there is one;
@@ -25,7 +26,8 @@ Phases, one printed line each:
      teacher engine at guidance 7.5; checks images, seed reproducibility
      across batches and that every kernel of the path was launched;
   6. unet-grad: one full-width student forward + backward at batch 2, the
-     LoRA gradients of the kernels against those of the plain versions;
+     LoRA gradients of the kernels against those of the plain versions, and
+     against K2 alone and K3 alone plain;
   7. train: ``python -m pcm_tpu_torch.train``'s ``main`` for 3 full-width
      ``sd15_4phase`` steps at batch 4 on a seeded cached-latents shard
      (written under build/), then a resume for one more step; checks the
@@ -260,6 +262,7 @@ BWD_SHAPES = [
     (4, 1024, 77, 20, 64),
 ]
 BWD_HEADLINE = (4, 4096, 4096, 8, 40)
+BWD_SDXL = (4, 4096, 4096, 10, 64)  # second headline: SDXL-1024 self-attention
 
 
 def _autograd(fn, inputs, grad_out):
@@ -280,7 +283,9 @@ def sdpa_backward_ms(q, k, v, do) -> float:
 def check_backward(gen) -> dict:
     """K2/K3 through FlashAttentionFn against autograd of the fp32 plain
     attention on the same bf16 inputs; each kernel timed alone against its
-    plain version (from the same saved o / lse / delta)."""
+    plain version (from the same saved o / lse / delta). At the SD1.5 and the
+    SDXL headline shapes also the SDPA backward (dQ, dK, dV in one call) and
+    the bounds; the SDXL readings go into ``sdxl_*`` fields."""
     from pcm_tpu_torch.ops.flash_attention import (attention_bwd_dkv_reference,
                                                    attention_bwd_dq_reference, attention_delta,
                                                    attention_reference, flash_attention,
@@ -290,8 +295,6 @@ def check_backward(gen) -> dict:
 
     results = {k: {"max_abs_err": 0.0} for k in ("flash_attention_bwd_dkv",
                                                  "flash_attention_bwd_dq")}
-    results["flash_attention_bwd_dkv"].update(attn_bound(BWD_HEADLINE, 4, 2))  # S, dV, dP, dK
-    results["flash_attention_bwd_dq"].update(attn_bound(BWD_HEADLINE, 3, 1))  # S, dP, dQ
     for shp in BWD_SHAPES:
         b, sq, sk, h, d = shp
         scale = d ** -0.5
@@ -326,12 +329,22 @@ def check_backward(gen) -> dict:
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if shp == BWD_HEADLINE:
                 r["ms"], r["plain_ms"] = ms, plain
-        if shp == BWD_HEADLINE:  # the library call: one backward gives dQ, dK and dV
+            if shp == BWD_SDXL:
+                r.update(sdxl_ms=ms, sdxl_plain_ms=plain)
+        if shp in (BWD_HEADLINE, BWD_SDXL):  # the library call: one backward gives dQ, dK and dV
             lib = sdpa_backward_ms(q, k, v, do)
+            bounds = {"flash_attention_bwd_dkv": attn_bound(shp, 4, 2),  # S, dV, dP, dK
+                      "flash_attention_bwd_dq": attn_bound(shp, 3, 1)}  # S, dP, dQ
             for name in results:
-                results[name]["library_ms"] = lib
+                if shp == BWD_HEADLINE:
+                    results[name].update(library_ms=lib, **bounds[name])
+                else:
+                    results[name].update(sdxl_library_ms=lib,
+                                         sdxl_bound_ms=bounds[name]["bound_ms"])
             log("kernel", name="flash_attention_bwd", shape=shp, library_ms=f"{lib:.4f}",
-                note="sdpa backward: dq+dk+dv in one call")
+                dkv_bound_ms=f"{bounds['flash_attention_bwd_dkv']['bound_ms']:.4f}",
+                dq_bound_ms=f"{bounds['flash_attention_bwd_dq']['bound_ms']:.4f}",
+                pair_ms=f"{ms_dkv + ms_dq:.4f}", note="sdpa backward: dq+dk+dv in one call")
         del q, k, v, do, grads, refs, o, lse, first, second
 
     # the GroupNorm Function: kernel forward, autograd-of-plain backward
@@ -524,7 +537,14 @@ def serve_slice(bundle, frozen, template, gen) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# the backward kernels, each swapped alone to its plain version in phase 6
+BWD_SWAPS = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+
+
 def unet_grad_vs_reference(bundle, frozen, template, gen) -> dict:
+    """The LoRA gradients of one student forward + backward with every
+    kernel, against every plain version (``all``) and against K2 alone and
+    K3 alone plain: (cosine, relative norm error) each."""
     from pcm_tpu_torch.ops import reference_ops
     from pcm_tpu_torch.train.bundles import adapter_like
 
@@ -538,14 +558,19 @@ def unet_grad_vs_reference(bundle, frozen, template, gen) -> dict:
         loss = bundle.student(frozen, lora, x, t, cond).float().square().mean()
         return torch.autograd.grad(loss, list(lora.values()))
 
+    def compare(ref):
+        flat_ref = torch.cat([g.flatten() for g in ref])
+        return (float(torch.nn.functional.cosine_similarity(flat, flat_ref, dim=0)),
+                float((flat.norm() - flat_ref.norm()).abs() / flat_ref.norm()))
+
     got = lora_grads()
-    with reference_ops():
-        ref = lora_grads()
     bad = [k for k, g in zip(adapter, got) if g is None or not torch.isfinite(g).all()]
-    flat, flat_ref = torch.cat([g.flatten() for g in got]), torch.cat([g.flatten() for g in ref])
-    cos = float(torch.nn.functional.cosine_similarity(flat, flat_ref, dim=0))
-    norm_err = float((flat.norm() - flat_ref.norm()).abs() / flat_ref.norm())
-    return {"factors": len(adapter), "bad": bad, "cosine": cos, "norm_rel_err": norm_err}
+    flat = torch.cat([g.flatten() for g in got])
+    readings = {}
+    for label, names in (("all", ()), *((n, (n,)) for n in BWD_SWAPS)):
+        with reference_ops(*names):
+            readings[label] = compare(lora_grads())
+    return {"factors": len(adapter), "bad": bad, "readings": readings}
 
 
 # ---------------------------------------------------------------------------
@@ -777,9 +802,9 @@ def main() -> int:
         occupancy=s["server_stats"]["batch_occupancy"])
 
     g = unet_grad_vs_reference(bundle, frozen, template, gen)
-    log("unet-grad", factors=g["factors"], cosine=f"{g['cosine']:.6f}",
-        norm_rel_err=f"{g['norm_rel_err']:.3e}", bounds="cos>=0.99,norm<=5e-2")
-    if g["bad"] or not (g["cosine"] >= 0.99 and g["norm_rel_err"] <= 5e-2):
+    log("unet-grad", factors=g["factors"], bounds="cos>=0.99,norm<=5e-2",
+        **{k: f"{c:.6f}/{e:.3e}" for k, (c, e) in g["readings"].items()})
+    if g["bad"] or not all(c >= 0.99 and e <= 5e-2 for c, e in g["readings"].values()):
         raise AssertionError(f"student gradients, kernels vs plain: {g}")
     cache = write_cache(bundle, frozen, "build/chip_smoke/cache", args.seed)
     del frozen, template
@@ -842,9 +867,12 @@ def main() -> int:
                                "pcm_tpu/ops/int8_matmul.py:56")}
     launches = {k: sum(run["counts"][k] for run in (s, tr, ti, sx)) for k in sources}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    extra = ("sdxl_ms", "sdxl_plain_ms", "sdxl_bound_ms", "sdxl_library_ms")  # K2 / K3 only
     line = {"kernels": [{"name": k, "route": "cuda", "source": sources[k][0],
                          "replaces": sources[k][1], "launches": launches[k],
-                         **{f: kernels[k][f] for f in keys}} for k in sources]}
+                         **{f: kernels[k][f] for f in keys},
+                         **{f: kernels[k][f] for f in extra if f in kernels[k]}}
+                        for k in sources]}
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

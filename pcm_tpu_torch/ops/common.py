@@ -6,6 +6,10 @@ with a plain C interface, loaded through `ctypes` at the first call that
 needs it: one `nvcc -c` per source, all started together, then one link.
 The build goes to ``<repo>/build/pcm_tpu_torch/<source-hash>/`` under a file
 lock, so concurrent processes build once and a source edit builds anew.
+The library links the CUDA runtime only: the backward kernels' TMA tensor
+maps are encoded by ``cuTensorMapEncodeTiled`` of the CUDA driver API, which the
+runtime hands out through ``cudaGetDriverEntryPoint`` (``csrc/hopper.cuh``
+and ``cuda.h`` supply the types).
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes the
 kernel's plain PyTorch version, a CUDA tensor takes the kernel (or the
@@ -215,12 +219,13 @@ def _declare(h: ctypes.CDLL) -> None:
         + [L] * 9  # q/k/v strides (b, s, h)
         + [F, P]  # alpha (scale*log2e), stream
     )
-    for name, n_out in (("pcm_flash_attention_bwd_dkv", 2), ("pcm_flash_attention_bwd_dq", 1)):
+    for name, outs, ints in (("pcm_flash_attention_bwd_dkv", 3, 6),  # dk dv part; nsplit
+                             ("pcm_flash_attention_bwd_dq", 1, 5)):  # dq
         fn = getattr(h, name)
         fn.restype = I
         fn.argtypes = (
-            [P] * (6 + n_out)  # q k v do lse delta, then dk dv | dq
-            + [I] * 5  # b h sq sk d
+            [P] * (6 + outs)  # q k v do lse delta, then the outputs
+            + [I] * ints  # b h sq sk d [nsplit]
             + [L] * 12  # q/k/v/do strides (b, s, h)
             + [F, F, P]  # alpha (scale*log2e), scale, stream
         )

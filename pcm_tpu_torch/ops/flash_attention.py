@@ -15,11 +15,12 @@ the VAE mid-block (forward only).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .common import check_cuda, count_launch, lib, require, stream_ptr, use_kernel
+from .common import cdiv, check_cuda, count_launch, lib, require, stream_ptr, use_kernel
 
 LOG2E = 1.4426950408889634  # exp(x) == exp2(x * LOG2E)
 MAX_HEAD_DIM = 512
@@ -30,21 +31,21 @@ class FlashAttentionFn(torch.autograd.Function):
     """softmax(q kᵀ · scale) v with the flash backward (the port of the JAX
     custom VJP, `pcm_tpu/ops/flash_attention.py:382-402`). The same Function
     runs on both devices: kernels on CUDA tensors, plain versions on CPU ones.
-    The backward takes the forward's choice: autograd runs it on another
-    thread, where a ``reference_ops()`` context of the caller is not set."""
+    The forward records the choice of K2 and K3, each by its own name:
+    autograd runs the backward on another thread, where a ``reference_ops()``
+    context of the caller is not set."""
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale):
         o, lse = flash_attention_fwd(q, k, v, sm_scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.sm_scale, ctx.kernel = sm_scale, use_kernel(q, k, v, name="flash_attention_fwd")
+        ctx.sm_scale, ctx.bwd_kernels = sm_scale, bwd_kernel_choice(q, k, v)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        bwd = flash_attention_bwd if ctx.kernel else attention_bwd_reference
-        dq, dk, dv = bwd(q, k, v, o, lse, do, ctx.sm_scale)
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.sm_scale, ctx.bwd_kernels)
         return dq, dk, dv, None
 
 
@@ -103,13 +104,24 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, sm_scale: float
+def bwd_kernel_choice(*tensors: torch.Tensor) -> Tuple[bool, bool]:
+    """Whether K2 (dK/dV) and K3 (dQ) take their kernels, each by its own
+    ``reference_ops`` name."""
+    return (use_kernel(*tensors, name="flash_attention_bwd_dkv"),
+            use_kernel(*tensors, name="flash_attention_bwd_dq"))
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, sm_scale: float,
+                        kernels: Optional[Tuple[bool, bool]] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of `flash_attention` from the forward's ``o`` and
     base-2 ``lse``: delta = rowsum(dO * O) in plain torch, then K2 (dK/dV)
-    and K3 (dQ) on CUDA tensors; the plain `attention_bwd_reference` on CPU
-    ones. Outputs are contiguous ``(b, s, h, d)`` in q's dtype."""
-    if not use_kernel(q, k, v, o, lse, do):
+    and K3 (dQ), each its kernel or its plain version as ``kernels`` says
+    (default: `bwd_kernel_choice` of the inputs). Outputs are contiguous
+    ``(b, s, h, d)`` in q's dtype."""
+    dkv_kernel, dq_kernel = kernels if kernels is not None else bwd_kernel_choice(
+        q, k, v, o, lse, do)
+    if not (dkv_kernel or dq_kernel):
         return attention_bwd_reference(q, k, v, o, lse, do, sm_scale)
     require(o.dtype == q.dtype and o.shape == do.shape == q.shape,
             f"shape mismatch q{tuple(q.shape)} o{tuple(o.shape)} do{tuple(do.shape)}")
@@ -117,8 +129,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, sm_scale: float
     if not _kernel_layout(do):  # e.g. a transposed view from the caller's reshape
         do = do.contiguous()
     delta = attention_delta(o, do)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, sm_scale)
-    return flash_attention_bwd_dq(q, k, v, do, lse, delta, sm_scale), dk, dv
+    dkv = flash_attention_bwd_dkv if dkv_kernel else attention_bwd_dkv_reference
+    dq = flash_attention_bwd_dq if dq_kernel else attention_bwd_dq_reference
+    dk, dv = dkv(q, k, v, do, lse, delta, sm_scale)
+    return dq(q, k, v, do, lse, delta, sm_scale), dk, dv
 
 
 def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -127,7 +141,48 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def _bwd_launch(which: str, q, k, v, do, lse, delta, sm_scale, outs) -> None:
+# Every SM of an H100 SXM; `dkv_splits` aims K2's grid at filling them.
+H100_SMS = 132
+
+
+class BwdTiles(NamedTuple):
+    d_pad: int    # head_dim zero-filled in shared memory: a multiple of 16 (32 above 80)
+    wd: int       # K2 warpgroups sharing one 64-row k slice (the dK/dV columns split)
+    k2_rows: int  # k rows of a K2 block
+    k2_step: int  # q rows of a K2 step
+    k3_rows: int  # q rows of a K3 block
+    k3_step: int  # k rows of a K3 step
+
+
+def bwd_tiles(d: int) -> BwdTiles:
+    """K2/K3's tiles at head_dim ``d``, as `csrc/flash_attention_bwd.cu`
+    dispatches. Steps narrow to 32 rows where a warpgroup's fp32
+    accumulators take 80 columns (K2) or 128 or more (K3), so that they fit
+    its registers beside the scores."""
+    d_pad = cdiv(d, 16) * 16 if d <= 80 else cdiv(d, 32) * 32
+    wd = 1 if d_pad <= 80 else 2
+    return BwdTiles(d_pad, wd, 128 // wd, 32 if d_pad // wd == 80 else 64, 128,
+                    32 if d_pad >= 128 else 64)
+
+
+def dkv_splits(b: int, h: int, sq: int, sk: int, d: int, sms: int = H100_SMS) -> int:
+    """Blocks that share K2's q range (1: none). Short key sequences
+    (cross-attention, sk = 77) leave K2 with fewer blocks than SMs; the q
+    range is then split so that the grid comes near one block a SM, each
+    split at least two q steps long."""
+    tiles = bwd_tiles(d)
+    blocks = cdiv(sk, tiles.k2_rows) * b * h
+    if blocks >= sms:
+        return 1
+    return max(1, min(sms // blocks, cdiv(sq, tiles.k2_step) // 2))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: Optional[int]) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _bwd_check(q, k, v, do, lse, delta) -> None:
     b, sq, h, d = q.shape
     sk = k.shape[1]
     require(all(t.is_cuda for t in (q, k, v, do, lse, delta)),
@@ -144,27 +199,43 @@ def _bwd_launch(which: str, q, k, v, do, lse, delta, sm_scale, outs) -> None:
                 f"{name} must be a contiguous fp32 (b, h, sq) tensor")
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
         _check_bshd(name, t)
-    fn = getattr(lib(), "pcm_flash_attention_" + which)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-             delta.data_ptr(), *[t.data_ptr() for t in outs], b, h, sq, sk, d,
-             q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
-             v.stride(0), v.stride(1), v.stride(2), do.stride(0), do.stride(1), do.stride(2),
-             ctypes.c_float(sm_scale * LOG2E), ctypes.c_float(sm_scale), stream_ptr(q.device))
-    check_cuda(err, "flash_attention_" + which)
-    count_launch("flash_attention_" + which)
+
+
+def _bwd_args(q, k, v, do, sm_scale):
+    """Shapes, strides, alpha, scale and stream, in the C interface's order."""
+    b, sq, h, d = q.shape
+    return ((b, h, sq, k.shape[1], d),
+            (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+             ctypes.c_float(sm_scale * LOG2E), ctypes.c_float(sm_scale), stream_ptr(q.device)))
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float):
     """K2: ``(dk, dv)``, contiguous ``(b, sk, h, d)`` bf16 (CUDA tensors only)."""
+    _bwd_check(q, k, v, do, lse, delta)
     dk, dv = (torch.empty(k.shape, dtype=q.dtype, device=q.device) for _ in range(2))
-    _bwd_launch("bwd_dkv", q, k, v, do, lse, delta, sm_scale, (dk, dv))
+    sizes, rest = _bwd_args(q, k, v, do, sm_scale)
+    nsplit = dkv_splits(*sizes[:4], q.shape[3], _sm_count(q.device.index))
+    part = (torch.empty((nsplit, 2, *k.shape), dtype=torch.float32, device=q.device)
+            if nsplit > 1 else None)
+    err = lib().pcm_flash_attention_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), None if part is None else part.data_ptr(), *sizes, nsplit,
+        *rest)
+    check_cuda(err, "flash_attention_bwd_dkv")
+    count_launch("flash_attention_bwd_dkv")
     return dk, dv
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, sm_scale: float):
     """K3: ``dq``, contiguous ``(b, sq, h, d)`` bf16 (CUDA tensors only)."""
+    _bwd_check(q, k, v, do, lse, delta)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_launch("bwd_dq", q, k, v, do, lse, delta, sm_scale, (dq,))
+    sizes, rest = _bwd_args(q, k, v, do, sm_scale)
+    err = lib().pcm_flash_attention_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), *sizes, *rest)
+    check_cuda(err, "flash_attention_bwd_dq")
+    count_launch("flash_attention_bwd_dq")
     return dq
 
 

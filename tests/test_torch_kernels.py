@@ -126,21 +126,25 @@ def test_wrappers_count_launches(cuda):
     assert common.launch_counts()["geglu"] == 1
 
 
-@pytest.mark.parametrize("name", ["flash_attention_fwd", "group_norm_silu", "geglu"])
+@pytest.mark.parametrize("name", ["flash_attention_fwd", "flash_attention_bwd_dkv",
+                                  "flash_attention_bwd_dq", "group_norm_silu", "geglu"])
 def test_reference_ops_by_name(cuda, name):
     """``reference_ops(name)`` sends that kernel alone to its plain version
-    (how ``chip_smoke.py`` swaps one kernel at a time inside a model)."""
-    q = _randn((1, 64, 2, 40), 14, cuda)
+    (how ``chip_smoke.py`` swaps one kernel at a time inside a model), K2 and
+    K3 included through the attention Function's backward."""
+    q = _randn((1, 64, 2, 40), 14, cuda).requires_grad_(True)
     xn, gamma, beta = _randn((1, 8, 8, 64), 15, cuda), _randn((64,), 16, cuda), _randn((64,), 17, cuda)
     x, w, b = _randn((2, 16, 64), 11, cuda), _randn((128, 64), 12, cuda), _randn((128,), 13, cuda)
     common.reset_launch_counts()
     with common.reference_ops(name):
-        flash_attention(q, q, q)
+        flash_attention(q, q, q).float().square().sum().backward()
         group_norm_silu(xn, gamma, beta, 32, 1e-5, "silu")
         geglu(x, w, b)
     counts = common.launch_counts()
-    for k in ("flash_attention_fwd", "group_norm_silu", "geglu"):
+    for k in ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+              "group_norm_silu", "geglu"):
         assert counts[k] == (0 if k == name else 1), counts
+    assert torch.isfinite(q.grad).all()
 
 
 def test_wrappers_reject_unsupported(cuda):
@@ -156,8 +160,13 @@ def test_wrappers_reject_unsupported(cuda):
         flash_attention_bwd(q, q, q, o, lse, o, 512 ** -0.5)
 
 
+# SD1.5 / SDXL head dims; ragged lengths straddle K2's 64-row q steps and
+# 128- (64- at d = 160) row k blocks and K3's 128-row q blocks and 64-row k
+# steps; sk = 77 and (1, 300, 77, 8, 40) split K2's q range over blocks
 BWD_SHAPES = [(2, 256, 256, 8, 40), (2, 1024, 77, 8, 40), (1, 300, 300, 8, 80),
-              (2, 64, 77, 8, 160), (2, 77, 77, 4, 16), (1, 130, 70, 2, 64)]
+              (2, 64, 77, 8, 160), (2, 77, 77, 4, 16), (1, 130, 70, 2, 64),
+              (1, 1024, 1024, 2, 64), (1, 65, 77, 1, 160), (2, 200, 200, 2, 80),
+              (1, 300, 77, 8, 40), (1, 129, 129, 2, 128)]
 
 
 def _grads(fn, inputs, do):

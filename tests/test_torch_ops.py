@@ -22,8 +22,8 @@ from pcm_tpu.ops.flash_attention import _bwd as jax_fa_bwd
 from pcm_tpu.ops.flash_attention import _fwd as jax_fa_fwd
 from pcm_tpu_torch.ops import common
 from pcm_tpu_torch.ops.flash_attention import (FlashAttentionFn, attention_bwd_reference,
-                                               attention_reference, flash_attention,
-                                               flash_attention_fwd)
+                                               attention_reference, bwd_tiles, dkv_splits,
+                                               flash_attention, flash_attention_fwd)
 from pcm_tpu_torch.ops.geglu import GEGLUFn, geglu
 from pcm_tpu_torch.ops.groupnorm import GroupNormSiLUFn, group_norm_silu
 
@@ -67,11 +67,15 @@ def _grads(fn, arrays, g):
     return [x.grad for x in xs]
 
 
-@pytest.mark.parametrize("b,sq,sk,h,d", [(2, 50, 77, 2, 16), (1, 70, 77, 2, 40)])
+@pytest.mark.parametrize("b,sq,sk,h,d", [(2, 50, 77, 2, 16), (1, 70, 77, 2, 40),
+                                         (1, 130, 77, 2, 64), (1, 70, 70, 1, 80),
+                                         (1, 65, 77, 1, 160)])
 def test_attention_backward_matches_pallas(b, sq, sk, h, d):
     """The plain K2 + K3 from the saved base-2 lse against the Pallas `_bwd`
     (interpret mode) on the JAX forward's own o / lse, and against torch
-    autograd of the plain attention: ragged sq and sk = 77."""
+    autograd of the plain attention: ragged sq and sk = 77, and the head dims
+    of the main path (SD1.5 40/80/160, SDXL 64) with lengths that straddle
+    the kernels' 64- and 128-row tiles."""
     rng = np.random.default_rng(4)
     q, k, v = (rng.standard_normal((b, s, h, d), dtype=np.float32) for s in (sq, sk, sk))
     do = rng.standard_normal((b, sq, h, d), dtype=np.float32)
@@ -89,6 +93,41 @@ def test_attention_backward_matches_pallas(b, sq, sk, h, d):
     auto = _grads(lambda *a: attention_reference(*a, scale), (q, k, v), do)
     for name, a, r in zip("qkv", ours, auto):
         assert rel_max(a, r) < TOL, name
+
+
+@pytest.mark.parametrize("d,tiles", [(16, (16, 1, 128, 64, 128, 64)),
+                                     (40, (48, 1, 128, 64, 128, 64)),
+                                     (64, (64, 1, 128, 64, 128, 64)),
+                                     (80, (80, 1, 128, 32, 128, 64)),
+                                     (88, (96, 2, 64, 64, 128, 64)),
+                                     (128, (128, 2, 64, 64, 128, 32)),
+                                     (160, (160, 2, 64, 32, 128, 32))])
+def test_backward_tiles_per_head_dim(d, tiles):
+    """K2/K3's padded head_dim, column split, block rows and step rows, as
+    the CUDA dispatch takes them: a multiple of 16 up to 80, of 32 above;
+    32-row steps where a warpgroup's accumulators are 80 (K2) or at least
+    128 (K3) columns wide."""
+    assert bwd_tiles(d) == tiles
+
+
+@pytest.mark.parametrize("shape,sms,nsplit", [
+    ((4, 8, 4096, 4096, 40), 132, 1),    # 1024 K2 blocks: no split
+    ((4, 8, 4096, 77, 40), 132, 4),      # 32 blocks of 128 k rows
+    ((4, 10, 4096, 77, 64), 132, 3),     # 40 blocks
+    ((4, 20, 1024, 77, 64), 132, 1),     # 80 blocks: one wave either way
+    ((4, 8, 1024, 77, 80), 132, 4),
+    ((4, 8, 256, 77, 160), 132, 2),      # 64-row k blocks at d = 160
+    ((4, 8, 64, 77, 160), 132, 1),       # two 32-row q steps
+    ((1, 2, 130, 77, 64), 8, 1),         # 3 q steps: no split of 2 steps each
+    ((1, 1, 1000, 70, 80), 8, 8),
+])
+def test_dkv_q_splits(shape, sms, nsplit):
+    """How many blocks share K2's q range: about one block a SM when the key
+    sequence is short, each split at least two q steps."""
+    assert dkv_splits(*shape, sms=sms) == nsplit
+    b, h, sq, sk, d = shape
+    steps = -(-sq // bwd_tiles(d).k2_step)
+    assert nsplit == 1 or -(-steps // nsplit) >= 2
 
 
 def test_function_grads_match_jax_custom_vjps():
