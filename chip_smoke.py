@@ -10,7 +10,10 @@ Phases, one printed line each:
   2. build: compile the port's CUDA kernels (pcm_tpu_torch/csrc) into one library;
   3. kernels: each kernel against its plain PyTorch version at the SD1.5 shapes
      of the serving path and the SDXL-1024 shapes of the SDXL step, bf16 on the
-     card, with errors and CUDA-event times;
+     card, with errors, CUDA-event times and bit-identical reruns (K1, K5 at
+     every shape), and at a second, SDXL headline (``sdxl_*`` fields) for K1
+     and K5 as for K2 / K3; beside K5 the bare cuBLAS product
+     ``F.linear(x, w)`` (``product_ms``), the yardstick of its tensor-core part;
      the flash-attention backward (K2 dK/dV, K3 dQ) through its autograd
      Function against autograd of the plain attention at the training shapes,
      and twice bit-identical, with the SDPA backward and the bounds at the
@@ -159,6 +162,9 @@ GEGLU_SHAPES = [(16384, 320, 1280), (32768, 320, 1280), (4096, 640, 2560),
 HEADLINE = {"flash_attention_fwd": (4, 4096, 4096, 8, 40),
             "group_norm_silu": ((4, 512, 512, 256), 1e-6, "silu"),
             "geglu": (16384, 320, 1280)}
+# second headlines at SDXL-1024 widths, into ``sdxl_*`` fields: self-attention
+# at 64x64 and the feed-forward at 32x32 under CFG
+SDXL_HEADLINE = {"flash_attention_fwd": (4, 4096, 4096, 10, 64), "geglu": (8192, 1280, 5120)}
 
 
 def check_kernels(gen) -> dict:
@@ -174,6 +180,18 @@ def check_kernels(gen) -> dict:
         r["max_abs_err"] = max(r["max_abs_err"], err_abs)
         if key == HEADLINE[name]:
             r["ms"], r["plain_ms"] = ms, plain_ms
+        if key == SDXL_HEADLINE.get(name):
+            r["sdxl_ms"], r["sdxl_plain_ms"] = ms, plain_ms
+
+    def headline(name, key, **fields):
+        """Bound and yardsticks of a headline shape: plain fields at the
+        SD1.5 headline, ``sdxl_``-prefixed at the SDXL one."""
+        if key == HEADLINE[name]:
+            results[name].update(fields)
+        else:
+            results[name].update({"sdxl_" + f: v for f, v in fields.items() if f != "bound_by"})
+        log("kernel", name=name, shape=key, **{f: f"{v:.4f}" if isinstance(v, float) else v
+                                               for f, v in fields.items()})
 
     for shp in ATTN_SHAPES:
         b, sq, sk, h, d = shp
@@ -181,25 +199,26 @@ def check_kernels(gen) -> dict:
         k = bf16_randn((b, sk, h, d), gen)
         v = bf16_randn((b, sk, h, d), gen)
         o, lse = flash_attention_fwd(q, k, v)
+        again = flash_attention_fwd(q, k, v)
         torch.cuda.synchronize()
+        same = torch.equal(o, again[0]) and torch.equal(lse, again[1])
         ref = attention_reference(q.float(), k.float(), v.float())
         lse_ref = attention_lse_reference(q.float(), k.float())
         err, err_lse = rel_max(o, ref), abs_max(lse, lse_ref)
         ms = cuda_ms(lambda: flash_attention_fwd(q, k, v))
         plain = cuda_ms(lambda: attention_reference(q, k, v))
         log("kernel", name="flash_attention_fwd", shape=shp, rel_max=f"{err:.3e}",
-            lse_abs=f"{err_lse:.3e}", ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}")
-        if not (err <= 2e-2 and err_lse <= 5e-3):
-            raise AssertionError(f"flash attention {shp}: rel {err:.3e}, lse {err_lse:.3e}")
+            lse_abs=f"{err_lse:.3e}", deterministic=same, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}")
+        if not (err <= 2e-2 and err_lse <= 5e-3 and same):
+            raise AssertionError(f"flash attention {shp}: rel {err:.3e}, lse {err_lse:.3e}, "
+                                 f"bit-identical rerun {same}")
         record("flash_attention_fwd", shp, abs_max(o, ref), ms, plain)
-        if shp == HEADLINE["flash_attention_fwd"]:  # the library call, on (b, h, s, d)
-            qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        if shp in (HEADLINE["flash_attention_fwd"], SDXL_HEADLINE["flash_attention_fwd"]):
+            qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))  # (b, h, s, d)
             lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
-            results["flash_attention_fwd"].update(library_ms=lib, **attn_bound(shp, 2, 1))
-            log("kernel", name="flash_attention_fwd", shape=shp, library_ms=f"{lib:.4f}",
-                **{k: results["flash_attention_fwd"][k] for k in ("bound_ms", "bound_by")})
+            headline("flash_attention_fwd", shp, library_ms=lib, **attn_bound(shp, 2, 1))
             del qt, kt, vt
-        del q, k, v, o, ref
+        del q, k, v, o, ref, again
 
     for key in GN_SHAPES:
         shp, eps, act = key
@@ -236,19 +255,25 @@ def check_kernels(gen) -> dict:
         w = bf16_randn((2 * f, kk), gen, kk ** -0.5)
         bias = bf16_randn((2 * f,), gen, 0.1)
         out = geglu(x, w, bias)
+        same = torch.equal(out, geglu(x, w, bias))
         torch.cuda.synchronize()
         ref = geglu_reference(x.float(), w.float(), bias.float())
         err = rel_max(out, ref)
         ms = cuda_ms(lambda: geglu(x, w, bias))
         plain = cuda_ms(lambda: geglu_reference(x, w, bias))
-        log("kernel", name="geglu", shape=shp, rel_max=f"{err:.3e}", ms=f"{ms:.4f}",
-            plain_ms=f"{plain:.4f}")
-        if not err <= 2e-2:
-            raise AssertionError(f"geglu {shp}: rel {err:.3e}")
+        log("kernel", name="geglu", shape=shp, rel_max=f"{err:.3e}", deterministic=same,
+            ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}")
+        if not (err <= 2e-2 and same):
+            raise AssertionError(f"geglu {shp}: rel {err:.3e}, bit-identical rerun {same}")
         record("geglu", shp, abs_max(out, ref), ms, plain)
-        if shp == HEADLINE["geglu"]:
-            results["geglu"].update(bound(2.0 * m * kk * 2 * f, "bf16",
-                                          2.0 * (m * kk + 2 * f * kk + 2 * f + m * f)))
+        if shp in (HEADLINE["geglu"], SDXL_HEADLINE["geglu"]):
+            # product_ms: the bare product x [Wa; Wb]^T by cuBLAS, no bias or
+            # gate; the yardstick of the tensor-core part, not a GEGLU call
+            prod = cuda_ms(lambda: torch.nn.functional.linear(x, w))
+            headline("geglu", shp, product_ms=prod,
+                     **bound(2.0 * m * kk * 2 * f, "bf16",
+                             2.0 * (m * kk + 2 * f * kk + 2 * f + m * f)))
+        del x, w, bias, out, ref
     return results
 
 
@@ -867,7 +892,9 @@ def main() -> int:
                                "pcm_tpu/ops/int8_matmul.py:56")}
     launches = {k: sum(run["counts"][k] for run in (s, tr, ti, sx)) for k in sources}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("sdxl_ms", "sdxl_plain_ms", "sdxl_bound_ms", "sdxl_library_ms")  # K2 / K3 only
+    # second headlines (K1, K2, K3, K5) and K5's bare product
+    extra = ("sdxl_ms", "sdxl_plain_ms", "sdxl_bound_ms", "sdxl_library_ms", "product_ms",
+             "sdxl_product_ms")
     line = {"kernels": [{"name": k, "route": "cuda", "source": sources[k][0],
                          "replaces": sources[k][1], "launches": launches[k],
                          **{f: kernels[k][f] for f in keys},

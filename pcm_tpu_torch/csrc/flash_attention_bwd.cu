@@ -64,17 +64,13 @@
 // 0 in P / dS before any contraction (their lse / delta are 0 or another
 // row's, never used); rows of the block's own tile beyond the sequence are
 // computed on zeros and never written.
-#include <algorithm>
-#include <mutex>
-
-#include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using pcm::SW;
 
-constexpr int SW = 16;           // bf16 columns of one chunk (32 bytes: SWIZZLE_32B)
 constexpr int NWG = 2;           // consumer warpgroups of a block
 constexpr int THREADS = 128 * (NWG + 1);  // + a producer warpgroup
 constexpr int STAGES = 3;
@@ -82,52 +78,6 @@ constexpr int STAGES = 3;
 // holds every thread of a three-warpgroup block to 168 registers, and K2 at
 // d = 64 spills
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
-
-constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-// Length-N/2 fp32 accumulator of a 64 x N wgmma tile -> bf16 A fragments of
-// the products that contract over its N axis (16 columns per K step).
-template <int R>
-__device__ __forceinline__ void to_a(uint32_t out[R / 8][4], const float (&c)[R]) {
-#pragma unroll
-  for (int kk = 0; kk < R / 8; ++kk) {
-    out[kk][0] = pcm::pack_bf16x2(c[8 * kk + 0], c[8 * kk + 1]);
-    out[kk][1] = pcm::pack_bf16x2(c[8 * kk + 2], c[8 * kk + 3]);
-    out[kk][2] = pcm::pack_bf16x2(c[8 * kk + 4], c[8 * kk + 5]);
-    out[kk][3] = pcm::pack_bf16x2(c[8 * kk + 6], c[8 * kk + 7]);
-  }
-}
-
-template <int R>
-__device__ __forceinline__ void zero(float (&c)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) c[i] = 0.f;
-}
-
-// A warp's 16 rows of a 64 x N fp32 accumulator into a contiguous (b, s, h, d)
-// output at row0 (the warp's row g) and column col0: rows >= n and columns >=
-// d are not written. bf16 pairs, or fp32 pairs when ``part`` is given.
-template <int R>
-__device__ __forceinline__ void store_rows(bf16* out, float* part, const float (&acc)[R],
-                                           int64_t base, int row0, int n, int h, int d,
-                                           int col0, int t) {
-#pragma unroll
-  for (int j = 0; j < R / 4; ++j) {
-    const int col = col0 + 8 * j + 2 * t;
-    if (col >= d) continue;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + 8 * r;
-      if (row >= n) continue;
-      const int64_t off = base + (int64_t)row * h * d + col;
-      if (part != nullptr)
-        *reinterpret_cast<float2*>(part + off) = make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
-      else
-        *reinterpret_cast<uint32_t*>(out + off) =
-            pcm::pack_bf16x2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
-    }
-  }
-}
 
 // K2's P^T in place of the scores S^T of a step: q column c (this thread's
 // 8 j + 2 t + (e & 1)) reads Ls[c] and is 0 at c >= lim when MASK.
@@ -176,17 +126,6 @@ __device__ __forceinline__ void k3_dscores(float (&dp)[R], const float (&s)[R],
     }
 }
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (pcm::smem_u32(p) & 1023)) & 1023);
-}
-
-// Arrival of a consumer warp on a stage's empty barrier: its products on the
-// stage have completed.
-__device__ __forceinline__ void release(uint64_t* empty, int lane) {
-  __syncwarp();
-  if (lane == 0) pcm::mbar_arrive(empty);
-}
-
 // ---------------------------------------------------------------------------
 // K2: dK, dV. One block per (k tile of BK rows, b*h, q split); walks the
 // split's q steps of BQ rows.
@@ -198,7 +137,7 @@ struct DkvCfg {
   static constexpr int KV_BYTES = NCH * BK * SW * 2;  // one of K, V
   static constexpr int QT_BYTES = NCH * BQ * SW * 2;  // one of Q, dO
   static constexpr uint32_t STAGE_TX = 2 * QT_BYTES;  // TMA bytes; lse, delta by the warp
-  static constexpr int STAGE_BYTES = round_up(STAGE_TX + 2 * BQ * 4, 1024);
+  static constexpr int STAGE_BYTES = pcm::round_up(STAGE_TX + 2 * BQ * 4, 1024);
   static constexpr int BAR_OFF = 2 * KV_BYTES + STAGES * STAGE_BYTES;
   static constexpr size_t smem_bytes = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
   static_assert(NV % SW == 0, "a warpgroup's output columns are whole chunks");
@@ -215,7 +154,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
   using C = DkvCfg<D_PAD, WD, BQ_>;
   constexpr int BQ = C::BQ, BK = C::BK;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = align1024(smem_raw);
+  unsigned char* smem = pcm::align1024(smem_raw);
   const uint32_t sbase = pcm::smem_u32(smem);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::BAR_OFF);
   uint64_t* empty = full + STAGES;
@@ -284,8 +223,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
     const int c0 = (wg % WD) * C::NV;  // and its first output column
     float adk[C::NV / 2], adv[C::NV / 2], sacc[BQ / 2], dpacc[BQ / 2];
     uint32_t pa[BQ / 16][4], da[BQ / 16][4];
-    zero(adk);
-    zero(adv);
+    pcm::zero(adk);
+    pcm::zero(adv);
     pcm::reg_fence(adk);
     pcm::reg_fence(adv);
     auto stage = [&](int it) { return sbase + 2 * C::KV_BYTES + (it % STAGES) * C::STAGE_BYTES; };
@@ -318,7 +257,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
       // stage is free. dP may still run.
       pcm::wg_wait<1>();
       pcm::reg_fence(sacc);
-      if (it > 0) release(&empty[(it - 1) % STAGES], lane);
+      if (it > 0) pcm::release(&empty[(it - 1) % STAGES], lane);
 
       // P^T (q columns beyond sq are 0), then dV += P^T dO on this warpgroup's columns
       const bool whole = q0 + BQ <= sq;
@@ -326,7 +265,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
         k2_probs<false>(sacc, Ls, alpha, sq - q0, t);
       else
         k2_probs<true>(sacc, Ls, alpha, sq - q0, t);
-      to_a(pa, sacc);
+      pcm::to_a(pa, sacc);
       pcm::reg_fence(pa);
       pcm::wg_fence();
 #pragma unroll
@@ -341,7 +280,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
         k2_dscores<false>(dpacc, sacc, Ds, scale, sq - q0, t);
       else
         k2_dscores<true>(dpacc, sacc, Ds, scale, sq - q0, t);
-      to_a(da, dpacc);
+      pcm::to_a(da, dpacc);
       pcm::reg_fence(da);
       pcm::wg_fence();
 #pragma unroll
@@ -353,14 +292,14 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
     pcm::wg_wait<0>();
     pcm::reg_fence(adv);
     pcm::reg_fence(adk);
-    if (n > 0) release(&empty[(n - 1) % STAGES], lane);
+    if (n > 0) pcm::release(&empty[(n - 1) % STAGES], lane);
 
     // dk, dv: fresh contiguous (b, sk, h, d), or this split's fp32 partials
     const int64_t base = ((int64_t)bi * sk * h + hi) * d;
     const int row0 = k0 + kr + 16 * wq + g;
     float* pk = part == nullptr ? nullptr : part + (int64_t)blockIdx.z * 2 * n_out;
-    store_rows(dk, pk, adk, base, row0, sk, h, d, c0, t);
-    store_rows(dv, pk == nullptr ? nullptr : pk + n_out, adv, base, row0, sk, h, d, c0, t);
+    pcm::store_rows(dk, pk, adk, base, row0, sk, h, d, c0, t);
+    pcm::store_rows(dv, pk == nullptr ? nullptr : pk + n_out, adv, base, row0, sk, h, d, c0, t);
   }
 }
 
@@ -394,7 +333,7 @@ struct DqCfg {
   static constexpr int QT_BYTES = NCH * BQ * SW * 2;  // one of Q, dO
   static constexpr int KT_BYTES = NCH * BK * SW * 2;  // one of K, V
   static constexpr uint32_t STAGE_TX = 2 * KT_BYTES;
-  static constexpr int STAGE_BYTES = round_up(STAGE_TX, 1024);
+  static constexpr int STAGE_BYTES = pcm::round_up(STAGE_TX, 1024);
   static constexpr int BAR_OFF = 2 * QT_BYTES + STAGES * STAGE_BYTES;
   static constexpr size_t smem_bytes = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
 };
@@ -409,7 +348,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   using C = DqCfg<D_PAD, BK_>;
   constexpr int BQ = C::BQ, BK = C::BK;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = align1024(smem_raw);
+  unsigned char* smem = pcm::align1024(smem_raw);
   const uint32_t sbase = pcm::smem_u32(smem);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::BAR_OFF);
   uint64_t* empty = full + STAGES;
@@ -468,7 +407,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     }
     float acc[D_PAD / 2], sacc[BK / 2], dpacc[BK / 2];
     uint32_t da[BK / 16][4];
-    zero(acc);
+    pcm::zero(acc);
     pcm::reg_fence(acc);
     auto stage = [&](int it) { return sbase + 2 * C::QT_BYTES + (it % STAGES) * C::STAGE_BYTES; };
     // S = Q K^T and dP = dO V^T of step it (64 q rows x BK k columns), one
@@ -498,14 +437,14 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
       pcm::wg_wait<0>();
       pcm::reg_fence(sacc);
       pcm::reg_fence(dpacc);
-      if (it > 0) release(&empty[(it - 1) % STAGES], lane);
+      if (it > 0) pcm::release(&empty[(it - 1) % STAGES], lane);
 
       // dS (k columns beyond sk are 0), then dQ += dS K
       if (k0 + BK <= sk)
         k3_dscores<false>(dpacc, sacc, lrow, drow, alpha, scale, sk - k0, t);
       else
         k3_dscores<true>(dpacc, sacc, lrow, drow, alpha, scale, sk - k0, t);
-      to_a(da, dpacc);
+      pcm::to_a(da, dpacc);
       pcm::reg_fence(da);
       pcm::wg_fence();
 #pragma unroll
@@ -516,79 +455,17 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     }
     pcm::wg_wait<0>();
     pcm::reg_fence(acc);
-    release(&empty[(n - 1) % STAGES], lane);
+    pcm::release(&empty[(n - 1) % STAGES], lane);
 
     // dq: fresh contiguous (b, sq, h, d)
-    store_rows(dq, nullptr, acc, ((int64_t)bi * sq * h + hi) * d, q0 + qr + 16 * wq + g, sq,
+    pcm::store_rows(dq, nullptr, acc, ((int64_t)bi * sq * h + hi) * d, q0 + qr + 16 * wq + g, sq,
                h, d, 0, t);
   }
 }
 
 // ---------------------------------------------------------------------------
-// host: tensor maps and launches
+// host: launches (tensor maps from hopper.cuh)
 // ---------------------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of the CUDA driver API, reached through the runtime (the
-// library links cudart only).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
-#endif
-    return res == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// A (b, s, h, d) bf16 tensor read through its strides (elements) as a 4-d map
-// (d, h, s, b); box: SW columns x ``rows`` rows of one (b, h), 32-byte swizzle,
-// zero fill beyond d and s. Encoding costs microseconds of host time, as much
-// as a small launch's kernel, so recent maps are kept by their inputs (a map
-// is a function of them alone; the caching allocator hands the same
-// addresses back step after step).
-bool map_bshd(CUtensorMap* m, const void* base, int b, int s, int h, int d, int64_t sb,
-              int64_t ss, int64_t sh, int rows) {
-  struct Entry {
-    int64_t key[9];
-    CUtensorMap map;
-  };
-  constexpr int SLOTS = 64;
-  static Entry cache[SLOTS];
-  static bool used[SLOTS];
-  static std::mutex mu;
-  const int64_t key[9] = {(int64_t)(uintptr_t)base, b, s, h, d, sb, ss, sh, rows};
-  uint64_t hash = 1469598103934665603ull;
-  for (int64_t k : key) hash = (hash ^ (uint64_t)k) * 1099511628211ull;
-  Entry& e = cache[hash % SLOTS];
-  std::lock_guard<std::mutex> lock(mu);
-  if (used[hash % SLOTS] && std::equal(key, key + 9, e.key)) {
-    *m = e.map;
-    return true;
-  }
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)s, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {SW, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr ||
-      enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-          unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
-          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return false;
-  std::copy(key, key + 9, e.key);
-  e.map = *m;
-  used[hash % SLOTS] = true;
-  return true;
-}
 
 struct Args {  // what both entry points take
   const void *q, *k, *v, *dout;
@@ -599,22 +476,17 @@ struct Args {  // what both entry points take
   cudaStream_t stream;
 };
 
-template <typename Kern>
-cudaError_t allow_smem(Kern kern, size_t bytes) {
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 template <int D_PAD, int WD, int BQ>
 cudaError_t launch_dkv(const Args& a, bf16* dk, bf16* dv, float* part, int nsplit) {
   using C = DkvCfg<D_PAD, WD, BQ>;
   CUtensorMap tq, tk, tv, tdo;
-  if (!(map_bshd(&tq, a.q, a.b, a.sq, a.h, a.d, a.qsb, a.qss, a.qsh, C::BQ) &&
-        map_bshd(&tdo, a.dout, a.b, a.sq, a.h, a.d, a.osb, a.oss, a.osh, C::BQ) &&
-        map_bshd(&tk, a.k, a.b, a.sk, a.h, a.d, a.ksb, a.kss, a.ksh, C::BK) &&
-        map_bshd(&tv, a.v, a.b, a.sk, a.h, a.d, a.vsb, a.vss, a.vsh, C::BK)))
+  if (!(pcm::map_bshd(&tq, a.q, a.b, a.sq, a.h, a.d, a.qsb, a.qss, a.qsh, C::BQ) &&
+        pcm::map_bshd(&tdo, a.dout, a.b, a.sq, a.h, a.d, a.osb, a.oss, a.osh, C::BQ) &&
+        pcm::map_bshd(&tk, a.k, a.b, a.sk, a.h, a.d, a.ksb, a.kss, a.ksh, C::BK) &&
+        pcm::map_bshd(&tv, a.v, a.b, a.sk, a.h, a.d, a.vsb, a.vss, a.vsh, C::BK)))
     return cudaErrorInvalidPitchValue;  // cuTensorMapEncodeTiled refused a tensor map
   auto kern = flash_bwd_dkv_kernel<D_PAD, WD, BQ>;
-  static const cudaError_t allowed = allow_smem(kern, C::smem_bytes);  // once an instance
+  static const cudaError_t allowed = pcm::allow_smem(kern, C::smem_bytes);  // once an instance
   cudaError_t err = allowed;
   if (err != cudaSuccess) return err;
   const int nsteps = (a.sq + C::BQ - 1) / C::BQ;
@@ -635,13 +507,13 @@ template <int D_PAD, int BK>
 cudaError_t launch_dq(const Args& a, bf16* dq) {
   using C = DqCfg<D_PAD, BK>;
   CUtensorMap tq, tk, tv, tdo;
-  if (!(map_bshd(&tq, a.q, a.b, a.sq, a.h, a.d, a.qsb, a.qss, a.qsh, C::BQ) &&
-        map_bshd(&tdo, a.dout, a.b, a.sq, a.h, a.d, a.osb, a.oss, a.osh, C::BQ) &&
-        map_bshd(&tk, a.k, a.b, a.sk, a.h, a.d, a.ksb, a.kss, a.ksh, C::BK) &&
-        map_bshd(&tv, a.v, a.b, a.sk, a.h, a.d, a.vsb, a.vss, a.vsh, C::BK)))
+  if (!(pcm::map_bshd(&tq, a.q, a.b, a.sq, a.h, a.d, a.qsb, a.qss, a.qsh, C::BQ) &&
+        pcm::map_bshd(&tdo, a.dout, a.b, a.sq, a.h, a.d, a.osb, a.oss, a.osh, C::BQ) &&
+        pcm::map_bshd(&tk, a.k, a.b, a.sk, a.h, a.d, a.ksb, a.kss, a.ksh, C::BK) &&
+        pcm::map_bshd(&tv, a.v, a.b, a.sk, a.h, a.d, a.vsb, a.vss, a.vsh, C::BK)))
     return cudaErrorInvalidPitchValue;
   auto kern = flash_bwd_dq_kernel<D_PAD, BK>;
-  static const cudaError_t allowed = allow_smem(kern, C::smem_bytes);  // once an instance
+  static const cudaError_t allowed = pcm::allow_smem(kern, C::smem_bytes);  // once an instance
   cudaError_t err = allowed;
   if (err != cudaSuccess) return err;
   dim3 grid((a.sq + C::BQ - 1) / C::BQ, a.b * a.h);

@@ -6,10 +6,11 @@ with a plain C interface, loaded through `ctypes` at the first call that
 needs it: one `nvcc -c` per source, all started together, then one link.
 The build goes to ``<repo>/build/pcm_tpu_torch/<source-hash>/`` under a file
 lock, so concurrent processes build once and a source edit builds anew.
-The library links the CUDA runtime only: the backward kernels' TMA tensor
-maps are encoded by ``cuTensorMapEncodeTiled`` of the CUDA driver API, which the
-runtime hands out through ``cudaGetDriverEntryPoint`` (``csrc/hopper.cuh``
-and ``cuda.h`` supply the types).
+The library links the CUDA runtime only: the TMA tensor maps of the
+attention and GEGLU kernels are encoded by ``cuTensorMapEncodeTiled`` of the
+CUDA driver API, which the runtime hands out through
+``cudaGetDriverEntryPoint`` (``csrc/hopper.cuh`` and ``cuda.h`` supply the
+types).
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes the
 kernel's plain PyTorch version, a CUDA tensor takes the kernel (or the

@@ -9,10 +9,12 @@ inputs, as `_geglu_bwd` is in the JAX package.
 
 from __future__ import annotations
 
+from typing import NamedTuple, Tuple
+
 import torch
 import torch.nn.functional as F
 
-from .common import check_cuda, count_launch, lib, require, stream_ptr, use_kernel, vjp_of
+from .common import cdiv, check_cuda, count_launch, lib, require, stream_ptr, use_kernel, vjp_of
 
 
 class GEGLUFn(torch.autograd.Function):
@@ -59,6 +61,20 @@ def geglu_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     check_cuda(err, "geglu")
     count_launch("geglu")
     return out
+
+
+class GegluTiles(NamedTuple):
+    block_m: int            # rows of a tile (two 64-row warpgroups)
+    block_n: int            # value columns of a tile, and as many gate columns
+    block_k: int            # K columns of a pipeline stage
+    k_steps: int            # stages of a tile
+    grid: Tuple[int, int]   # (N tiles, M tiles), walked N fastest
+
+
+def geglu_tiles(m: int, k: int, f: int) -> GegluTiles:
+    """K5's tiles at ``(M, K, F)``, as `csrc/geglu.cu` walks them: one
+    persistent block an SM takes tile after tile, N fastest."""
+    return GegluTiles(128, 128, 64, cdiv(k, 64), (cdiv(f, 128), cdiv(m, 128)))
 
 
 def geglu_reference(x, w, b):

@@ -75,22 +75,30 @@ def device_ms(fn, names, calls: int = 10) -> float:
     return us / calls / 1e3
 
 
-def ptxas_report(build_log: str) -> dict:
-    """Registers and spill bytes of each K2/K3 instance (template arguments as
-    the key), and ptxas' C75xx notes, from an nvcc ``-Xptxas -v`` log."""
-    def key(name):
-        m = re.search(r"flash_bwd_(dkv|dq)_kernelILi(\d+)ELi(\d+)E(?:Li(\d+)E)?", name)
-        return m and "<".join((m.group(1), ",".join(g for g in m.groups()[1:] if g))) + ">"
+BWD_KERNELS = r"flash_bwd_(?:dkv|dq)_kernel"
 
-    kernels, notes = {}, []
+
+def ptxas_report(build_log: str, kernels: str = BWD_KERNELS) -> dict:
+    """Registers and spill bytes of each instance of the kernels whose names
+    match ``kernels`` (name and template arguments as the key, e.g.
+    ``flash_bwd_dq_kernel<64,64>``), and ptxas' C75xx notes, from an nvcc
+    ``-Xptxas -v`` log."""
+    def key(name):
+        m = re.search(r"(" + kernels + r")((?:ILi\d+E)?(?:Li\d+E)*)", name)
+        if not m:
+            return None
+        args = re.findall(r"Li(\d+)E", m.group(2))
+        return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+    found, notes = {}, []
     for m in re.finditer(r"Compiling entry function '(\S+)' for 'sm_90a'\n(?:.*\n){0,3}?.*?"
                          r"(\d+) bytes spill stores.*\n.*Used (\d+) registers", build_log):
         if key(m.group(1)):
-            kernels[key(m.group(1))] = {"registers": int(m.group(3)), "spill_bytes": int(m.group(2))}
+            found[key(m.group(1))] = {"registers": int(m.group(3)), "spill_bytes": int(m.group(2))}
     for m in re.finditer(r"\((C75\d+)\)[^']*'(\S+)'", build_log):
         if key(m.group(2)):
             notes.append(f"{m.group(1)} {key(m.group(2))}")
-    return {"ptxas": kernels, "notes": sorted(set(notes))}
+    return {"ptxas": found, "notes": sorted(set(notes))}
 
 
 def main() -> int:

@@ -16,7 +16,7 @@ one, which the preprocessor cannot generate, hence this script.
 
 from pathlib import Path
 
-SS_WIDTHS = (32, 64)
+SS_WIDTHS = (32, 64, 128)
 RS_WIDTHS = (16, 32, 48, 64, 80, 96, 128, 160)
 OUT = Path(__file__).resolve().parents[1] / "pcm_tpu_torch" / "csrc" / "wgmma_ops.cuh"
 

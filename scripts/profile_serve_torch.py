@@ -25,7 +25,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 def category(name: str) -> str:
     n = name.lower()
-    for key, cat in (("flash_fwd_kernel", "K1 flash attention"),
+    for key, cat in (("flash_fwd_", "K1 flash attention"),
                      ("flash_bwd_dkv_kernel", "K2 flash attention dK/dV"),
                      ("dkv_reduce_kernel", "K2 flash attention dK/dV"),  # its q-split sum
                      ("flash_bwd_dq_kernel", "K3 flash attention dQ"), ("gn_", "K4 group norm"),

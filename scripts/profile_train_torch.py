@@ -16,12 +16,17 @@ embeddings made on the card and times ``--steps`` steps on the host clock
 but the first two, and the peak memory. Then it traces one more step with
 ``torch.profiler``: host wall time, summed kernel time by category (the
 port's kernels, GEMMs, convolutions, the rest), the device idle share and
-the top kernels, as `profile_serve_torch.py` prints them for serving.
+the top kernels, as `profile_serve_torch.py` prints them for serving. Last,
+one more step with every kernel wrapper wrapped (`bound_tally`) prints the
+step's launches and least time by kernel: the sum over its launches of
+`chip_smoke.bound` at each call's own shapes.
 """
 
 import argparse
+import collections
 import contextlib
 import dataclasses
+import json
 import os
 import statistics
 import sys
@@ -31,6 +36,69 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import torch  # noqa: E402
 from profile_serve_torch import trace  # noqa: E402
+
+
+def bound_tally():
+    """Wraps each kernel's wrapper so that every launch adds the least time
+    the card could take for its call (`chip_smoke.bound`: each input read
+    once and each output written once over the memory rate, or the
+    operations over the peak rate of their type, whichever is larger) to a
+    tally by kernel. Returns the tally and a function that unwraps them."""
+    import importlib
+
+    import chip_smoke as cs
+    from pcm_tpu_torch.ops import common
+
+    # the modules (the package exports functions of the same names)
+    fa, gg, gn, i8 = (importlib.import_module(f"pcm_tpu_torch.ops.{m}")
+                      for m in ("flash_attention", "geglu", "groupnorm", "int8_matmul"))
+
+    tally = collections.Counter()
+
+    def attn(products, outputs):
+        return lambda q, k, *_: cs.attn_bound(
+            (q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3]), products, outputs)
+
+    def geglu(x, w, *_):
+        k, f = x.shape[-1], w.shape[0] // 2
+        m = x.numel() // k
+        return cs.bound(4.0 * m * k * f, "bf16", 2.0 * (m * k + 2 * f * k + 2 * f + m * f))
+
+    def group_norm(x, *_):  # read x, write y (bf16); ~8 fp32 ops an element
+        return cs.bound(8.0 * x.numel(), "fp32", 4.0 * x.numel())
+
+    def int8(x, values, *_):
+        k, n = x.shape[-1], values.shape[0]
+        m = x.numel() // k
+        return cs.bound(2.0 * m * k * n, "int8", 2.0 * m * k + n * k + 4.0 * n + 2.0 * m * n)
+
+    def wrap(fn, kernel, cost):
+        def counted(*a, **kw):
+            before = common.launch_counts()[kernel]
+            out = fn(*a, **kw)
+            launched = common.launch_counts()[kernel] - before
+            if launched:
+                tally[kernel + " launches"] += launched
+                tally[kernel] += launched * cost(*a)["bound_ms"]
+            return out
+        return counted
+
+    patches = [(fa, "flash_attention_fwd", attn(2, 1)),
+               (fa, "flash_attention_bwd_dkv", attn(4, 2)),
+               (fa, "flash_attention_bwd_dq", attn(3, 1)),
+               (gn, "group_norm_silu_fwd", group_norm), (gg, "geglu_fwd", geglu)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    kernel = {"group_norm_silu_fwd": "group_norm_silu", "geglu_fwd": "geglu"}
+    for mod, name, cost in patches:
+        setattr(mod, name, wrap(getattr(mod, name), kernel.get(name, name), cost))
+    int8_defaults = i8.Int8MatmulFn.forward.__defaults__  # K6 is its forward's default
+    i8.Int8MatmulFn.forward.__defaults__ = (wrap(int8_defaults[0], "int8_matmul", int8),)
+
+    def unwrap():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        i8.Int8MatmulFn.forward.__defaults__ = int8_defaults
+    return tally, unwrap
 
 
 def main() -> None:
@@ -105,6 +173,11 @@ def main() -> None:
               f"{statistics.median(times[2:]):.1f} ms, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
         trace(one_step, label)
+        tally, unwrap = bound_tally()
+        one_step()
+        unwrap()
+    print(f"== {label}: launches and bound ms a step by kernel "
+          + json.dumps({k: round(v, 4) for k, v in sorted(tally.items())}))
     print(torch.cuda.get_device_name(0))
 
 

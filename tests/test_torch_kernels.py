@@ -54,6 +54,10 @@ def rel_max(a, b):
     (1, 1000, 1000, 1, 512),
     (2, 77, 77, 4, 16),
     (1, 130, 70, 2, 64),
+    # ragged q and key lengths (sq = 130 straddles the 128-row blocks) at every
+    # head dim of the wgmma kernel
+    *[(1, 130, 77, 2, d) for d in (16, 32, 40, 64, 80, 128, 160)],
+    (1, 77, 300, 2, 40),
 ])
 def test_flash_attention_kernel(cuda, b, sq, sk, h, d):
     q = _randn((b, sq, h, d), 0, cuda)
@@ -68,13 +72,24 @@ def test_flash_attention_kernel(cuda, b, sq, sk, h, d):
     assert float((lse - lse_ref).abs().max()) <= 5e-3
 
 
-def test_flash_attention_strided_projection(cuda):
+@pytest.mark.parametrize("d", [16, 32, 40, 64, 80, 128, 160, 512])
+def test_flash_attention_strided_projection(cuda, d):
     """Reads (b, s, h, d) views of a fused projection through their strides."""
-    qkv = _randn((2, 256, 3, 8, 40), 3, cuda)
+    qkv = _randn((2, 200, 3, 4, d), 3, cuda)
     q, k, v = qkv.unbind(2)
-    o, _ = flash_attention_fwd(q, k, v)
+    o, lse = flash_attention_fwd(q, k, v)
     ref = attention_reference(q.float(), k.float(), v.float())
     assert rel_max(o, ref) <= 2e-2
+    assert float((lse - attention_lse_reference(q.float(), k.float())).abs().max()) <= 5e-3
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d", [(2, 1024, 1024, 4, 64), (2, 300, 77, 8, 40),
+                                         (1, 256, 256, 2, 160), (1, 130, 130, 1, 512)])
+def test_flash_attention_kernel_is_deterministic(cuda, b, sq, sk, h, d):
+    q, k, v = (_randn((b, s, h, d), 20 + i, cuda) for i, s in enumerate((sq, sk, sk)))
+    o1, lse1 = flash_attention_fwd(q, k, v)
+    o2, lse2 = flash_attention_fwd(q, k, v)
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
 
 
 @pytest.mark.parametrize("shape,groups,eps,act,offset", [
@@ -105,7 +120,8 @@ def test_group_norm_kernel_is_deterministic(cuda):
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("m,k,f", [(4096, 320, 1280), (1000, 640, 2560), (77, 1280, 5120)])
+@pytest.mark.parametrize("m,k,f", [(4096, 320, 1280), (1000, 640, 2560), (77, 1280, 5120),
+                                   (1000, 320, 1000), (130, 72, 136)])
 def test_geglu_kernel(cuda, m, k, f):
     x = _randn((m, k), 8, cuda)
     w = _randn((2 * f, k), 9, cuda, k ** -0.5)
@@ -115,6 +131,13 @@ def test_geglu_kernel(cuda, m, k, f):
     ref = geglu_reference(x.float(), w.float(), b.float())
     assert out.shape == (m, f)
     assert rel_max(out, ref) <= 2e-2
+
+
+def test_geglu_kernel_is_deterministic(cuda):
+    x = _randn((1000, 320), 8, cuda)
+    w = _randn((2000, 320), 9, cuda, 320 ** -0.5)
+    b = _randn((2000,), 10, cuda, 0.1)
+    assert torch.equal(geglu(x, w, b), geglu(x, w, b))
 
 
 def test_wrappers_count_launches(cuda):
@@ -154,6 +177,9 @@ def test_wrappers_reject_unsupported(cuda):
     x = torch.zeros((1, 4, 12), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 8"):
         group_norm_silu(x, x[0, 0], x[0, 0], num_groups=4)
+    w = torch.zeros((16, 12), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        geglu(x[0], w, w[:, 0])
     q = torch.zeros((1, 8, 1, 512), device=cuda, dtype=torch.bfloat16)
     o, lse = flash_attention_fwd(q, q, q)
     with pytest.raises(ValueError, match="backward"):

@@ -23,8 +23,8 @@ from pcm_tpu.ops.flash_attention import _fwd as jax_fa_fwd
 from pcm_tpu_torch.ops import common
 from pcm_tpu_torch.ops.flash_attention import (FlashAttentionFn, attention_bwd_reference,
                                                attention_reference, bwd_tiles, dkv_splits,
-                                               flash_attention, flash_attention_fwd)
-from pcm_tpu_torch.ops.geglu import GEGLUFn, geglu
+                                               flash_attention, flash_attention_fwd, fwd_tiles)
+from pcm_tpu_torch.ops.geglu import GEGLUFn, geglu, geglu_tiles
 from pcm_tpu_torch.ops.groupnorm import GroupNormSiLUFn, group_norm_silu
 
 TOL = 1e-5
@@ -43,7 +43,8 @@ def rel_max(ours, ref):
     return float(np.abs(ours - ref).max() / max(np.abs(ref).max(), 1e-6))
 
 
-@pytest.mark.parametrize("b,sq,sk,h,d", [(2, 50, 77, 2, 16), (1, 70, 77, 2, 40)])
+@pytest.mark.parametrize("b,sq,sk,h,d", [(2, 50, 77, 2, 16), (1, 70, 77, 2, 40),
+                                         (1, 130, 77, 2, 16), (1, 130, 77, 2, 32)])
 def test_attention_matches_pallas(b, sq, sk, h, d):
     rng = np.random.default_rng(0)
     q, k, v = (rng.standard_normal((b, s, h, d), dtype=np.float32) for s in (sq, sk, sk))
@@ -108,6 +109,25 @@ def test_backward_tiles_per_head_dim(d, tiles):
     32-row steps where a warpgroup's accumulators are 80 (K2) or at least
     128 (K3) columns wide."""
     assert bwd_tiles(d) == tiles
+
+
+@pytest.mark.parametrize("d,tiles", [(16, (16, 128, 128, 16, True)),
+                                     (32, (32, 128, 128, 32, True)),
+                                     (40, (48, 128, 128, 16, True)),
+                                     (64, (64, 128, 128, 64, True)),
+                                     (80, (80, 128, 64, 16, True)),
+                                     (128, (128, 128, 64, 64, True)),
+                                     (160, (160, 128, 64, 32, True)),
+                                     (512, (512, 64, 32, 0, False))])
+def test_forward_tiles_per_head_dim(d, tiles):
+    """K1's padded head_dim, block rows, key step, TMA chunk and route, as the
+    CUDA dispatch takes them: every head dim up to 160 on TMA + wgmma with
+    128-row blocks, chunks of the widest swizzle dividing the padded head
+    dim, 128-key steps up to 64 accumulator columns and 64-key steps above;
+    the VAE's 512-wide head on the mma.sync instance."""
+    assert fwd_tiles(d) == tiles
+    if tiles[4]:
+        assert fwd_tiles(d).d_pad == bwd_tiles(d).d_pad
 
 
 @pytest.mark.parametrize("shape,sms,nsplit", [
@@ -220,18 +240,37 @@ def test_group_norm_one_pass_variance_cancels():
     assert rel_max(pallas, exact) > rel_max(ours, exact)
 
 
-@pytest.mark.parametrize("k,f", [(320, 128), (256, 128)])
-def test_geglu_matches_pallas(k, f):
+@pytest.mark.parametrize("k,f,rows", [pytest.param(320, 128, 37, id="320-128"),
+                                      pytest.param(256, 128, 37, id="256-128"),
+                                      pytest.param(256, 128, 100, id="256-128-m300")])
+def test_geglu_matches_pallas(k, f, rows):
+    """M = 3 x rows (111, 300) is not a multiple of the kernel's 128-row
+    blocks nor of the Pallas kernel's 256-row ones."""
     rng = np.random.default_rng(3)
-    x = rng.standard_normal((3, 37, k), dtype=np.float32)
+    x = rng.standard_normal((3, rows, k), dtype=np.float32)
     w = rng.standard_normal((k, 2 * f), dtype=np.float32) * np.float32(k ** -0.5)
     b = rng.standard_normal(2 * f, dtype=np.float32)
     # the port takes the nn.Linear layout (2F, K)
     ours = geglu(torch.from_numpy(x), torch.from_numpy(np.ascontiguousarray(w.T)),
                  torch.from_numpy(b))
     ref = jax_geglu(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), interpret=True)
-    assert ours.shape == (3, 37, f)
+    assert ours.shape == (3, rows, f)
     assert rel_max(ours, ref) < TOL
+
+
+@pytest.mark.parametrize("m,k,f,tiles", [
+    (16384, 320, 1280, (5, (10, 128))), (32768, 320, 1280, (5, (10, 256))),
+    (4096, 640, 2560, (10, (20, 32))), (1024, 1280, 5120, (20, (40, 8))),
+    (256, 1280, 5120, (20, (40, 2))), (32768, 640, 2560, (10, (20, 256))),
+    (8192, 1280, 5120, (20, (40, 64))), (1000, 320, 1000, (5, (8, 8))),
+])
+def test_geglu_tiles(m, k, f, tiles):
+    """K5's k steps and grid (N tiles fastest) at the main path's shapes
+    (SD1.5 and SDXL feed-forwards) and a ragged M / F: 128 x 128 blocks of
+    value and gate, 64-column k steps (K = 320 takes five)."""
+    got = geglu_tiles(m, k, f)
+    assert (got.block_m, got.block_n, got.block_k) == (128, 128, 64)
+    assert (got.k_steps, got.grid) == tiles
 
 
 def test_dispatch_by_device():
