@@ -11,9 +11,10 @@ Phases, one printed line each:
   3. kernels: each kernel against its plain PyTorch version at the SD1.5 shapes
      of the serving path and the SDXL-1024 shapes of the SDXL step, bf16 on the
      card, with errors, CUDA-event times and bit-identical reruns (K1, K5 at
-     every shape), and at a second, SDXL headline (``sdxl_*`` fields) for K1
-     and K5 as for K2 / K3; beside K5 the bare cuBLAS product
-     ``F.linear(x, w)`` (``product_ms``), the yardstick of its tensor-core part;
+     every shape), and at a second, SDXL headline (``sdxl_*`` fields) for K1,
+     K5 and K6 as for K2 / K3, and K1's VAE head (``vae_*``); beside K5 the
+     bare cuBLAS product ``F.linear(x, w)`` (``product_ms``), the yardstick of
+     its tensor-core part;
      the flash-attention backward (K2 dK/dV, K3 dQ) through its autograd
      Function against autograd of the plain attention at the training shapes,
      and twice bit-identical, with the SDPA backward and the bounds at the
@@ -165,6 +166,17 @@ HEADLINE = {"flash_attention_fwd": (4, 4096, 4096, 8, 40),
 # second headlines at SDXL-1024 widths, into ``sdxl_*`` fields: self-attention
 # at 64x64 and the feed-forward at 32x32 under CFG
 SDXL_HEADLINE = {"flash_attention_fwd": (4, 4096, 4096, 10, 64), "geglu": (8192, 1280, 5120)}
+# a third, into ``vae_*`` fields: K1's 512-wide instance, the VAE mid-block's
+# single head (SD1.5 decode at batch 4)
+VAE_HEADLINE = {"flash_attention_fwd": (4, 4096, 4096, 1, 512)}
+
+
+def headline_prefix(name, key):
+    """The field prefix of a headline shape ("", "sdxl_", "vae_"), or None."""
+    for prefix, table in (("", HEADLINE), ("sdxl_", SDXL_HEADLINE), ("vae_", VAE_HEADLINE)):
+        if key == table.get(name):
+            return prefix
+    return None
 
 
 def check_kernels(gen) -> dict:
@@ -178,18 +190,16 @@ def check_kernels(gen) -> dict:
     def record(name, key, err_abs, ms, plain_ms):
         r = results[name]
         r["max_abs_err"] = max(r["max_abs_err"], err_abs)
-        if key == HEADLINE[name]:
-            r["ms"], r["plain_ms"] = ms, plain_ms
-        if key == SDXL_HEADLINE.get(name):
-            r["sdxl_ms"], r["sdxl_plain_ms"] = ms, plain_ms
+        prefix = headline_prefix(name, key)
+        if prefix is not None:
+            r[prefix + "ms"], r[prefix + "plain_ms"] = ms, plain_ms
 
     def headline(name, key, **fields):
         """Bound and yardsticks of a headline shape: plain fields at the
-        SD1.5 headline, ``sdxl_``-prefixed at the SDXL one."""
-        if key == HEADLINE[name]:
-            results[name].update(fields)
-        else:
-            results[name].update({"sdxl_" + f: v for f, v in fields.items() if f != "bound_by"})
+        SD1.5 headline, ``sdxl_``- or ``vae_``-prefixed at the others."""
+        prefix = headline_prefix(name, key)
+        results[name].update({prefix + f: v for f, v in fields.items()
+                              if not (prefix and f == "bound_by")})
         log("kernel", name=name, shape=key, **{f: f"{v:.4f}" if isinstance(v, float) else v
                                                for f, v in fields.items()})
 
@@ -213,7 +223,7 @@ def check_kernels(gen) -> dict:
             raise AssertionError(f"flash attention {shp}: rel {err:.3e}, lse {err_lse:.3e}, "
                                  f"bit-identical rerun {same}")
         record("flash_attention_fwd", shp, abs_max(o, ref), ms, plain)
-        if shp in (HEADLINE["flash_attention_fwd"], SDXL_HEADLINE["flash_attention_fwd"]):
+        if headline_prefix("flash_attention_fwd", shp) is not None:
             qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))  # (b, h, s, d)
             lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
             headline("flash_attention_fwd", shp, library_ms=lib, **attn_bound(shp, 2, 1))
@@ -393,6 +403,7 @@ def check_backward(gen) -> dict:
 K6_SHAPES = [(16384, 320, 320), (16384, 1280, 320), (16384, 640, 640), (4096, 1280, 1280),
              (4096, 5120, 1280), (4096, 1280, 10240), (308, 2048, 1280)]
 K6_HEADLINE = (16384, 320, 320)
+K6_SDXL = (4096, 1280, 10240)  # second headline: SDXL's feed-forward out of 1280
 
 
 def check_int8(gen) -> dict:
@@ -428,6 +439,8 @@ def check_int8(gen) -> dict:
         result["max_abs_err"] = max(result["max_abs_err"], abs_max(out, ref))
         if shp == K6_HEADLINE:
             result.update(ms=ms, plain_ms=plain, **b)
+        if shp == K6_SDXL:
+            result.update(sdxl_ms=ms, sdxl_plain_ms=plain, sdxl_bound_ms=b["bound_ms"])
         del x, out, ref, qt, values, scale
     return result
 
@@ -892,9 +905,9 @@ def main() -> int:
                                "pcm_tpu/ops/int8_matmul.py:56")}
     launches = {k: sum(run["counts"][k] for run in (s, tr, ti, sx)) for k in sources}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # second headlines (K1, K2, K3, K5) and K5's bare product
-    extra = ("sdxl_ms", "sdxl_plain_ms", "sdxl_bound_ms", "sdxl_library_ms", "product_ms",
-             "sdxl_product_ms")
+    # second headlines (K1, K2, K3, K5, K6), K1's VAE head and K5's bare product
+    extra = ("sdxl_ms", "sdxl_plain_ms", "sdxl_bound_ms", "sdxl_library_ms", "vae_ms",
+             "vae_plain_ms", "vae_bound_ms", "vae_library_ms", "product_ms", "sdxl_product_ms")
     line = {"kernels": [{"name": k, "route": "cuda", "source": sources[k][0],
                          "replaces": sources[k][1], "launches": launches[k],
                          **{f: kernels[k][f] for f in keys},

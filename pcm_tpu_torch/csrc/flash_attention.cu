@@ -51,12 +51,30 @@
 //   thread of each row: lse rows start at b*h*sq, not 16-byte aligned for a
 //   TMA box.
 //
-// The VAE's single 512-wide head (one launch a decode, serving only) runs the
-// mma.sync kernel at the end of this file: a 16 x 512 fp32 accumulator does
-// not fit one warp's registers, so head_dim is split over WD = 2 warps, each
-// computing the (same) scores of its 16 rows and owning 256 output columns; 8
-// warps, a 64-row q tile and 32-key tiles, with synchronous loads and V stored
-// transposed in shared memory.
+// head_dim 512, the VAE mid-block's single head (SD1.5 at 512 px: (4, 4096,
+// 4096, 1, 512), one launch a decode; SDXL at 1024 px: 16384 tokens): the
+// same ring, TMA and wgmma, on 64 q rows a block.
+// - A 64 x 512 fp32 accumulator is 256 registers a thread for one
+//   warpgroup: the head is split over the two consumer warpgroups, each
+//   owning 256 output columns (64 x 256, 128 registers).
+// - The scores are computed once, split over d: each warpgroup takes the
+//   partial S over its own 256 columns of Q and K (wgmma SS, both K-major),
+//   writes it to a 64 x BK fp32 exchange buffer and adds the other's,
+//   thread for thread at the same fragment positions (a named barrier per
+//   warp pair, two a step). fp32 addition commutes, so both hold the same
+//   S, run the same online softmax and feed P from registers to their own
+//   half of P V (wgmma RS, V read MN-major through the transpose flag: no
+//   transposed copy of V).
+// - Shared memory sets the key step: Q alone is 64 KB (one buffer; the next
+//   tile's Q lands while this tile's last P V and its epilogue run), a K or
+//   V tile BK KB. K and V have separate rings, so that K of the next step
+//   loads while P V of this one runs: 32-key steps in two stages each (208
+//   KB with the exchange buffer). 64-key steps fit one stage each (224 KB)
+//   but need more than the 232 registers a consumer thread has (acc 128 +
+//   scores 32 + P 16): ptxas spills, and they ran 1.3x slower (D512Cfg).
+// - Persistent blocks walk the 64-row tiles (256 at SD1.5's shape over 132
+//   SMs); o is stored by both warpgroups from their halves, lse by the
+//   first.
 #include "hopper.cuh"
 
 namespace {
@@ -302,195 +320,223 @@ cudaError_t launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o, f
 }
 
 // ---------------------------------------------------------------------------
-// head_dim 512 (the VAE's mid-block): mma.sync m16n8k16, synchronous loads
+// head_dim 512 (the VAE's mid-block): the head split over the two warpgroups
 // ---------------------------------------------------------------------------
 
-template <int D_PAD, int NWARPS, int BK, int WD>
-struct MmaCfg {
-  static constexpr int BQ = 16 * NWARPS / WD;
-  static constexpr int QP = D_PAD + 8;  // bf16 pitch of Q and K rows in smem
-  static constexpr int VP = BK + 8;     // bf16 pitch of V^T rows in smem
-  static constexpr int NT = D_PAD / 8 / WD;  // n8 output tiles of one warp
-  static constexpr int KT = D_PAD / 16; // k16 steps of Q K^T
-  static constexpr int ST = BK / 8;     // n8 tiles of one score block
-  static constexpr int PT = BK / 16;    // k16 steps of P V
-  static constexpr size_t smem_bytes = (size_t)(BQ + BK) * QP * 2 + (size_t)D_PAD * VP * 2;
+// BK keys a step, ST stages in each of the K and V rings (64 keys in one
+// stage spill 188 bytes and ran 1.3x slower on an H100 SXM).
+struct D512Cfg {
+  static constexpr int D = 512, HALF = D / NWG, BQ = 64, BK = 32, ST = 2, CW = 64;
+  static constexpr int NCH = D / CW;                 // 128-byte chunks of a row
+  static constexpr int Q_BYTES = BQ * D * 2;         // 64 KB
+  static constexpr int KV_BYTES = BK * D * 2;        // one K or V tile
+  static constexpr int X_BYTES = NWG * BQ * BK * 4;  // both warpgroups' partial scores
+  static constexpr int K_OFF = Q_BYTES, V_OFF = K_OFF + ST * KV_BYTES;
+  static constexpr int X_OFF = V_OFF + ST * KV_BYTES, BAR_OFF = X_OFF + X_BYTES;
+  static constexpr size_t smem_bytes = BAR_OFF + (4 * ST + 2) * 8 + 1024;
 };
 
-template <int D_PAD, int NWARPS, int BK, int WD>
-__global__ void __launch_bounds__(32 * NWARPS)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, int h, int sq, int sk, int d,
-                     int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb, int64_t kss,
-                     int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh, float alpha) {
-  using C = MmaCfg<D_PAD, NWARPS, BK, WD>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + C::BQ * C::QP;
-  bf16* Vt = Ks + BK * C::QP;
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_d512_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                      float* __restrict__ lse, int h, int sq, int sk, int d, int tiles,
+                      float alpha) {
+  using C = D512Cfg;
+  constexpr int BQ = C::BQ, BK = C::BK, ST = C::ST, CW = C::CW, HALF = C::HALF;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = pcm::align1024(smem_raw);
+  const uint32_t sbase = pcm::smem_u32(smem);
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(smem + C::BAR_OFF);
+  uint64_t* kempty = kfull + ST;
+  uint64_t* vfull = kempty + ST;
+  uint64_t* vempty = vfull + ST;
+  uint64_t* qfull = vempty + ST;  // one Q buffer
+  uint64_t* qempty = qfull + 1;
 
-  const int bi = blockIdx.y / h, hi = blockIdx.y % h;
-  const int q0 = blockIdx.x * C::BQ;
-  const bf16* qb = q + bi * qsb + hi * qsh;
-  const bf16* kb = k + bi * ksb + hi * ksh;
-  const bf16* vb = v + bi * vsb + hi * vsh;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  constexpr int NVEC = D_PAD / 8;  // 16-byte vectors per smem row
-  const uint4 zero = make_uint4(0, 0, 0, 0);
+  const int nq = (sq + BQ - 1) / BQ;  // q tiles of a (b, h); tile = bh * nq + q tile
+  const int n = (sk + BK - 1) / BK;   // key steps of a tile
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  for (int i = tid; i < C::BQ * NVEC; i += 32 * NWARPS) {
-    const int r = i / NVEC, c = (i % NVEC) * 8;
-    uint4 val = zero;
-    if (q0 + r < sq && c < d)
-      val = *reinterpret_cast<const uint4*>(qb + (int64_t)(q0 + r) * qss + c);
-    *reinterpret_cast<uint4*>(Qs + r * C::QP + c) = val;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      pcm::mbar_init(&kfull[s], 1);
+      pcm::mbar_init(&vfull[s], 1);
+      pcm::mbar_init(&kempty[s], 4 * NWG);  // one arrival per consumer warp
+      pcm::mbar_init(&vempty[s], 4 * NWG);
+    }
+    pcm::mbar_init(qfull, 1);
+    pcm::mbar_init(qempty, 4 * NWG);
+    pcm::mbar_fence_init();
   }
+  __syncthreads();
 
-  const int wrow = (warp / WD) * 16;  // this warp's first row within the q tile
-  const int col0 = (warp % WD) * C::NT * 8;  // and its first output column
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-  float acc[C::NT][4];
+  if (warp >= 4 * NWG) {  // producer warpgroup: one thread issues every copy
+    pcm::reg_dealloc<PRODUCER_REGS>();
+    if (warp == 4 * NWG && lane == 0) {
+      pcm::tma_prefetch_desc(&tq);
+      pcm::tma_prefetch_desc(&tk);
+      pcm::tma_prefetch_desc(&tv);
+      int it = 0;  // key steps loaded, over all tiles
+      for (int tile = blockIdx.x, li = 0; tile < tiles; tile += gridDim.x, ++li) {
+        const int bh = tile / nq, bi = bh / h, hi = bh % h, q0 = (tile % nq) * BQ;
+        pcm::mbar_wait(qempty, (li & 1) ^ 1);
+        pcm::mbar_expect_tx(qfull, C::Q_BYTES);
 #pragma unroll
-  for (int nt = 0; nt < C::NT; ++nt)
+        for (int c = 0; c < C::NCH; ++c)
+          pcm::tma_load_4d(smem + c * BQ * CW * 2, &tq, qfull, c * CW, hi, q0, bi);
+        for (int kt = 0; kt < n; ++kt, ++it) {
+          const int s = it % ST;
+          const uint32_t phase = ((it / ST) & 1) ^ 1;
+          unsigned char* ks = smem + C::K_OFF + s * C::KV_BYTES;
+          unsigned char* vs = smem + C::V_OFF + s * C::KV_BYTES;
+          pcm::mbar_wait(&kempty[s], phase);
+          pcm::mbar_expect_tx(&kfull[s], C::KV_BYTES);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-
-  for (int k0 = 0; k0 < sk; k0 += BK) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = tid; i < BK * NVEC; i += 32 * NWARPS) {
-      const int r = i / NVEC, c = (i % NVEC) * 8;
-      uint4 kv = zero, vv = zero;
-      if (k0 + r < sk && c < d) {
-        kv = *reinterpret_cast<const uint4*>(kb + (int64_t)(k0 + r) * kss + c);
-        vv = *reinterpret_cast<const uint4*>(vb + (int64_t)(k0 + r) * vss + c);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * C::QP + c) = kv;
-      const bf16* ve = reinterpret_cast<const bf16*>(&vv);
+          for (int c = 0; c < C::NCH; ++c)
+            pcm::tma_load_4d(ks + c * BK * CW * 2, &tk, &kfull[s], c * CW, hi, kt * BK, bi);
+          pcm::mbar_wait(&vempty[s], phase);
+          pcm::mbar_expect_tx(&vfull[s], C::KV_BYTES);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) Vt[(c + j) * C::VP + r] = ve[j];
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows and the BK keys of the tile
-    float s[C::ST][4];
-#pragma unroll
-    for (int j = 0; j < C::ST; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < C::KT; ++kk) {
-      const bf16* qr = Qs + (wrow + g) * C::QP + kk * 16 + 2 * t;
-      uint32_t a[4] = {pcm::ld32(qr), pcm::ld32(qr + 8 * C::QP), pcm::ld32(qr + 8),
-                       pcm::ld32(qr + 8 * C::QP + 8)};
-#pragma unroll
-      for (int j = 0; j < C::ST; ++j) {
-        const bf16* kr = Ks + (j * 8 + g) * C::QP + kk * 16 + 2 * t;
-        uint32_t b[2] = {pcm::ld32(kr), pcm::ld32(kr + 8)};
-        pcm::mma_bf16_16816(s[j], a, b);
+          for (int c = 0; c < C::NCH; ++c)
+            pcm::tma_load_4d(vs + c * BK * CW * 2, &tv, &vfull[s], c * CW, hi, kt * BK, bi);
+        }
       }
     }
-
-    // online softmax in the exp2 domain; rows g (e = 0, 1) and g + 8 (e = 2, 3)
-    float mx[2] = {m[0], m[1]};
+  } else {  // consumer warpgroup wg (output columns 256 wg..), warp wq of it
+    pcm::reg_alloc<CONSUMER_REGS>();
+    const int wg = warp / 4, wq = warp % 4, g = lane >> 2, t = lane & 3;
+    const int tid = threadIdx.x % 128;
+    float acc[HALF / 2], sacc[BK / 2], m[2], l[2], corr[2];
+    uint32_t pa[BK / 16][4];
+    // a thread's partial scores lie beside those of the thread of the other
+    // warpgroup at the same fragment positions: 16-byte words, 128 apart
+    float4* xmine = reinterpret_cast<float4*>(smem + C::X_OFF) + wg * (BK / 8) * 128 + tid;
+    const float4* xother =
+        reinterpret_cast<const float4*>(smem + C::X_OFF) + (1 - wg) * (BK / 8) * 128 + tid;
+    const uint32_t qs = sbase;
+    // this warpgroup's partial S = Q K^T over its 256 columns of step it
+    auto issue_scores = [&](int it) {
+      pcm::mbar_wait(&kfull[it % ST], (it / ST) & 1);
+      const uint32_t ks = sbase + C::K_OFF + (it % ST) * C::KV_BYTES;
+      pcm::wg_fence();
 #pragma unroll
-    for (int j = 0; j < C::ST; ++j)
+      for (int kk = 0; kk < HALF / 16; ++kk)
+        pcm::wg::mma_ss(sacc, pcm::desc_kmajor<BQ, CW>(qs, 0, HALF / 16 * wg + kk),
+                        pcm::desc_kmajor<BK, CW>(ks, 0, HALF / 16 * wg + kk), kk > 0);
+      pcm::wg_commit();
+    };
+    // O[:, 256 wg..] += P V[:, 256 wg..] of step it, V read MN-major
+    auto issue_pv = [&](int it) {
+      pcm::mbar_wait(&vfull[it % ST], (it / ST) & 1);
+      const uint32_t vs = sbase + C::V_OFF + (it % ST) * C::KV_BYTES;
+      pcm::wg_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + 2 * t + (e & 1);
-        const float val = col < sk ? s[j][e] * alpha : kNegInf;
-        s[j][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
+      for (int kk = 0; kk < BK / 16; ++kk)
+        pcm::wg::mma_rs(acc, pa[kk], pcm::desc_mnmajor<BK, CW>(vs, HALF * wg, kk), 1);
+      pcm::wg_commit();
+    };
+    // S = the two partials, summed alike in both warpgroups (fp32 addition
+    // commutes), so both hold the same scores, max, sums and P
+    auto exchange = [&]() {
+      pcm::named_sync(1 + wq, 64);  // the other warp has read the last step's partial
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i)
+        xmine[i * 128] = make_float4(sacc[4 * i], sacc[4 * i + 1], sacc[4 * i + 2], sacc[4 * i + 3]);
+      pcm::named_sync(1 + wq, 64);  // both partials are written
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i) {
+        const float4 v = xother[i * 128];
+        sacc[4 * i] += v.x;
+        sacc[4 * i + 1] += v.y;
+        sacc[4 * i + 2] += v.z;
+        sacc[4 * i + 3] += v.w;
       }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      corr[r] = exp2f(m[r] - mx[r]);
-      m[r] = mx[r];
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < C::ST; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[j][e] - m[e >> 1]);
-        s[j][e] = p;
-        rs[e >> 1] += p;
+    };
+    auto softmax = [&](int kt) {
+      const int lim = sk - kt * BK;
+      if (lim >= BK)
+        online_softmax<false>(sacc, m, l, corr, alpha, lim, t);
+      else
+        online_softmax<true>(sacc, m, l, corr, alpha, lim, t);
+    };
+
+    int it = 0;  // key steps consumed, over all tiles
+    for (int tile = blockIdx.x, li = 0; tile < tiles; tile += gridDim.x, ++li, it += n) {
+      const int bh = tile / nq, bi = bh / h, hi = bh % h, q0 = (tile % nq) * BQ;
+      m[0] = m[1] = kNegInf;
+      l[0] = l[1] = 0.f;
+      pcm::zero(acc);
+      pcm::reg_fence(acc);
+      pcm::mbar_wait(qfull, li & 1);
+      issue_scores(it);  // sk >= 1: at least one step
+      pcm::wg_wait<0>();
+      pcm::reg_fence(sacc);
+      pcm::release(&kempty[it % ST], lane);
+      exchange();
+      softmax(0);
+      pcm::to_a(pa, sacc);
+      pcm::reg_fence(pa);
+      for (int kt = 1; kt < n; ++kt) {
+        issue_scores(it + kt);
+        issue_pv(it + kt - 1);
+        pcm::wg_wait<1>();  // S of step kt is done; P V of step kt - 1 may run
+        pcm::reg_fence(sacc);
+        pcm::release(&kempty[(it + kt) % ST], lane);
+        exchange();
+        softmax(kt);
+        pcm::wg_wait<0>();  // P V of step kt - 1 is done: its V stage is free
+        pcm::reg_fence(acc);
+        pcm::release(&vempty[(it + kt - 1) % ST], lane);
+        scale_rows(acc, corr);
+        pcm::to_a(pa, sacc);
+        pcm::reg_fence(pa);
       }
-    // per-thread partial row sums; the 4 lanes of a row are summed at the end
-    l[0] = l[0] * corr[0] + rs[0];
-    l[1] = l[1] * corr[1] + rs[1];
+      pcm::release(qempty, lane);  // every S product of the tile is done
+      issue_pv(it + n - 1);
+      pcm::wg_wait<0>();
+      pcm::reg_fence(acc);
+      pcm::release(&vempty[(it + n - 1) % ST], lane);
 
-    uint32_t pa[C::PT][4];
+      // the quad's partial sums, then o = acc / l (this warpgroup's columns)
+      // and lse = m + log2(l) (warpgroup 0)
+      float inv[2], lsafe[2];
 #pragma unroll
-    for (int kk = 0; kk < C::PT; ++kk) {
-      pa[kk][0] = pcm::pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-      pa[kk][1] = pcm::pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-      pa[kk][2] = pcm::pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[kk][3] = pcm::pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    }
-
-    // O = O * corr + P V over this warp's head_dim tiles that hold real columns
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        lsafe[r] = l[r] == 0.f ? 1.f : l[r];
+        inv[r] = 1.f / lsafe[r];
+      }
+      scale_rows(acc, inv);
+      const int row0 = q0 + 16 * wq + g;
+      pcm::store_rows(o, nullptr, acc, ((int64_t)bi * sq * h + hi) * d, row0, sq, h, d,
+                      HALF * wg, t);
+      if (wg == 0 && t == 0) {
+        float* lb = lse + (int64_t)bh * sq;
 #pragma unroll
-    for (int nt = 0; nt < C::NT; ++nt) {
-      float* c = acc[nt];
-      c[0] *= corr[0]; c[1] *= corr[0]; c[2] *= corr[1]; c[3] *= corr[1];
-      if (col0 + nt * 8 >= d) continue;
-#pragma unroll
-      for (int kk = 0; kk < C::PT; ++kk) {
-        const bf16* vr = Vt + (col0 + nt * 8 + g) * C::VP + kk * 16 + 2 * t;
-        uint32_t b[2] = {pcm::ld32(vr), pcm::ld32(vr + 8)};
-        pcm::mma_bf16_16816(c, pa[kk], b);
+        for (int r = 0; r < 2; ++r)
+          if (row0 + 8 * r < sq) lb[row0 + 8 * r] = m[r] + log2f(lsafe[r]);
       }
     }
-  }
-
-  float inv[2], lsafe[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    lsafe[r] = l[r] == 0.f ? 1.f : l[r];
-    inv[r] = 1.f / lsafe[r];
-  }
-  const int row0 = q0 + wrow + g, row1 = row0 + 8;
-  // o is a fresh contiguous (b, sq, h, d) tensor
-  bf16* ob = o + ((int64_t)bi * sq * h + hi) * d;
-#pragma unroll
-  for (int nt = 0; nt < C::NT; ++nt) {
-    const int col = col0 + nt * 8 + 2 * t;
-    if (col >= d) continue;
-    const float* c = acc[nt];
-    if (row0 < sq)
-      *reinterpret_cast<uint32_t*>(ob + (int64_t)row0 * h * d + col) =
-          pcm::pack_bf16x2(c[0] * inv[0], c[1] * inv[0]);
-    if (row1 < sq)
-      *reinterpret_cast<uint32_t*>(ob + (int64_t)row1 * h * d + col) =
-          pcm::pack_bf16x2(c[2] * inv[1], c[3] * inv[1]);
-  }
-  if (t == 0 && col0 == 0) {
-    float* lb = lse + ((int64_t)bi * h + hi) * sq;
-    if (row0 < sq) lb[row0] = m[0] + log2f(lsafe[0]);
-    if (row1 < sq) lb[row1] = m[1] + log2f(lsafe[1]);
   }
 }
 
-template <int D_PAD, int NWARPS, int BK, int WD>
-cudaError_t launch_mma(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
-                       int b, int h, int sq, int sk, int d, const int64_t* st, float alpha,
-                       cudaStream_t stream) {
-  using C = MmaCfg<D_PAD, NWARPS, BK, WD>;
-  auto kern = flash_fwd_mma_kernel<D_PAD, NWARPS, BK, WD>;
-  static const cudaError_t allowed = pcm::allow_smem(kern, C::smem_bytes);  // once an instance
+cudaError_t launch_d512(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
+                        int b, int h, int sq, int sk, int d, const int64_t* st, float alpha,
+                        cudaStream_t stream) {
+  using C = D512Cfg;
+  CUtensorMap tq, tk, tv;
+  if (!(pcm::map_bshd(&tq, q, b, sq, h, d, st[0], st[1], st[2], C::BQ, C::CW) &&
+        pcm::map_bshd(&tk, k, b, sk, h, d, st[3], st[4], st[5], C::BK, C::CW) &&
+        pcm::map_bshd(&tv, v, b, sk, h, d, st[6], st[7], st[8], C::BK, C::CW)))
+    return cudaErrorInvalidPitchValue;  // cuTensorMapEncodeTiled refused a tensor map
+  auto kern = flash_fwd_d512_kernel;
+  static const cudaError_t allowed = pcm::allow_smem(kern, C::smem_bytes);  // once
   if (allowed != cudaSuccess) return allowed;
-  dim3 grid((sq + C::BQ - 1) / C::BQ, b * h);
-  kern<<<grid, 32 * NWARPS, C::smem_bytes, stream>>>(
-      q, k, v, o, lse, h, sq, sk, d, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], alpha);
+  const int tiles = (sq + C::BQ - 1) / C::BQ * b * h;
+  kern<<<std::min(tiles, pcm::sm_count()), THREADS, C::smem_bytes, stream>>>(
+      tq, tk, tv, o, lse, h, sq, sk, d, tiles, alpha);
   return cudaGetLastError();
 }
 
@@ -524,6 +570,6 @@ extern "C" int pcm_flash_attention_fwd(const void* q, const void* k, const void*
   if (d <= 128) PCM_FWD(128, 64, 64);
   if (d <= 160) PCM_FWD(160, 64, 32);
 #undef PCM_FWD
-  if (d <= 512) return launch_mma<512, 8, 32, 2>(Q, K, V, O, L, b, h, sq, sk, d, st, alpha, S);
+  if (d <= 512) return launch_d512(Q, K, V, O, L, b, h, sq, sk, d, st, alpha, S);
   return static_cast<int>(cudaErrorInvalidValue);
 }

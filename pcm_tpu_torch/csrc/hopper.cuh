@@ -7,7 +7,9 @@
 // Tiles live in shared memory as column chunks: a ROWS x D tile is D / CW
 // chunks, each ROWS rows of CW bf16 (2 CW bytes: 16, 32 or 64 columns,
 // swizzled by the TMA's SWIZZLE_32B / 64B / 128B mode and read by wgmma with
-// the matching layout type). The same chunked tile is read two ways
+// the matching layout type). An int8 tile is addressed the same way, as a
+// chunk of half as many bf16 columns: the descriptors see bytes, and a K
+// step of 32 int8 (m64nNk32) moves the same 32 bytes as one of 16 bf16. The same chunked tile is read two ways
 // (CUTLASS's canonical GMMA layouts, cute/arch/mma_sm90_desc.hpp), with
 // CB = 2 CW bytes a chunk row:
 //   K-major (rows = M or N, columns = K): 8-row groups 8 CB bytes apart (SBO);
@@ -106,6 +108,42 @@ __device__ __forceinline__ void tma_prefetch_desc(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
+// TMA store of a shared-memory box to the tensor at (c0, c1); boxes beyond the
+// tensor's bounds are clipped. The thread that issues stores commits them as
+// one bulk group and alone can wait for them.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of the thread's bulk groups are pending: their shared
+// memory read (READ) or their writes done.
+template <int N, bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (READ)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// Makes this thread's shared-memory writes visible to the TMA (the async
+// proxy) before a barrier and a store of them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma descriptors and fences
 // ---------------------------------------------------------------------------
@@ -169,12 +207,24 @@ __device__ __forceinline__ void reg_fence(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]));
 }
 
+template <int N>
+__device__ __forceinline__ void reg_fence(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]));
+}
+
 template <int M>
 __device__ __forceinline__ void reg_fence(uint32_t (&a)[M][4]) {
 #pragma unroll
   for (int i = 0; i < M; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j]));
+}
+
+// A barrier of ``count`` threads (whole warps) under id ``id`` (0 is
+// __syncthreads'); it also orders their shared-memory accesses.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // 2^x by the special function unit (ex2.approx, denormal results flushed to 0).
@@ -268,19 +318,23 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of ``rank`` <= 4 dimensions (innermost first; ``strides``
-// in bytes of dimensions 1..rank-1), box ``box`` whose first extent is the
-// chunk width (16, 32 or 64 columns: the 32-, 64- or 128-byte swizzle), zero
-// fill out of bounds. Encoding costs microseconds of host time, as much as a
-// small launch's kernel, so recent maps are kept by their inputs (a map is a
+// A bf16 (or, with ``int8``, 8-bit) tensor map of ``rank`` <= 4 dimensions
+// (innermost first; ``strides`` in bytes of dimensions 1..rank-1), box
+// ``box`` whose first extent is the chunk width (32, 64 or 128 bytes: 16, 32
+// or 64 bf16 columns, the 32-, 64- or 128-byte swizzle), zero fill out of
+// bounds. Encoding costs microseconds of host time, as much as a small
+// launch's kernel, so recent maps are kept by their inputs (a map is a
 // function of them alone; the caching allocator hands the same addresses
 // back step after step).
 inline bool tensor_map(CUtensorMap* m, const void* base, int rank, const cuuint64_t* dims,
-                       const cuuint64_t* strides, const cuuint32_t* box) {
-  constexpr int KEY = 13;  // base, rank, dims[4], strides[3], box[4]
-  const CUtensorMapSwizzle swizzle = box[0] == 16   ? CU_TENSOR_MAP_SWIZZLE_32B
-                                     : box[0] == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                    : CU_TENSOR_MAP_SWIZZLE_128B;
+                       const cuuint64_t* strides, const cuuint32_t* box, bool int8 = false) {
+  constexpr int KEY = 13;  // base, rank and type, dims[4], strides[3], box[4]
+  const cuuint32_t row_bytes = box[0] * (int8 ? 1 : 2);
+  const CUtensorMapSwizzle swizzle = row_bytes == 32   ? CU_TENSOR_MAP_SWIZZLE_32B
+                                     : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                       : CU_TENSOR_MAP_SWIZZLE_128B;
+  const CUtensorMapDataType type =
+      int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   struct Entry {
     uint64_t key[KEY];
     CUtensorMap map;
@@ -289,7 +343,7 @@ inline bool tensor_map(CUtensorMap* m, const void* base, int rank, const cuuint6
   static Entry cache[SLOTS];
   static bool used[SLOTS];
   static std::mutex mu;
-  uint64_t key[KEY] = {(uint64_t)(uintptr_t)base, (uint64_t)rank};
+  uint64_t key[KEY] = {(uint64_t)(uintptr_t)base, (uint64_t)rank | (uint64_t)int8 << 8};
   for (int i = 0; i < rank; ++i) {
     key[2 + i] = dims[i];
     key[9 + i] = box[i];
@@ -306,7 +360,7 @@ inline bool tensor_map(CUtensorMap* m, const void* base, int rank, const cuuint6
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr ||
-      enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides, box,
+      enc(m, type, rank, const_cast<void*>(base), dims, strides, box,
           unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
           CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;

@@ -7,8 +7,8 @@ needs it: one `nvcc -c` per source, all started together, then one link.
 The build goes to ``<repo>/build/pcm_tpu_torch/<source-hash>/`` under a file
 lock, so concurrent processes build once and a source edit builds anew.
 The library links the CUDA runtime only: the TMA tensor maps of the
-attention and GEGLU kernels are encoded by ``cuTensorMapEncodeTiled`` of the
-CUDA driver API, which the runtime hands out through
+attention, GEGLU and int8 kernels are encoded by ``cuTensorMapEncodeTiled``
+of the CUDA driver API, which the runtime hands out through
 ``cudaGetDriverEntryPoint`` (``csrc/hopper.cuh`` and ``cuda.h`` supply the
 types).
 
@@ -239,7 +239,9 @@ def _declare(h: ctypes.CDLL) -> None:
     h.pcm_geglu.restype = I
     h.pcm_geglu.argtypes = [P, P, P, P] + [I] * 3 + [P]  # x w b out, m k f, stream
     h.pcm_int8_matmul.restype = I
-    h.pcm_int8_matmul.argtypes = [P, P, P, P] + [I] * 4 + [P]  # x w ws out, m n k bk, stream
+    h.pcm_int8_matmul.argtypes = (
+        [P] * 6  # x w ws out, codes scales (scratch)
+        + [I] * 4 + [P])  # m n k bk, stream
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -145,8 +145,7 @@ class FwdTiles(NamedTuple):
     d_pad: int    # head_dim zero-filled in shared memory
     q_rows: int   # q rows of a block
     k_step: int   # keys of a step
-    chunk: int    # columns of a TMA box (16, 32, 64: the 32-, 64-, 128-byte swizzle); 0: none
-    wgmma: bool   # TMA + wgmma (d <= 160), else the mma.sync kernel (the VAE's d = 512)
+    chunk: int    # columns of a TMA box (16, 32, 64: the 32-, 64-, 128-byte swizzle)
 
 
 def fwd_tiles(d: int) -> FwdTiles:
@@ -155,12 +154,13 @@ def fwd_tiles(d: int) -> FwdTiles:
     and copied in chunks of the widest swizzle that divides it, 128-key steps
     where the fp32 accumulator is at most 64 columns wide and 64-key steps
     above, so that scores, P and accumulator fit the registers; above 160 one
-    512-wide instance of 64 q rows and 32-key steps."""
+    512-wide instance of 64 q rows whose two warpgroups split the head, with
+    32-key steps."""
     if d <= MAX_HEAD_DIM_BWD:
         d_pad = cdiv(d, 16) * 16 if d <= 80 else cdiv(d, 32) * 32
         chunk = next(c for c in (64, 32, 16) if d_pad % c == 0)
-        return FwdTiles(d_pad, 128, 128 if d_pad <= 64 else 64, chunk, True)
-    return FwdTiles(MAX_HEAD_DIM, 64, 32, 0, False)
+        return FwdTiles(d_pad, 128, 128 if d_pad <= 64 else 64, chunk)
+    return FwdTiles(MAX_HEAD_DIM, 64, 32, 64)
 
 
 # Every SM of an H100 SXM; `dkv_splits` aims K2's grid at filling them.

@@ -1,8 +1,11 @@
-"""Fused int8 matmul: CUDA kernel (`csrc/int8_matmul.cu`) and its plain
-PyTorch version.
+"""Fused int8 matmul: CUDA kernels (`csrc/int8_matmul.cu`) and their plain
+PyTorch versions.
 
 Counterpart of `pcm_tpu/ops/int8_matmul.py`: ``x @ dequant(values, scale)ᵀ``
-with the activations quantized per (row, K-tile) inside the kernel. The
+with the activations quantized per (row, K-tile). On the card one call runs
+two kernels: a quantize pass that writes the codes and the scales of every
+(row, K-tile) once (`quantize_tiles_reference` is its plain version), and
+the int8 product that reads them. The
 weight is the ``nn.Linear`` layout ``(N, K)`` int8 with one fp32 scale per
 output row, where the JAX op took ``(K, N)`` and ``(1, N)``; the codes are
 the same. The K-tile ``bk = pick_block(K, 512, 128)`` belongs to the
@@ -51,6 +54,20 @@ def quantize_rows(x32: torch.Tensor):
     return torch.clamp(torch.round(x32 / s), -127, 127), s
 
 
+def quantize_tiles_reference(x: torch.Tensor, bk: int):
+    """Plain version of the quantize pass: the int8 codes ``(M, K)`` of every
+    (row, K-tile of ``bk``) of ``x (M, K)`` and their fp32 scales laid out
+    ``(K / bk, M)``, as `quantize_rows` gives them tile by tile."""
+    m, k = x.shape
+    codes = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    scales = torch.empty((k // bk, m), dtype=torch.float32, device=x.device)
+    for t, k0 in enumerate(range(0, k, bk)):
+        xq, s = quantize_rows(x[:, k0:k0 + bk].float())
+        codes[:, k0:k0 + bk] = xq.to(torch.int8)
+        scales[t] = s.reshape(m)
+    return codes, scales
+
+
 def int_product(xq: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     """``xq @ valuesᵀ`` of integer-valued tensors as fp32, each entry the
     exact integer rounded once to fp32, as an int32 product cast to fp32 is
@@ -77,7 +94,9 @@ def fused_quantized_dot_reference(x: torch.Tensor, values: torch.Tensor, scale: 
 
 def fused_quantized_dot_fwd(x: torch.Tensor, values: torch.Tensor, scale: torch.Tensor
                             ) -> torch.Tensor:
-    """The forward alone (not differentiable): K6 on CUDA tensors."""
+    """The forward alone (not differentiable): K6 on CUDA tensors, its two
+    kernels counted as one launch; the codes and scales are scratch of this
+    call (M K bytes and 4 M K / bk)."""
     if not use_kernel(x, values, scale, name="int8_matmul"):
         return fused_quantized_dot_reference(x, values, scale)
 
@@ -100,8 +119,11 @@ def fused_quantized_dot_fwd(x: torch.Tensor, values: torch.Tensor, scale: torch.
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     if m:
+        codes = torch.empty((m, k), dtype=torch.int8, device=x.device)
+        scales = torch.empty((k // bk, m), dtype=torch.float32, device=x.device)
         err = lib().pcm_int8_matmul(x2.data_ptr(), values.data_ptr(), scale.data_ptr(),
-                                    out.data_ptr(), m, n, k, bk, stream_ptr(x.device))
+                                    out.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+                                    m, n, k, bk, stream_ptr(x.device))
         check_cuda(err, "int8_matmul")
         count_launch("int8_matmul")
     return out.reshape(*lead, n)

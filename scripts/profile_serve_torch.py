@@ -29,7 +29,7 @@ def category(name: str) -> str:
                      ("flash_bwd_dkv_kernel", "K2 flash attention dK/dV"),
                      ("dkv_reduce_kernel", "K2 flash attention dK/dV"),  # its q-split sum
                      ("flash_bwd_dq_kernel", "K3 flash attention dQ"), ("gn_", "K4 group norm"),
-                     ("geglu_kernel", "K5 geglu"), ("int8_matmul_kernel", "K6 int8 matmul")):
+                     ("geglu_kernel", "K5 geglu"), ("int8_matmul", "K6 int8 matmul")):
         if key in n:
             return cat
     if "im2col" in n or "conv" in n or "implicit_convolve" in n or "xmma_fprop" in n:

@@ -11,6 +11,7 @@ packages can flip one activation code (a step of amax/127 in one product).
 """
 
 import contextlib
+from fractions import Fraction
 
 import flax.linen as fnn
 import jax
@@ -33,7 +34,8 @@ from pcm_tpu_torch.models import convert
 from pcm_tpu_torch.models.unet import TINY_SDXL_CONFIG, UNet2DCondition
 from pcm_tpu_torch.models import unet as unet_module
 from pcm_tpu_torch.ops.int8_matmul import (Int8MatmulFn, fused_quantized_dot,
-                                           fused_quantized_dot_reference, pick_block)
+                                           fused_quantized_dot_reference, int_product,
+                                           pick_block, quantize_tiles_reference)
 from pcm_tpu_torch.utils import quant
 from torch_port_helpers import random_params, rel_max
 
@@ -100,6 +102,95 @@ def test_k6_plain_matches_pallas(k):
     ours_b, ref_b = ours_b.float().numpy(), np.asarray(ref_b, np.float32)
     bound = np.maximum(_bf16_ulp(ref_b), 1e-6 * np.abs(ref_b).max())
     assert np.all(np.abs(ours_b - ref_b) <= bound)
+
+
+@pytest.mark.parametrize("k", [320, 640])
+def test_k6_quantize_pass_matches_pallas(k):
+    """The plain quantize pass (codes and scales per (row, K-tile), scales
+    laid out (K / bk, M)) at the K-tiles 320 and 128, ragged M, an all-zero
+    row: bit for bit against the Pallas kernel's own quantization, read
+    through an identity weight (each output is then fl(code * s) of one
+    tile, in fp32), and, through the exact tile products, against
+    `fused_quantized_dot_reference`."""
+    rng = np.random.default_rng(10 + k)
+    bk = pick_block(k, 512, 128)
+    x = rng.standard_normal((300, k)).astype(np.float32)
+    x[7] = 0.0
+    x[:, : k // 3] *= 20.0
+    xb = jnp.asarray(x, jnp.bfloat16)
+    xt = t(np.asarray(xb, np.float32)).bfloat16()
+    codes, scales = quantize_tiles_reference(xt, bk)
+    assert codes.dtype == torch.int8 and codes.shape == (300, k)
+    assert scales.dtype == torch.float32 and scales.shape == (k // bk, 300)
+    assert not codes[7].any() and torch.all(scales[:, 7] == 1)
+    eye = jnp.eye(k, dtype=jnp.int8)
+    pallas = np.asarray(jax_fused_dot(xb, eye, jnp.ones((1, k), jnp.float32),
+                                      out_dtype=jnp.float32))
+    ours = codes.float() * scales.repeat_interleave(bk, 0).t()
+    np.testing.assert_array_equal(ours.numpy(), pallas)
+
+    _, qt = _weight(rng, k, 136)
+    values, scale = _port_q(qt)
+    acc = torch.zeros((300, 136))
+    for i in range(k // bk):
+        tile = slice(i * bk, (i + 1) * bk)
+        acc = acc + int_product(codes[:, tile].float(), values[:, tile]) * scales[i][:, None]
+    out = (acc * scale.reshape(1, -1)).bfloat16()
+    assert torch.equal(out, fused_quantized_dot_reference(xt, values, scale))
+
+
+def _rn32(v: Fraction) -> float:
+    """A positive rational rounded to the nearest float32, ties to even."""
+    e = v.numerator.bit_length() - v.denominator.bit_length()
+    while Fraction(2) ** e > v:
+        e -= 1
+    q = v / Fraction(2) ** (e - 23)
+    n, rem = divmod(q.numerator, q.denominator)
+    if 2 * rem > q.denominator or (2 * rem == q.denominator and n % 2):
+        n += 1
+    return float(n * Fraction(2) ** (e - 23))
+
+
+def test_k6_fast_quotient_is_correctly_rounded():
+    """The quantize pass of `csrc/int8_matmul.cu` divides as q0 = fl(x r), q =
+    fl(q0 + fl(x - q0 s) r) with r = fl(1/s) taken once a (row, K-tile): two
+    FMAs, no reciprocal an element. It must give fl(x / s), the IEEE quotient
+    of the plain version, for bf16 x with |x| <= amax and s = fl(amax *
+    fl(1/127)). Checked in exact arithmetic for every bf16 significand of x
+    and of amax and 21 binades of x below amax (the rounding depends on
+    nothing else while s stays in the kernel's range [2^-100, 2^100]; below
+    those binades |x / s| < 1e-4, code 0 either way)."""
+    f32 = lambda v: v.astype(np.float32).astype(np.float64)  # noqa: E731
+    sig = (128 + np.arange(128)) / 128.0  # bf16 significands in [1, 2)
+    amax = sig[:, None, None]
+    x = np.broadcast_to(sig[None, None, :] * np.exp2(-np.arange(21))[None, :, None],
+                        (128, 21, 128))
+    s = f32(amax * np.float64(np.float32(1.0 / 127.0)))  # the product is exact in float64
+    r = np.array([_rn32(1 / Fraction(v)) for v in s.ravel()]).reshape(s.shape)
+    q0 = f32(x * r)  # 8 x 24 bits: exact before the one rounding
+    e = x - q0 * s  # fma(-q0, s, x): exact in float64 (checked), then rounded
+    assert np.all((x - e) - q0 * s == 0)
+    e = f32(e)
+    hi = q0 + e * r  # fma(e, r, q0): e r is exact; hi + lo is the exact sum (Fast2Sum)
+    lo = (q0 - hi) + e * r
+    q = f32(hi)
+    up = np.nextafter(q.astype(np.float32), np.float32(np.inf)).astype(np.float64)
+    dn = np.nextafter(q.astype(np.float32), np.float32(-np.inf)).astype(np.float64)
+    # hi on a float32 midpoint: the exact sum's side of it decides
+    q = np.where((hi == (q + up) / 2) & (lo > 0), up,
+                 np.where((hi == (q + dn) / 2) & (lo < 0), dn, q))
+    # q is fl(x / s) iff x / s lies within half the gap to each neighbour of q
+    # (on the half only if q is even)
+    d = x - q * s
+    assert np.all((x - d) - q * s == 0)
+    up = np.nextafter(q.astype(np.float32), np.float32(np.inf)).astype(np.float64)
+    dn = np.nextafter(q.astype(np.float32), np.float32(-np.inf)).astype(np.float64)
+    even = (q.astype(np.float32).view(np.uint32) & 1) == 0
+    above, below = (up - q) / 2 * s, (q - dn) / 2 * s  # exact: powers of two times s
+    ok = np.where(d > 0, (d < above) | ((d == above) & even),
+                  (-d < below) | ((-d == below) & even))
+    keep = x <= amax
+    assert keep.sum() > 300_000 and np.all(ok[keep])
 
 
 @pytest.mark.parametrize("kind", ["linear", "conv3x3", "conv1x1"])

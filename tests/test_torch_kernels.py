@@ -52,6 +52,9 @@ def rel_max(a, b):
     (1, 300, 300, 8, 80),
     (2, 64, 77, 8, 160),
     (1, 1000, 1000, 1, 512),
+    # the VAE's 512-wide head: ragged q and key lengths against the 64-row
+    # tiles and 32-key steps, and SD1.5's decode at batch 1
+    (2, 300, 77, 1, 512), (1, 4096, 4096, 1, 512), (2, 1000, 1000, 1, 512),
     (2, 77, 77, 4, 16),
     (1, 130, 70, 2, 64),
     # ragged q and key lengths (sq = 130 straddles the 128-row blocks) at every
@@ -84,7 +87,8 @@ def test_flash_attention_strided_projection(cuda, d):
 
 
 @pytest.mark.parametrize("b,sq,sk,h,d", [(2, 1024, 1024, 4, 64), (2, 300, 77, 8, 40),
-                                         (1, 256, 256, 2, 160), (1, 130, 130, 1, 512)])
+                                         (1, 256, 256, 2, 160), (1, 130, 130, 1, 512),
+                                         (2, 1000, 300, 1, 512)])
 def test_flash_attention_kernel_is_deterministic(cuda, b, sq, sk, h, d):
     q, k, v = (_randn((b, s, h, d), 20 + i, cuda) for i, s in enumerate((sq, sk, sk)))
     o1, lse1 = flash_attention_fwd(q, k, v)
@@ -304,6 +308,64 @@ def test_int8_matmul_kernel(cuda, m, k, n):
     assert got.shape == (m, n) and got.dtype == torch.bfloat16
     assert torch.equal(got, ref)
     assert torch.equal(got[min(3, m - 1)], torch.zeros_like(got[0]))
+
+
+# K -> K-tile: 640 -> 128, 1280 -> 256, 320 -> 320 (64-byte chunks), 768 ->
+# 384, 2048 -> 512
+@pytest.mark.parametrize("k", [640, 1280, 320, 768, 2048])
+@pytest.mark.parametrize("m", [1, 4, 63, 65, 300, 16384])
+def test_int8_matmul_kernel_tiles(cuda, m, k):
+    """Bit-identical to the plain version at every K-tile of the models
+    (every chunk width of the GEMM's ring), M around the 64-row warpgroup
+    and 128-row block edges, N not a multiple of the 128-column tile (136,
+    320) and wide (1280, 10240); and bit-identical on a rerun."""
+    from pcm_tpu_torch.ops.int8_matmul import (fused_quantized_dot_fwd,
+                                               fused_quantized_dot_reference, pick_block)
+
+    assert pick_block(k, 512, 128) == {640: 128, 1280: 256, 320: 320, 768: 384, 2048: 512}[k]
+    x = _randn((m, k), 70 + m, cuda, 2.0)
+    x[m // 2] = 0
+    for n in (136, 320, 1280, 10240):
+        values, scale = _int8_weight(n, k, 71 + n, cuda)
+        got = fused_quantized_dot_fwd(x, values, scale)
+        again = fused_quantized_dot_fwd(x, values, scale)
+        torch.cuda.synchronize()
+        ref = fused_quantized_dot_reference(x, values, scale)
+        assert torch.equal(got, ref), (m, k, n, int((got != ref).sum()))
+        assert torch.equal(got, again)
+        assert not got[m // 2].any()
+
+
+@pytest.mark.parametrize("k", [544, 960, 992])
+def test_int8_matmul_kernel_long_k_tiles(cuda, k):
+    """K-tiles the models do not use but the wrapper takes: 544, 960 and 992
+    have no multiple of 128 up to 512 that divides them, so the K-tile is K
+    itself, in 32- or 64-byte chunks: more chunks than the GEMM's ring has
+    stages. Bit-identical to the plain version."""
+    from pcm_tpu_torch.ops.int8_matmul import (fused_quantized_dot_fwd,
+                                               fused_quantized_dot_reference, pick_block)
+
+    assert pick_block(k, 512, 128) == k
+    x = _randn((300, k), 80 + k, cuda)
+    values, scale = _int8_weight(320, k, 81 + k, cuda)
+    got = fused_quantized_dot_fwd(x, values, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fused_quantized_dot_reference(x, values, scale))
+
+
+@pytest.mark.parametrize("x_scale", [1e-33, 1e33])
+def test_int8_matmul_kernel_extreme_scales(cuda, x_scale):
+    """Activation scales outside [2^-100, 2^100], where the quantize pass
+    divides with an IEEE division in place of its one-reciprocal path:
+    bit-identical to the plain version."""
+    from pcm_tpu_torch.ops.int8_matmul import (fused_quantized_dot_fwd,
+                                               fused_quantized_dot_reference)
+
+    x = _randn((300, 640), 82, cuda, x_scale)
+    values, scale = _int8_weight(320, 640, 83, cuda)
+    got = fused_quantized_dot_fwd(x, values, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fused_quantized_dot_reference(x, values, scale))
 
 
 def test_int8_matmul_function_and_paths(cuda):

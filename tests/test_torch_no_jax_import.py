@@ -1,7 +1,7 @@
 """The port and its chip smoke script import nothing of JAX or the JAX package.
 
 Every ``.py`` under `pcm_tpu_torch/`, ``chip_smoke.py`` and the port's
-profiling scripts is parsed with `ast`; any ``import`` or ``from ... import``
+profiling and kernel-bench scripts is parsed with `ast`; any ``import`` or ``from ... import``
 of ``jax``, ``flax``, ``optax`` or ``pcm_tpu`` (at any depth of the module,
 lazy imports inside functions included) fails the test.
 """
@@ -15,7 +15,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "flax", "optax", "pcm_tpu"}
 FILES = sorted((REPO / "pcm_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "scripts" / "profile_serve_torch.py",
-    REPO / "scripts" / "profile_train_torch.py"]
+    REPO / "scripts" / "profile_train_torch.py"] + sorted((REPO / "scripts").glob("bench_*.py"))
 
 
 def _imported_roots(tree: ast.AST):

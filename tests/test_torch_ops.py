@@ -111,23 +111,23 @@ def test_backward_tiles_per_head_dim(d, tiles):
     assert bwd_tiles(d) == tiles
 
 
-@pytest.mark.parametrize("d,tiles", [(16, (16, 128, 128, 16, True)),
-                                     (32, (32, 128, 128, 32, True)),
-                                     (40, (48, 128, 128, 16, True)),
-                                     (64, (64, 128, 128, 64, True)),
-                                     (80, (80, 128, 64, 16, True)),
-                                     (128, (128, 128, 64, 64, True)),
-                                     (160, (160, 128, 64, 32, True)),
-                                     (512, (512, 64, 32, 0, False))])
+@pytest.mark.parametrize("d,tiles", [(16, (16, 128, 128, 16)),
+                                     (32, (32, 128, 128, 32)),
+                                     (40, (48, 128, 128, 16)),
+                                     (64, (64, 128, 128, 64)),
+                                     (80, (80, 128, 64, 16)),
+                                     (128, (128, 128, 64, 64)),
+                                     (160, (160, 128, 64, 32)),
+                                     (512, (512, 64, 32, 64))])
 def test_forward_tiles_per_head_dim(d, tiles):
-    """K1's padded head_dim, block rows, key step, TMA chunk and route, as the
-    CUDA dispatch takes them: every head dim up to 160 on TMA + wgmma with
-    128-row blocks, chunks of the widest swizzle dividing the padded head
-    dim, 128-key steps up to 64 accumulator columns and 64-key steps above;
-    the VAE's 512-wide head on the mma.sync instance."""
+    """K1's padded head_dim, block rows, key step and TMA chunk, as the CUDA
+    dispatch takes them: every head dim on TMA + wgmma; up to 160 128-row
+    blocks, chunks of the widest swizzle dividing the padded head dim,
+    128-key steps up to 64 accumulator columns and 64-key steps above; the
+    VAE's 512-wide head in 64-row blocks of 32-key steps and 128-byte
+    chunks."""
     assert fwd_tiles(d) == tiles
-    if tiles[4]:
-        assert fwd_tiles(d).d_pad == bwd_tiles(d).d_pad
+    assert fwd_tiles(d).d_pad == bwd_tiles(d).d_pad
 
 
 @pytest.mark.parametrize("shape,sms,nsplit", [
