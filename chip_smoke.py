@@ -14,7 +14,8 @@ Phases, one printed line each:
      every shape), and at a second, SDXL headline (``sdxl_*`` fields) for K1,
      K5 and K6 as for K2 / K3, and K1's VAE head (``vae_*``); beside K5 the
      bare cuBLAS product ``F.linear(x, w)`` (``product_ms``), the yardstick of
-     its tensor-core part;
+     its tensor-core part; beside K4 at its act=None shapes ``F.group_norm``
+     on the NCHW channels-last view (``act_none_library``);
      the flash-attention backward (K2 dK/dV, K3 dQ) through its autograd
      Function against autograd of the plain attention at the training shapes,
      and twice bit-identical, with the SDPA backward and the bounds at the
@@ -186,6 +187,9 @@ def check_kernels(gen) -> dict:
     from pcm_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_reference
 
     results = {k: {"max_abs_err": 0.0, "library_ms": None} for k in HEADLINE}
+    # K4's headline has a SiLU, which F.group_norm lacks: its yardstick is
+    # taken at the act=None shapes instead, [shape, ms, F.group_norm ms] each
+    results["group_norm_silu"]["act_none_library"] = []
 
     def record(name, key, err_abs, ms, plain_ms):
         r = results[name]
@@ -241,8 +245,13 @@ def check_kernels(gen) -> dict:
         err = rel_max(out, ref)
         ms = cuda_ms(lambda: group_norm_silu(x, gamma, beta, 32, eps, act))
         plain = cuda_ms(lambda: group_norm_silu_reference(x, gamma, beta, 32, eps, act))
+        lib = None
+        if act is None:  # one PyTorch call of K4's function: on the NCHW channels-last view
+            xv = x.permute(0, 3, 1, 2)
+            lib = cuda_ms(lambda: torch.nn.functional.group_norm(xv, 32, gamma, beta, eps))
+            results["group_norm_silu"]["act_none_library"].append([shp, ms, lib])
         log("kernel", name="group_norm_silu", shape=shp, eps=eps, act=act, rel_max=f"{err:.3e}",
-            ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}")
+            ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}", library_ms=lib and f"{lib:.4f}")
         if not err <= 1e-2:
             raise AssertionError(f"group norm {key}: rel {err:.3e}")
         record("group_norm_silu", key, abs_max(out, ref), ms, plain)
@@ -907,7 +916,8 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # second headlines (K1, K2, K3, K5, K6), K1's VAE head and K5's bare product
     extra = ("sdxl_ms", "sdxl_plain_ms", "sdxl_bound_ms", "sdxl_library_ms", "vae_ms",
-             "vae_plain_ms", "vae_bound_ms", "vae_library_ms", "product_ms", "sdxl_product_ms")
+             "vae_plain_ms", "vae_bound_ms", "vae_library_ms", "product_ms", "sdxl_product_ms",
+             "act_none_library")
     line = {"kernels": [{"name": k, "route": "cuda", "source": sources[k][0],
                          "replaces": sources[k][1], "launches": launches[k],
                          **{f: kernels[k][f] for f in keys},

@@ -4,40 +4,95 @@
 // sums over spatial blocks) and `_norm_kernel` ((x - mean) * rstd * gamma +
 // beta, then SiLU when act == "silu"), both launched from `_forward`.
 //
-// Bound on this card: memory bandwidth. The pass reads the activation twice
-// and writes it once (up to 512 MiB per call in the SD1.5 VAE decoder at
-// 512 px, batch 4), with a handful of flops per element.
+// Bound on this card: memory bandwidth. The function reads the activation
+// once and writes it once with a handful of fp32 operations an element; its
+// bound counts those bytes (0.32 ms at the SD1.5 VAE decoder's (4, 512 x 512,
+// 256), 537 MB in). The two passes read x twice:
+//  - at the VAE's shapes x is ten times the 50 MB L2, so both reads come from
+//    HBM: each pass is bound by its bytes (x; then x and y) at the memory rate;
+//  - at the UNet's step shapes (3-84 MB a call) the second read can come from
+//    L2, and a call's fixed cost weighs as much as its bytes: two launches,
+//    the grid's ramp and tail, and the chains of dependent merges in each
+//    block (one IEEE division each; a finalize with one thread a group that
+//    merges 256 chunk partials in turn costs tens of microseconds a call).
 //
-// Design, in three launches on one stream:
-//  1. stats: one block per (spatial chunk, sample) reads its rows with
-//     16-byte vector loads, eight channels per thread. Each thread keeps
+// Design, two launches on one stream, no state kept between calls, no float
+// atomics, every sum in a fixed order (reruns are bit-identical):
+//  1. gn_stats_kernel, grid (chunk, sample): about two blocks an SM over the
+//     whole batch (`gn_partition` in ops/groupnorm.py sizes the chunks; the
+//     normalize pass takes the same grid). A thread owns one 8-channel vector
+//     (16 bytes) and a row phase and walks its chunk's rows with kStatsUnroll
+//     independent 16-byte loads in flight (32 KB a 256-thread block). It keeps
 //     shifted sums (shift = its first value of each channel), which do not
-//     cancel on inputs with a large mean; the block merges them into a
-//     (mean, M2) per group with Chan's formula in a fixed order and writes
-//     them to scratch. Unlike the Pallas kernel's one-pass E[x^2] - mean^2,
-//     this stays exact for an input offset by 100 with unit spread.
-//  2. finalize: one thread per (sample, group) merges the chunks' partials
-//     in chunk order (Chan again) into mean and rstd. Hopper blocks cannot
-//     carry a sum across the grid, and float atomics would make the sum's
-//     order vary; the fixed order keeps every run bit-identical.
-//  3. normalize: a grid-stride pass of 16-byte vectors applying the affine
-//     map and SiLU in fp32, storing bf16. Channels per group need not be a
-//     power of two (10, 20, ... in SD1.5): each channel looks up its group.
-// No fp32 copy of the activation is ever made.
+//     cancel on inputs with a large mean (unlike the Pallas kernel's one-pass
+//     E[x^2] - mean^2). The block merges them with Chan's formula: the row
+//     phases in order per channel, then each group's channels in a warp
+//     segment (`seg_merge`), and writes one (mean, M2) per group to scratch.
+//  2. gn_norm_kernel, the same grid. It first issues the loads that need no
+//     statistics (gamma, beta, its first rows of x), then, as a prologue,
+//     merges its sample's chunk partials into mean and rstd per group in
+//     shared memory (`seg_merge` again). Every block repeats this merge of a
+//     few KB from L2, so nothing outlives the call. Each thread turns its 8
+//     channels' statistics into fp32 coefficients in registers (mean_c, a_c =
+//     rstd_g * gamma_c, beta_c): the main loop divides no index. It walks its
+//     chunk's rows front to back, as the stats pass did, kNormUnroll 16-byte
+//     loads in flight, evict-first (the last read of x), and stores (x -
+//     mean_c) * a_c + beta_c, then SiLU as v / (1 + exp(-v)) with the fast
+//     exponential and division (MUFU ex2 and rcp), as bf16. (Walking back to
+//     front, so that the lines the stats pass read last come first, timed the
+//     same on scripts/bench_group_norm.py; PERF.md.)
+// The lanes of a merge segment, a power of two, are launch arguments:
+// `gn_partition` in ops/groupnorm.py picks them, the width that makes the
+// block's chain of merges shortest (at the UNet's 8x8 level a block has 5
+// warps for 32 groups of 40 channels, and 4-lane segments merge them in 12
+// steps where a warp a group took 49), and the CPU tests' mirror of these
+// merges takes the same partition. No fp32 copy of the activation is made.
 #include "common.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
+constexpr int kStatsUnroll = 8;  // 16-byte loads in flight a thread, stats pass
+constexpr int kNormUnroll = 4;   // the same, normalize pass (each also stores 16 bytes)
+constexpr unsigned kFull = 0xffffffffu;
+
 __device__ __forceinline__ void chan_merge(float& na, float& ma, float& Ma, float nb,
                                            float mb, float Mb) {
   if (nb == 0.f) return;
   const float n = na + nb;
   const float delta = mb - ma;
-  ma += delta * (nb / n);
-  Ma += Mb + delta * delta * (na * nb / n);
+  const float w = nb / n;
+  ma += delta * w;
+  Ma += Mb + delta * delta * (na * w);
   na = n;
+}
+
+// The lanes of a warp in segments of `width` (a power of two <= 32), one
+// partial each: lane 0 of each segment ends with the merge of its
+// segment's, lane i taking lane i + width / 2, then i + width / 4, ... (a
+// fixed order). Every lane of the warp must call it.
+__device__ __forceinline__ void seg_merge(float& n, float& m, float& M, int width) {
+  const int lane = threadIdx.x & (width - 1);
+  for (int off = width / 2; off > 0; off >>= 1) {
+    const float nb = __shfl_down_sync(kFull, n, off, width);
+    const float mb = __shfl_down_sync(kFull, m, off, width);
+    const float Mb = __shfl_down_sync(kFull, M, off, width);
+    if (lane < off) chan_merge(n, m, M, nb, mb, Mb);
+  }
+}
+
+// Rows row, row + rs, ..., U of them, of one thread's 8-channel column of x
+// (zeros from row1 on); kLast loads evict-first (the last read of x).
+template <int U, bool kLast>
+__device__ __forceinline__ void load_rows(uint4 (&raw)[U], const bf16* xb, int row, int row1,
+                                          int rs, int c) {
+#pragma unroll
+  for (int k = 0; k < U; ++k) {
+    const int rr = row + k * rs;
+    const uint4* p = reinterpret_cast<const uint4*>(xb + (int64_t)rr * c);
+    raw[k] = rr >= row1 ? make_uint4(0, 0, 0, 0) : kLast ? __ldcs(p) : __ldg(p);
+  }
 }
 
 __device__ __forceinline__ void unpack8(const uint4& u, float f[8]) {
@@ -50,47 +105,60 @@ __device__ __forceinline__ void unpack8(const uint4& u, float f[8]) {
   }
 }
 
-// grid (nblk, n); blockDim = (c / 8) * rs; dynamic smem (2 * rs * c + rs) floats
-__global__ void gn_stats_kernel(const bf16* __restrict__ x, float* __restrict__ part,
-                                int s, int c, int groups, int rows_per_block, int rs) {
+// grid (nchunk, n); blockDim = nv * rs rounded up to a warp (nv = c / 8);
+// dynamic smem (2 * rs * c + rs) floats. part: (n, groups, nchunk) float2.
+// width: the lanes of the segment that merges a group's channels.
+__global__ void __launch_bounds__(512)
+gn_stats_kernel(const bf16* __restrict__ x, float2* __restrict__ part, int s, int c,
+                int groups, int rows_per_chunk, int rs, int width) {
   extern __shared__ float sh[];
   float* sh_mean = sh;
   float* sh_m2 = sh + rs * c;
   float* sh_n = sh + 2 * rs * c;
-  const int n = blockIdx.y, blk = blockIdx.x, nblk = gridDim.x;
-  const int nv = c / 8;
-  const int tid = threadIdx.x, v = tid % nv, r = tid / nv;
-  const int row0 = blk * rows_per_block;
-  const int row1 = min(s, row0 + rows_per_block);
-  const bf16* xb = x + (int64_t)n * s * c + v * 8;
+  const int n = blockIdx.y, chunk = blockIdx.x, nchunk = gridDim.x;
+  const int nv = c / 8, tid = threadIdx.x;
+  const int row0 = chunk * rows_per_chunk;
+  const int row1 = min(s, row0 + rows_per_chunk);
 
-  float shift[8], s1[8], s2[8], xv[8];
+  if (tid < nv * rs) {
+    const int v = tid % nv, r = tid / nv;
+    const bf16* xb = x + (int64_t)n * s * c + v * 8;
+    float shift[8], s1[8], s2[8];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) shift[j] = s1[j] = s2[j] = 0.f;
-  int cnt = 0;
-  if (row0 + r < row1)
-    unpack8(*reinterpret_cast<const uint4*>(xb + (int64_t)(row0 + r) * c), shift);
-  for (int row = row0 + r; row < row1; row += rs, ++cnt) {
-    unpack8(*reinterpret_cast<const uint4*>(xb + (int64_t)row * c), xv);
+    for (int j = 0; j < 8; ++j) shift[j] = s1[j] = s2[j] = 0.f;
+    int cnt = 0;
+    for (int row = row0 + r; row < row1; row += rs * kStatsUnroll) {
+      uint4 raw[kStatsUnroll];
+      load_rows<kStatsUnroll, false>(raw, xb, row, row1, rs, c);
+      if (cnt == 0) unpack8(raw[0], shift);  // the thread's first row
+#pragma unroll
+      for (int k = 0; k < kStatsUnroll; ++k) {
+        if (row + k * rs < row1) {
+          float xv[8];
+          unpack8(raw[k], xv);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float dv = xv[j] - shift[j];
+            s1[j] += dv;
+            s2[j] = fmaf(dv, dv, s2[j]);
+          }
+          ++cnt;
+        }
+      }
+    }
+    const float inv = cnt ? 1.f / (float)cnt : 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float dv = xv[j] - shift[j];
-      s1[j] += dv;
-      s2[j] += dv * dv;
+      sh_mean[r * c + v * 8 + j] = cnt ? shift[j] + s1[j] * inv : 0.f;
+      sh_m2[r * c + v * 8 + j] = cnt ? fmaxf(s2[j] - s1[j] * s1[j] * inv, 0.f) : 0.f;
     }
+    if (v == 0) sh_n[r] = (float)cnt;
   }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float fc = (float)cnt;
-    sh_mean[r * c + v * 8 + j] = cnt ? shift[j] + s1[j] / fc : 0.f;
-    sh_m2[r * c + v * 8 + j] = cnt ? fmaxf(s2[j] - s1[j] * s1[j] / fc, 0.f) : 0.f;
-  }
-  if (v == 0) sh_n[r] = (float)cnt;
   __syncthreads();
 
-  // per channel: merge the rs row-phases in order (a thread touches only its
-  // own channel's column, so slot 0 can take the result)
-  for (int ch = tid; ch < c; ch += blockDim.x) {
+  // per channel: merge the rs row phases in order (a thread touches only its
+  // own channel's column, so phase 0's slot can take the result)
+  for (int ch = rs > 1 ? tid : c; ch < c; ch += blockDim.x) {
     float na = 0.f, ma = 0.f, Ma = 0.f;
     for (int i = 0; i < rs; ++i) chan_merge(na, ma, Ma, sh_n[i], sh_mean[i * c + ch], sh_m2[i * c + ch]);
     sh_mean[ch] = ma;
@@ -98,96 +166,139 @@ __global__ void gn_stats_kernel(const bf16* __restrict__ x, float* __restrict__ 
   }
   __syncthreads();
 
-  const int cg = c / groups;
+  // per group, a warp segment each: lane l merges channels l, l + width,
+  // ... of the group (each counts the chunk's rows), then the shuffle tree
+  const int cg = c / groups, per_warp = 32 / width;
+  const int seg = (tid & 31) / width, lane = tid & (width - 1);
   const float rows = (float)(row1 - row0);
-  for (int gi = tid; gi < groups; gi += blockDim.x) {
+  for (int g0 = (tid >> 5) * per_warp; g0 < groups; g0 += (blockDim.x >> 5) * per_warp) {
+    const int g = g0 + seg;
     float na = 0.f, ma = 0.f, Ma = 0.f;
-    for (int j = 0; j < cg; ++j) chan_merge(na, ma, Ma, rows, sh_mean[gi * cg + j], sh_m2[gi * cg + j]);
-    float* out = part + (((int64_t)n * nblk + blk) * groups + gi) * 2;
-    out[0] = ma;
-    out[1] = Ma;
+    if (g < groups)
+      for (int i = lane; i < cg; i += width)
+        chan_merge(na, ma, Ma, rows, sh_mean[g * cg + i], sh_m2[g * cg + i]);
+    seg_merge(na, ma, Ma, width);
+    if (g < groups && lane == 0)
+      part[((int64_t)n * groups + g) * nchunk + chunk] = make_float2(ma, Ma);
   }
 }
 
-// grid n; one thread per group (strided)
-__global__ void gn_finalize_kernel(const float* __restrict__ part, float* __restrict__ stats,
-                                   int nblk, int groups, int s, int cg, int rows_per_block,
-                                   float eps) {
-  const int n = blockIdx.x;
-  for (int gi = threadIdx.x; gi < groups; gi += blockDim.x) {
-    float na = 0.f, ma = 0.f, Ma = 0.f;
-    for (int blk = 0; blk < nblk; ++blk) {
-      const int rows = min(s, (blk + 1) * rows_per_block) - blk * rows_per_block;
-      const float* p = part + (((int64_t)n * nblk + blk) * groups + gi) * 2;
-      chan_merge(na, ma, Ma, (float)rows * cg, p[0], p[1]);
-    }
-    stats[((int64_t)n * groups + gi) * 2] = ma;
-    stats[((int64_t)n * groups + gi) * 2 + 1] = rsqrtf(Ma / na + eps);
-  }
-}
+// grid (nchunk, n), as the stats pass; blockDim as there; dynamic smem
+// 2 * groups floats. width: the lanes of the segment that merges a group's
+// chunk partials. The explicit minimum of one block an SM: with the bare
+// (512), ptxas held the act=None instance to 64 registers and spilled 64
+// bytes; with it, both instances take 86 and none spills.
+template <bool kSilu>
+__global__ void __launch_bounds__(512, 1)
+gn_norm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
+               const bf16* __restrict__ beta, const float2* __restrict__ part,
+               bf16* __restrict__ out, int s, int c, int groups, int rows_per_chunk, int rs,
+               int width, float eps) {
+  extern __shared__ float sh_stat[];  // (mean, rstd) per group
+  const int n = blockIdx.y, chunk = blockIdx.x, nchunk = gridDim.x;
+  const int tid = threadIdx.x, nv = c / 8, cg = c / groups;
+  const bool worker = tid < nv * rs;
+  const int v = tid % nv, r = tid / nv;
+  const int row0 = chunk * rows_per_chunk;
+  const int row1 = min(s, row0 + rows_per_chunk);
+  const int64_t base = (int64_t)n * s * c + v * 8;
+  const bf16* xb = x + base;
+  bf16* ob = out + base;
 
-__global__ void gn_norm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
-                               const bf16* __restrict__ beta, const float* __restrict__ stats,
-                               bf16* __restrict__ out, int64_t total_vec, int s, int c,
-                               int groups, int act) {
-  const int nv = c / 8, cg = c / groups;
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < total_vec;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t row = i / nv;
-    const int v = (int)(i % nv);
-    const int n = (int)(row / s);
-    float xv[8], gv[8], bv[8];
-    unpack8(*reinterpret_cast<const uint4*>(x + i * 8), xv);
-    unpack8(*reinterpret_cast<const uint4*>(gamma + v * 8), gv);
-    unpack8(*reinterpret_cast<const uint4*>(beta + v * 8), bv);
-    uint32_t o[4];
-#pragma unroll
-    for (int j = 0; j < 8; j += 2) {
-      float y[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int gi = (v * 8 + j + e) / cg;
-        const float* st = stats + ((int64_t)n * groups + gi) * 2;
-        float val = (xv[j + e] - st[0]) * st[1] * gv[j + e] + bv[j + e];
-        if (act) val = val / (1.f + expf(-val));
-        y[e] = val;
+  // the loads that need no statistics go first, their latency under the prologue
+  uint4 graw = make_uint4(0, 0, 0, 0), braw = graw, raw[kNormUnroll];
+  int row = row0 + r;
+  if (worker) {
+    graw = __ldg(reinterpret_cast<const uint4*>(gamma + v * 8));
+    braw = __ldg(reinterpret_cast<const uint4*>(beta + v * 8));
+    load_rows<kNormUnroll, true>(raw, xb, row, row1, rs, c);
+  }
+
+  // prologue: this sample's chunk partials -> mean, rstd per group, a warp
+  // segment a group (lane l merges chunks l, l + width, ...)
+  const int per_warp = 32 / width;
+  const int seg = (tid & 31) / width, lane = tid & (width - 1);
+  for (int g0 = (tid >> 5) * per_warp; g0 < groups; g0 += (blockDim.x >> 5) * per_warp) {
+    const int g = g0 + seg;
+    float na = 0.f, ma = 0.f, Ma = 0.f;
+    if (g < groups) {
+      const float2* p = part + ((int64_t)n * groups + g) * nchunk;
+      for (int i = lane; i < nchunk; i += width) {
+        const float2 q = p[i];
+        const int rows = min(s, (i + 1) * rows_per_chunk) - i * rows_per_chunk;
+        chan_merge(na, ma, Ma, (float)rows * cg, q.x, q.y);
       }
-      o[j / 2] = pcm::pack_bf16x2(y[0], y[1]);
     }
-    *reinterpret_cast<uint4*>(out + i * 8) = make_uint4(o[0], o[1], o[2], o[3]);
+    seg_merge(na, ma, Ma, width);
+    if (g < groups && lane == 0) {
+      sh_stat[2 * g] = ma;
+      sh_stat[2 * g + 1] = rsqrtf(Ma / na + eps);
+    }
+  }
+  __syncthreads();
+  if (!worker) return;
+
+  float mu[8], a[8], b[8];
+  unpack8(graw, a);
+  unpack8(braw, b);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int g = (v * 8 + j) / cg;
+    mu[j] = sh_stat[2 * g];
+    a[j] *= sh_stat[2 * g + 1];
+  }
+
+  for (; row < row1; row += rs * kNormUnroll) {
+    if (row != row0 + r) load_rows<kNormUnroll, true>(raw, xb, row, row1, rs, c);
+#pragma unroll
+    for (int k = 0; k < kNormUnroll; ++k) {
+      const int rr = row + k * rs;
+      if (rr < row1) {
+        float xv[8];
+        unpack8(raw[k], xv);
+        uint32_t o[4];
+#pragma unroll
+        for (int j = 0; j < 8; j += 2) {
+          float y[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float val = fmaf(xv[j + e] - mu[j + e], a[j + e], b[j + e]);
+            if (kSilu) val = __fdividef(val, 1.f + __expf(-val));
+            y[e] = val;
+          }
+          o[j / 2] = pcm::pack_bf16x2(y[0], y[1]);
+        }
+        *reinterpret_cast<uint4*>(ob + (int64_t)rr * c) = make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    }
   }
 }
 
 }  // namespace
 
 // x, out: contiguous (n, s, c) bf16; gamma, beta: (c,) bf16; c % 8 == 0,
-// c <= 4096, c % groups == 0; all pointers 16-byte aligned. scratch: fp32
-// of 2 * n * groups * (ceil(s / rows_per_block) + 1) elements.
+// c <= 4096, c % groups == 0; all pointers 16-byte aligned. rows_per_chunk
+// a multiple of rs, rs * (c / 8) <= 512. seg_chan, seg_chunk: powers of
+// two <= 32, the merge segments' lanes over a group's channels (stats pass)
+// and over its chunk partials (normalize pass). scratch: 2 * n * groups *
+// ceil(s / rows_per_chunk) floats.
 extern "C" int pcm_group_norm_silu(const void* x, const void* gamma, const void* beta,
                                    void* out, void* scratch, int n, int s, int c,
-                                   int groups, int act, int rows_per_block, float eps,
-                                   void* stream) {
+                                   int groups, int act, int rows_per_chunk, int rs,
+                                   int seg_chan, int seg_chunk, float eps, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  const int nblk = (s + rows_per_block - 1) / rows_per_block;
-  const int nv = c / 8;
-  const int rs = nv >= 256 ? 1 : 256 / nv;
-  const size_t smem = (size_t)(2 * rs * c + rs) * sizeof(float);
-  float* part = static_cast<float*>(scratch);
-  float* stats = part + (size_t)n * nblk * groups * 2;
-  gn_stats_kernel<<<dim3(nblk, n), nv * rs, smem, st>>>(
-      static_cast<const bf16*>(x), part, s, c, groups, rows_per_block, rs);
+  const dim3 grid((s + rows_per_chunk - 1) / rows_per_chunk, n);
+  const int threads = ((c / 8) * rs + 31) / 32 * 32;
+  auto part = static_cast<float2*>(scratch);
+  gn_stats_kernel<<<grid, threads, (size_t)(2 * rs * c + rs) * sizeof(float), st>>>(
+      static_cast<const bf16*>(x), part, s, c, groups, rows_per_chunk, rs, seg_chan);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  gn_finalize_kernel<<<n, groups < 256 ? groups : 256, 0, st>>>(
-      part, stats, nblk, groups, s, c / groups, rows_per_block, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int64_t total_vec = (int64_t)n * s * nv;
-  int64_t blocks = (total_vec + 255) / 256;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  gn_norm_kernel<<<(unsigned)blocks, 256, 0, st>>>(
+  const size_t smem = (size_t)2 * groups * sizeof(float);
+  auto norm = act ? gn_norm_kernel<true> : gn_norm_kernel<false>;
+  norm<<<grid, threads, smem, st>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(gamma),
-      static_cast<const bf16*>(beta), stats, static_cast<bf16*>(out), total_vec, s, c,
-      groups, act);
+      static_cast<const bf16*>(beta), part, static_cast<bf16*>(out), s, c, groups,
+      rows_per_chunk, rs, seg_chunk, eps);
   return cudaGetLastError();
 }

@@ -24,6 +24,7 @@ import contextlib
 import contextvars
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import shutil
@@ -115,6 +116,16 @@ def check_cuda(err: int, what: str) -> None:
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+# Every SM of an H100 SXM: the grids of K2 and K4 are sized to fill them.
+H100_SMS = 132
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SMs of the CUDA card ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # ---------------------------------------------------------------------------
@@ -233,7 +244,7 @@ def _declare(h: ctypes.CDLL) -> None:
     h.pcm_group_norm_silu.restype = I
     h.pcm_group_norm_silu.argtypes = (
         [P, P, P, P, P]  # x gamma beta out scratch
-        + [I] * 6  # n s c groups act rows_per_block
+        + [I] * 9  # n s c groups act rows_per_chunk rs seg_chan seg_chunk
         + [F, P]  # eps, stream
     )
     h.pcm_geglu.restype = I

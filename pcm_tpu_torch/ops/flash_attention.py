@@ -15,12 +15,12 @@ the VAE mid-block (forward only).
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .common import cdiv, check_cuda, count_launch, lib, require, stream_ptr, use_kernel
+from .common import (H100_SMS, cdiv, check_cuda, count_launch, lib, require, sm_count,
+                     stream_ptr, use_kernel)
 
 LOG2E = 1.4426950408889634  # exp(x) == exp2(x * LOG2E)
 MAX_HEAD_DIM = 512
@@ -163,10 +163,6 @@ def fwd_tiles(d: int) -> FwdTiles:
     return FwdTiles(MAX_HEAD_DIM, 64, 32, 64)
 
 
-# Every SM of an H100 SXM; `dkv_splits` aims K2's grid at filling them.
-H100_SMS = 132
-
-
 class BwdTiles(NamedTuple):
     d_pad: int    # head_dim zero-filled in shared memory: a multiple of 16 (32 above 80)
     wd: int       # K2 warpgroups sharing one 64-row k slice (the dK/dV columns split)
@@ -197,11 +193,6 @@ def dkv_splits(b: int, h: int, sq: int, sk: int, d: int, sms: int = H100_SMS) ->
     if blocks >= sms:
         return 1
     return max(1, min(sms // blocks, cdiv(sq, tiles.k2_step) // 2))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: Optional[int]) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _bwd_check(q, k, v, do, lse, delta) -> None:
@@ -236,7 +227,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float):
     _bwd_check(q, k, v, do, lse, delta)
     dk, dv = (torch.empty(k.shape, dtype=q.dtype, device=q.device) for _ in range(2))
     sizes, rest = _bwd_args(q, k, v, do, sm_scale)
-    nsplit = dkv_splits(*sizes[:4], q.shape[3], _sm_count(q.device.index))
+    nsplit = dkv_splits(*sizes[:4], q.shape[3], sm_count(q.device))
     part = (torch.empty((nsplit, 2, *k.shape), dtype=torch.float32, device=q.device)
             if nsplit > 1 else None)
     err = lib().pcm_flash_attention_bwd_dkv(

@@ -11,16 +11,45 @@ JAX package (which has no backward kernel either).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
-from .common import (cdiv, check_cuda, count_launch, lib, require, stream_ptr, use_kernel,
-                     vjp_of)
+from .common import (H100_SMS, cdiv, check_cuda, count_launch, lib, require, sm_count,
+                     stream_ptr, use_kernel, vjp_of)
 
 MAX_CHANNELS = 4096
-_TARGET_BLOCKS = 1024  # stats-pass blocks over the whole batch (>= 7 per SM)
+# rows a thread walks at the least: one sweep of the stats pass's 8 loads in
+# flight (`kStatsUnroll`); it sizes the grid only, the sums do not depend on it
+_MIN_ROWS_A_PHASE = 8
+_ROW_THREADS = 256  # threads a block spreads over its row phases (C/8 of them a phase)
+_BLOCKS_PER_SM = 2  # blocks of one pass an SM, over the whole batch
+
+
+class GNPartition(NamedTuple):
+    rs: int              # row phases of a block: blockDim = rs * C/8, rounded up to a warp
+    rows_per_chunk: int  # rows of a block (both passes): a multiple of rs
+    nchunk: int          # blocks a sample
+    seg_chan: int        # lanes merging a group's channels (stats pass)
+    seg_chunk: int       # lanes merging a group's chunk partials (normalize pass)
+
+
+def gn_partition(n: int, s: int, c: int, groups: int, sms: int = H100_SMS) -> GNPartition:
+    """K4's grid, as both its launches take it: (nchunk, n) blocks of
+    ``rows_per_chunk`` rows, about `_BLOCKS_PER_SM` an SM over the batch,
+    each at least one unrolled sweep of its row phases."""
+    rs = max(1, _ROW_THREADS // (c // 8))
+    rows = cdiv(cdiv(s, cdiv(sms * _BLOCKS_PER_SM, n)), rs) * rs
+    return _gn_grid(s, c, groups, rs, max(rs * _MIN_ROWS_A_PHASE, rows))
+
+
+def _gn_grid(s: int, c: int, groups: int, rs: int, rows: int) -> GNPartition:
+    """The partition of chunks of ``rows`` rows, with the merge segments'
+    widths that `_seg_width` picks for a block of ``rs`` row phases."""
+    nchunk, warps = cdiv(s, rows), cdiv(c // 8 * rs, 32)
+    return GNPartition(rs, rows, nchunk, _seg_width(c // groups, groups, warps),
+                       _seg_width(nchunk, groups, warps))
 
 
 class GroupNormSiLUFn(torch.autograd.Function):
@@ -62,16 +91,17 @@ def group_norm_silu_fwd(x, gamma, beta, num_groups=32, eps=1e-5, act="silu"):
     require(gamma.is_contiguous() and beta.is_contiguous(), "gamma/beta must be contiguous")
     require(c % 8 == 0 and c <= MAX_CHANNELS and c % num_groups == 0,
             f"C={c} must be a multiple of 8 and of groups={num_groups}, <= {MAX_CHANNELS}")
+    require(n <= 65535 and s * c < 2**31, "group_norm_silu takes N <= 65535 and S*C < 2^31")
     for name, t in (("x", x), ("gamma", gamma), ("beta", beta)):
         require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
-    rows_per_block = max(16, cdiv(s, max(1, _TARGET_BLOCKS // n)))
-    nblk = cdiv(s, rows_per_block)
-    scratch = torch.empty(2 * n * num_groups * (nblk + 1), dtype=torch.float32, device=x.device)
+    part = gn_partition(n, s, c, num_groups, sm_count(x.device))
+    # one (mean, M2) per (sample, group, chunk), written by the stats pass
+    scratch = torch.empty(2 * n * num_groups * part.nchunk, dtype=torch.float32, device=x.device)
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     err = lib().pcm_group_norm_silu(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        n, s, c, num_groups, int(act == "silu"), rows_per_block, float(eps),
-        stream_ptr(x.device),
+        n, s, c, num_groups, int(act == "silu"), part.rows_per_chunk, part.rs, part.seg_chan,
+        part.seg_chunk, float(eps), stream_ptr(x.device),
     )
     check_cuda(err, "group_norm_silu")
     count_launch("group_norm_silu")
@@ -90,3 +120,83 @@ def group_norm_silu_reference(x, gamma, beta, num_groups=32, eps=1e-5, act="silu
     if act == "silu":
         y = F.silu(y)
     return y.reshape(x.shape).to(x.dtype)
+
+
+def _chan_merge(na, ma, Ma, nb, mb, Mb):
+    """Chan's merge of (count, mean, M2) partials b into a, elementwise, as
+    `chan_merge` in csrc/groupnorm.cu; an empty b leaves a as it is."""
+    cnt = na + nb
+    w = nb / torch.where(cnt > 0, cnt, torch.ones_like(cnt))
+    delta = mb - ma
+    m = ma + delta * w
+    M = Ma + (Mb + delta * delta * (na * w))
+    empty = nb == 0
+    return torch.where(empty, na, cnt), torch.where(empty, ma, m), torch.where(empty, Ma, M)
+
+
+def _seg_width(k: int, groups: int, warps: int) -> int:
+    """The lanes (a power of two <= 32) a warp segment of the kernel gives
+    one group's ``k`` partials when ``warps`` warps merge ``groups`` groups,
+    32 / width at once each: the shortest chain of merges (passes, times
+    partials a lane merges in turn plus tree steps), the first of equals."""
+    costs = [(cdiv(groups, warps * (32 >> e)) * (cdiv(k, 1 << e) + e), 1 << e) for e in range(6)]
+    return min(costs, key=lambda t: t[0])[1]
+
+
+def _seg_merge(cnt, mean, m2, width: int):
+    """The kernel's merge of k partials (the last axis) in a warp segment of
+    ``width`` lanes: lane l merges entries l, l + width, ... in order, then
+    lane i takes lane i + width / 2, i + width / 4, ..., 1; lane 0's
+    (count, mean, M2)."""
+    k = mean.shape[-1]
+    rounds = cdiv(k, width)
+    cnt, mean, m2 = (F.pad(t.expand_as(mean), (0, rounds * width - k)).unflatten(-1, (rounds, width))
+                     for t in (cnt, mean, m2))
+    acc = [torch.zeros_like(mean[..., 0, :]) for _ in range(3)]
+    for i in range(rounds):
+        acc = _chan_merge(*acc, cnt[..., i, :], mean[..., i, :], m2[..., i, :])
+    off = width // 2
+    while off:
+        low = _chan_merge(*(t[..., :off] for t in acc), *(t[..., off:2 * off] for t in acc))
+        acc = [torch.cat([lo, t[..., off:]], -1) for lo, t in zip(low, acc)]
+        off //= 2
+    return tuple(t[..., 0] for t in acc)
+
+
+def group_norm_stats_chunked(x, num_groups=32, eps=1e-5, rows_per_chunk=None):
+    """Mean and rstd per (sample, group), (N, G) fp32, merged as K4 merges
+    them (csrc/groupnorm.cu, plain version for the tests): per chunk of
+    `gn_partition`'s rows (or ``rows_per_chunk``, a multiple of its ``rs``),
+    each (row phase, channel) thread's sums shifted by its first value, the
+    row phases merged in order per channel with Chan's formula, then the
+    group's channels and last the sample's chunks, each by `_seg_merge` with
+    the partition's widths."""
+    n, c = x.shape[0], x.shape[-1]
+    xf = x.float().reshape(n, -1, c)
+    s = xf.shape[1]
+    part = gn_partition(n, s, c, num_groups)
+    if rows_per_chunk:
+        require(rows_per_chunk % part.rs == 0,
+                f"rows_per_chunk {rows_per_chunk} is not a multiple of rs = {part.rs}")
+        part = _gn_grid(s, c, num_groups, part.rs, rows_per_chunk)
+    rs, rows, nchunk = part.rs, part.rows_per_chunk, part.nchunk
+    # thread (chunk j, phase r) reads rows j * rows + r + k * rs, k = 0, 1, ...
+    xp = F.pad(xf, (0, 0, 0, nchunk * rows - s)).reshape(n, nchunk, rows // rs, rs, c)
+    valid = (torch.arange(nchunk * rows) < s).reshape(1, nchunk, rows // rs, rs, 1)
+    shift = xp[:, :, :1]
+    cnt = valid.sum(2).float()  # (1, nchunk, rs, 1)
+    d = torch.where(valid, xp - shift, 0.0)
+    s1, s2 = d.sum(2), (d * d).sum(2)
+    inv = 1.0 / cnt.clamp_min(1.0)
+    mean_t = torch.where(cnt > 0, shift[:, :, 0] + s1 * inv, 0.0)
+    m2_t = torch.where(cnt > 0, (s2 - s1 * s1 * inv).clamp_min(0.0), 0.0)
+    acc = [torch.zeros((n, nchunk, c)) for _ in range(3)]
+    for r in range(rs):
+        acc = _chan_merge(*acc, cnt[:, :, r], mean_t[:, :, r], m2_t[:, :, r])
+    cg = c // num_groups
+    cnt_c, mean_c, m2_c = (t.reshape(n, nchunk, num_groups, cg) for t in acc)
+    _, mean_j, m2_j = _seg_merge(cnt_c, mean_c, m2_c, part.seg_chan)
+    cnt_j = cnt_c[..., 0] * cg  # (n, nchunk, G)
+    cnt_g, mean, m2 = _seg_merge(*(t.transpose(1, 2) for t in (cnt_j, mean_j, m2_j)),
+                                 part.seg_chunk)
+    return mean, torch.rsqrt(m2 / cnt_g + eps)

@@ -39,14 +39,17 @@ def category(name: str) -> str:
     return "other"
 
 
-def trace(fn, label: str) -> None:
+def trace(fn, label: str):
+    """Profiles one call of ``fn``, prints its summary and returns the profile."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1000
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # kernels only: a record_function scope also shows as a device-side span
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     by_cat = collections.Counter()
     for e in kernels:
         by_cat[category(e.key)] += e.self_device_time_total / 1000
@@ -58,6 +61,7 @@ def trace(fn, label: str) -> None:
     print("   top kernels:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"   {e.self_device_time_total / 1000:9.2f} ms  x{e.count:<5d} {e.key[:100]}")
+    return prof
 
 
 def main() -> None:

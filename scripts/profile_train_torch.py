@@ -16,7 +16,11 @@ embeddings made on the card and times ``--steps`` steps on the host clock
 but the first two, and the peak memory. Then it traces one more step with
 ``torch.profiler``: host wall time, summed kernel time by category (the
 port's kernels, GEMMs, convolutions, the rest), the device idle share and
-the top kernels, as `profile_serve_torch.py` prints them for serving. Last,
+the top kernels, as `profile_serve_torch.py` prints them for serving, and
+the device time of the kernels that GroupNorm's backward (autograd of its
+plain version, no kernel of its own) launches, under a
+``torch.profiler.record_function`` scope put around
+`GroupNormSiLUFn.backward` for this step only. Last,
 one more step with every kernel wrapper wrapped (`bound_tally`) prints the
 step's launches and least time by kernel: the sum over its launches of
 `chip_smoke.bound` at each call's own shapes.
@@ -101,6 +105,28 @@ def bound_tally():
     return tally, unwrap
 
 
+GN_BWD_SCOPE = "K4 group norm backward (plain autograd)"
+
+
+@contextlib.contextmanager
+def gn_backward_scope():
+    """`GroupNormSiLUFn.backward` inside a profiler scope named
+    `GN_BWD_SCOPE` within the context."""
+    from pcm_tpu_torch.ops.groupnorm import GroupNormSiLUFn
+
+    plain = GroupNormSiLUFn.backward
+
+    def scoped(ctx, g):
+        with torch.profiler.record_function(GN_BWD_SCOPE):
+            return plain(ctx, g)
+
+    GroupNormSiLUFn.backward = staticmethod(scoped)
+    try:
+        yield
+    finally:
+        GroupNormSiLUFn.backward = staticmethod(plain)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--family", default="sd15", choices=["sd15", "sdxl"])
@@ -172,7 +198,17 @@ def main() -> None:
         print(f"== {label}: step ms {[round(t, 1) for t in times]}, steady median "
               f"{statistics.median(times[2:]):.1f} ms, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-        trace(one_step, label)
+        with gn_backward_scope():
+            prof = trace(one_step, label)
+        # the scope's host-side event sums its kernels' device time; its
+        # device-side span runs from its first kernel's start to its last one's end
+        scope = {e.device_type: e for e in prof.key_averages() if e.key == GN_BWD_SCOPE}
+        cpu, gpu = (scope.get(d) for d in (torch.autograd.DeviceType.CPU,
+                                           torch.autograd.DeviceType.CUDA))
+        print(f"   {GN_BWD_SCOPE}: " + (f"x{cpu.count}, device time of its kernels "
+                                       f"{cpu.device_time_total / 1000:.2f} ms, spans "
+                                       f"{gpu.self_device_time_total / 1000 if gpu else 0:.2f} ms"
+                                       if cpu else "not reached"))
         tally, unwrap = bound_tally()
         one_step()
         unwrap()

@@ -12,6 +12,8 @@ and the K2/K3 gradients: bf16 rounding of P, dS and the outputs) and GEGLU,
 held bit for bit to its plain version.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -102,6 +104,15 @@ def test_flash_attention_kernel_is_deterministic(cuda, b, sq, sk, h, d):
     ((2, 77, 320), 32, 1e-5, "silu", 100.0),
     ((2, 8, 8, 2560), 32, 1e-5, "silu", 0.0),
     ((1, 128, 128, 128), 32, 1e-6, "silu", 0.0),
+    # 16-byte vectors that straddle two groups (cg = 30, 60), S = 64 (the
+    # 8x8 level: 8 rows a block), S = 262144 (the VAE at 512 px), N = 1 (261
+    # chunks a sample: 33 a lane of the prologue's 8-lane segments) and N = 8
+    ((4, 64, 64, 960), 32, 1e-5, "silu", 0.0),
+    ((2, 32, 32, 1920), 32, 1e-5, "silu", 100.0),
+    ((4, 8, 8, 1280), 32, 1e-5, "silu", 0.0),
+    ((1, 8, 8, 1920), 32, 1e-5, None, 0.0),
+    ((1, 512, 512, 128), 32, 1e-6, "silu", 0.0),
+    ((8, 32, 32, 1280), 32, 1e-5, None, 0.0),
 ])
 def test_group_norm_kernel(cuda, shape, groups, eps, act, offset):
     x = _randn(shape, 4, cuda, offset=offset)
@@ -115,13 +126,24 @@ def test_group_norm_kernel(cuda, shape, groups, eps, act, offset):
     assert rel_max(out, ref) <= 1e-2
 
 
-def test_group_norm_kernel_is_deterministic(cuda):
-    x = _randn((4, 64, 64, 640), 7, cuda)
-    gamma = torch.ones(640, device=cuda, dtype=torch.bfloat16)
-    beta = torch.zeros(640, device=cuda, dtype=torch.bfloat16)
+@pytest.mark.parametrize("shape", [(4, 64, 64, 640), (4, 512, 512, 256)])
+def test_group_norm_kernel_is_deterministic(cuda, shape):
+    x = _randn(shape, 7, cuda)
+    gamma = torch.ones(shape[-1], device=cuda, dtype=torch.bfloat16)
+    beta = torch.zeros(shape[-1], device=cuda, dtype=torch.bfloat16)
     a = group_norm_silu(x, gamma, beta)
     b = group_norm_silu(x, gamma, beta)
     assert torch.equal(a, b)
+
+
+def test_group_norm_kernels_do_not_spill(cuda):
+    """ptxas spills in none of K4's three kernel instances (the build's
+    ``-Xptxas -v`` report in ``build.log``)."""
+    common.lib()
+    log = (common.library_path().parent / "build.log").read_text()
+    spills = re.findall(r"Compiling entry function '\S*?(gn_\w+?_kernel(?:ILb[01]E)?)\w*' "
+                        r"for 'sm_90a'\n.*\n.*?(\d+) bytes spill stores", log)
+    assert len(spills) == 3 and all(b == "0" for _, b in spills), spills
 
 
 @pytest.mark.parametrize("m,k,f", [(4096, 320, 1280), (1000, 640, 2560), (77, 1280, 5120),

@@ -18,6 +18,7 @@ import torch
 from pcm_tpu.ops import flash_attention as jax_flash_attention
 from pcm_tpu.ops import geglu as jax_geglu
 from pcm_tpu.ops import group_norm_silu as jax_group_norm_silu
+from pcm_tpu.ops import group_norm_silu_reference as jax_group_norm_silu_reference
 from pcm_tpu.ops.flash_attention import _bwd as jax_fa_bwd
 from pcm_tpu.ops.flash_attention import _fwd as jax_fa_fwd
 from pcm_tpu_torch.ops import common
@@ -25,7 +26,8 @@ from pcm_tpu_torch.ops.flash_attention import (FlashAttentionFn, attention_bwd_r
                                                attention_reference, bwd_tiles, dkv_splits,
                                                flash_attention, flash_attention_fwd, fwd_tiles)
 from pcm_tpu_torch.ops.geglu import GEGLUFn, geglu, geglu_tiles
-from pcm_tpu_torch.ops.groupnorm import GroupNormSiLUFn, group_norm_silu
+from pcm_tpu_torch.ops.groupnorm import (GroupNormSiLUFn, gn_partition, group_norm_silu,
+                                         group_norm_stats_chunked)
 
 TOL = 1e-5
 
@@ -238,6 +240,58 @@ def test_group_norm_one_pass_variance_cancels():
              / np.sqrt(xg.var(axis=(1, 3), keepdims=True) + 1e-5)).reshape(x.shape)
     assert rel_max(ours, exact) < 5e-5
     assert rel_max(pallas, exact) > rel_max(ours, exact)
+
+
+@pytest.mark.parametrize("n,s,c,part", [
+    ((4, 262144, 256, (8, 3976, 66, 4, 8))),   # the SD1.5 VAE decoder at 512 px: 2 blocks an SM
+    ((1, 262144, 128, (16, 1008, 261, 2, 8))),
+    ((4, 4096, 320, (6, 66, 63, 4, 8))),       # SD1.5's 64x64 level: cg = 10
+    ((8, 1024, 1280, (1, 32, 32, 4, 4))),
+    ((4, 64, 1280, (1, 8, 8, 4, 4))),          # the 8x8 level: one unrolled sweep a chunk
+    ((2, 77, 960, (2, 16, 5, 8, 2))),          # cg = 30
+])
+def test_gn_partition(n, s, c, part):
+    """K4's grid: (row phases, rows a chunk, chunks a sample, merge lanes over
+    a group's channels, over its chunks), the same for both launches; rows a
+    multiple of the row phases, at most 512 threads."""
+    got = gn_partition(n, s, c, 32)
+    assert got == part
+    assert got.rows_per_chunk % got.rs == 0 and got.rs * c // 8 <= 512
+    assert (got.nchunk - 1) * got.rows_per_chunk < s <= got.nchunk * got.rows_per_chunk
+
+
+@pytest.mark.parametrize("shape,rows,offset", [
+    ((2, 7, 11, 320), None, 0.0),     # S = 77, cg = 10, two chunks of 48 rows
+    ((1, 4000, 320), 48, 100.0),      # 84 chunks (11 a lane of 8-lane segments), the last ragged
+    ((2, 7, 11, 960), None, 100.0),   # cg = 30: vectors straddle groups
+    ((1, 2000, 960), 16, 0.0),        # 125 ragged chunks
+    ((4, 8, 8, 1280), None, 0.0),     # S = 64
+])
+def test_group_norm_chunked_stats(shape, rows, offset):
+    """The kernel's statistics (per-thread shifted sums, Chan's merge over
+    row phases, then warp-segment merges over channels and over chunks) against
+    float64, and the GroupNorm + SiLU built from them against the JAX
+    reference. Bounds: the mean within 2.5e-7 of max |x| (about two fp32
+    ulps: 2.6e-5 at the +100 offset), rstd within 1e-5 relative; the output
+    within the file's fp32 bound, or 5e-5 at the +100 offset, where an fp32
+    input carries rounding of 7.6e-6 and both sides' means err by as much."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal(shape, dtype=np.float32) + np.float32(offset)
+    c = shape[-1]
+    gamma = rng.standard_normal(c, dtype=np.float32)
+    beta = rng.standard_normal(c, dtype=np.float32)
+    mean, rstd = group_norm_stats_chunked(torch.from_numpy(x), 32, 1e-5, rows_per_chunk=rows)
+    xg = x.astype(np.float64).reshape(shape[0], -1, 32, c // 32)
+    assert np.abs(mean.numpy() - xg.mean(axis=(1, 3))).max() <= 2.5e-7 * np.abs(x).max()
+    exact = 1 / np.sqrt(xg.var(axis=(1, 3)) + 1e-5)
+    assert np.abs(rstd.numpy() / exact - 1).max() <= 1e-5
+    # the kernel's affine map: a_c = rstd * gamma rounded, then (x - mean) * a_c + beta
+    xf = torch.from_numpy(x).reshape(shape[0], -1, c)
+    a = rstd.repeat_interleave(c // 32, 1) * torch.from_numpy(gamma)
+    y = (xf - mean.repeat_interleave(c // 32, 1)[:, None]) * a[:, None] + torch.from_numpy(beta)
+    ref = jax_group_norm_silu_reference(jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta),
+                                        32, 1e-5, "silu")
+    assert rel_max(torch.nn.functional.silu(y).reshape(shape), ref) < (5e-5 if offset else TOL)
 
 
 @pytest.mark.parametrize("k,f,rows", [pytest.param(320, 128, 37, id="320-128"),
