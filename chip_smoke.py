@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card (H100): the SD1.5 serving
-path, the SD1.5 distillation step (bf16 and int8 frozen weights) and the
-SDXL-1024 cached distillation step on int8 frozen weights.
+path, the SD1.5 distillation step (bf16 and int8 frozen weights), the
+SDXL-1024 cached distillation step on int8 frozen weights, and adversarial
+distillation of SD1.5 and SDXL-1024 on cached latents.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -20,7 +21,9 @@ Phases, one printed line each:
      Function against autograd of the plain attention at the training shapes,
      and twice bit-identical, with the SDPA backward and the bounds at the
      SD1.5 and SDXL headline shapes; the GroupNorm Function's gradients; the fused
-     int8 matmul (K6) at the SD1.5 and SDXL shapes of the int8 paths; beside
+     int8 matmul (K6) at the SD1.5 and SDXL shapes of the int8 paths; K4 on
+     fp32 at the discriminator heads' shapes (``fp32_*`` fields, beside
+     ``F.group_norm`` on the same tensor, bit-identical reruns); beside
      each kernel the least time the card could take (``bound_ms``) and the
      one PyTorch call that computes the same function, where there is one;
   4. unet: one full-width SD1.5 UNet forward at batch 4, kernels against the
@@ -44,10 +47,22 @@ Phases, one printed line each:
      versions and against K1, K4, K5 each plain alone, beside a yardstick of
      bf16 round-off (a half-step nudge of the input, all plain); on int8, the
      output with K6's plain version alone equal bit for bit;
+ 9a. adv-grad: on the bf16 SDXL weights at batch 2, the teacher's down and
+     mid taps of a latent that requires grad, the SDXL discriminator heads
+     and the hinge G loss; the gradients to the latent and to the heads with
+     the kernels against all plain versions; K1-K5, K4 on fp32 and K5's
+     backward (autograd of its plain version) all ran;
  10. sdxl-step: the SDXL-1024 cached consistency step (`sdxl_bundle` +
      `build_ddim_distill_step`, 40 solver steps, 4 phases, w in [6, 7), remat
      full) on int8 frozen weights under ``fused``, batch 4, 3 steps: finite
-     losses, peak memory, K1-K6 all launched.
+     losses, peak memory, K1-K6 all launched;
+ 11. train-adv: ``python -m pcm_tpu_torch.train``'s ``main`` on seeded caches
+     under build/: ``sdxl_4phase_adv`` at full width, batch 2 (128x128x4
+     latents), ``--adv-pairing fused`` for 4 global steps, ``fresh`` for 4
+     and a resume of ``fresh`` for 2 more; ``sd15_2phase_adv``, batch 4,
+     ``fresh``, 4 steps. Checks finite ``loss`` and ``d_loss``, that the
+     LoRA and the heads moved, that the resume restored the heads' state and
+     the step counter, and that K1-K5 and K4 on fp32 were launched.
 Each main path runs with the launch counts set to 0 just before it and read
 just after. Then a JSON line of the kernels, the nvidia-smi line, and a last
 JSON line ``{"ok": true, ...}``.
@@ -63,6 +78,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -156,6 +172,10 @@ GN_SHAPES = [
     ((4, 32, 32, 2560), 1e-5, "silu"), ((4, 128, 128, 960), 1e-5, "silu"),
     ((4, 32, 32, 1280), 1e-6, None),
 ]
+# (N, S, C) of the discriminator heads' fp32 GroupNorm at the D step's 2B = 4:
+# SDXL's 64x64 tap (also SD1.5's up_3) and its 32x32 taps at 1280, SD1.5's
+# up_2; the first is the fp32 headline
+GN_FP32_SHAPES = [(4, 4096, 320), (4, 1024, 1280), (4, 4096, 640)]
 # (M = b*s, K, F): the SD1.5 feed-forward in-projections (teacher; CFG doubles
 # M), then SDXL's at batch 4 under CFG
 GEGLU_SHAPES = [(16384, 320, 1280), (32768, 320, 1280), (4096, 640, 2560),
@@ -267,6 +287,34 @@ def check_kernels(gen) -> dict:
     log("kernel", name="group_norm_silu", shape="(4,64,64,320)+100", rel_max=f"{err:.3e}")
     if not err <= 1e-2:
         raise AssertionError(f"group norm on a +100 offset: rel {err:.3e}")
+
+    for shp in GN_FP32_SHAPES:  # K4 on fp32 (act=None), against F.group_norm too
+        c = shp[-1]
+        x = torch.randn(shp, generator=gen, device="cuda") * 2 + 0.5
+        gamma = torch.randn((c,), generator=gen, device="cuda") * 0.5 + 1.0
+        beta = torch.randn((c,), generator=gen, device="cuda") * 0.5
+        out = group_norm_silu(x, gamma, beta, 32, 1e-5, None)
+        same = torch.equal(out, group_norm_silu(x, gamma, beta, 32, 1e-5, None))
+        torch.cuda.synchronize()
+        ref = group_norm_silu_reference(x.double(), gamma.double(), beta.double(), 32, 1e-5, None)
+        err = rel_max(out, ref)
+        ms = cuda_ms(lambda: group_norm_silu(x, gamma, beta, 32, 1e-5, None))
+        plain = cuda_ms(lambda: group_norm_silu_reference(x, gamma, beta, 32, 1e-5, None))
+        side = math.isqrt(shp[1])  # the NCHW channels-last view of the (N, h, w, C) tap
+        xv = x.reshape(shp[0], side, side, c).permute(0, 3, 1, 2)
+        lib = cuda_ms(lambda: torch.nn.functional.group_norm(xv, 32, gamma, beta, 1e-5))
+        b = bound(8.0 * x.numel(), "fp32", 8.0 * x.numel())  # read x, write y (fp32)
+        log("kernel", name="group_norm_silu_fp32", shape=shp, rel_max=f"{err:.3e}",
+            deterministic=same, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+            library_ms=f"{lib:.4f}", bound_ms=f"{b['bound_ms']:.4f}")
+        if not (err <= 1e-5 and same):
+            raise AssertionError(f"group norm fp32 {shp}: rel {err:.3e}, bit-identical rerun {same}")
+        r = results["group_norm_silu"]
+        r["fp32_max_abs_err"] = max(r.get("fp32_max_abs_err", 0.0), abs_max(out, ref))
+        if shp == GN_FP32_SHAPES[0]:
+            r.update(fp32_shape=shp, fp32_ms=ms, fp32_plain_ms=plain, fp32_library_ms=lib,
+                     fp32_bound_ms=b["bound_ms"])
+        del x, out, ref
 
     for shp in GEGLU_SHAPES:
         m, kk, f = shp
@@ -796,6 +844,161 @@ def sdxl_step(bundle, frozen, template, gen, batch_size: int = 4, steps: int = 3
 
 
 # ---------------------------------------------------------------------------
+# phases 9a and 11: adversarial distillation
+# ---------------------------------------------------------------------------
+
+# the kernels (launch counters) every adversarial path must launch
+ADV_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+               "group_norm_silu", "geglu", "group_norm_silu_fp32")
+
+
+@contextlib.contextmanager
+def geglu_backward_calls():
+    """Counts the calls of K5's autograd backward (autograd of its plain
+    version) within the context, in the returned one-element list."""
+    from pcm_tpu_torch.ops.geglu import GEGLUFn
+
+    calls, orig = [0], GEGLUFn.backward
+
+    def counted(ctx, g):
+        calls[0] += 1
+        return orig(ctx, g)
+
+    GEGLUFn.backward = staticmethod(counted)
+    try:
+        yield calls
+    finally:
+        GEGLUFn.backward = staticmethod(orig)
+
+
+def adv_grad_vs_reference(bundle, frozen, gen) -> dict:
+    """The G loss's gradients through the frozen SDXL teacher at full width,
+    batch 2, 1024 px: the down and mid taps of a latent that requires grad,
+    the SDXL heads (drawn from ``gen``), `hinge_g_loss`; the
+    gradients to the latent and to the heads with every kernel against every
+    plain version, (cosine, relative norm error) each, and the launches of
+    the kernel run."""
+    from pcm_tpu_torch.configs.families import disc_config
+    from pcm_tpu_torch.core.losses import hinge_g_loss
+    from pcm_tpu_torch.models.attention import FeedForward
+    from pcm_tpu_torch.ops import launch_counts, reference_ops, reset_launch_counts
+    from pcm_tpu_torch.train.adv import heads_precision, init_discriminator
+
+    heads_precision()  # as the training CLI's steps set it (the only fp32 convs from here on)
+    disc, heads = init_discriminator(disc_config("sdxl"), bundle.unet_cfg.tap_channels(), gen,
+                                     torch.device("cuda"))
+    batch = sdxl_batch(2, gen)
+    _, cond, _ = bundle.encode(frozen, batch)
+    t = torch.tensor([871, 512], device="cuda")
+
+    def grads():
+        x = batch["latents"].clone().requires_grad_(True)
+        dp = {k: v.clone().requires_grad_(True) for k, v in heads.items()}
+        feats = bundle.teacher_features(frozen, x, t, cond, stop_after_mid=disc.stop_after_mid)
+        loss = hinge_g_loss(disc.logits(dp, feats))
+        gx, *gd = torch.autograd.grad(loss, [x, *dp.values()])
+        return gx.flatten(), torch.cat([g.flatten() for g in gd]), float(loss.detach())
+
+    def compare(a, b):
+        return (float(torch.nn.functional.cosine_similarity(a, b, dim=0)),
+                float((a.norm() - b.norm()).abs() / b.norm()))
+
+    unet = frozen["unet"]
+    tapped_ff = sum(isinstance(m, FeedForward) for blk in (*unet.down_blocks, unet.mid_block)
+                    for m in blk.modules())
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with geglu_backward_calls() as calls:
+        gx, gd, loss = grads()
+        counts, backward_calls = launch_counts(), calls[0]
+    with reference_ops():
+        rx, rd, ref_loss = grads()
+    finite = bool(torch.isfinite(gx).all() and torch.isfinite(gd).all())
+    return {"latent": compare(gx, rx), "heads": compare(gd, rd), "loss": loss,
+            "ref_loss": ref_loss, "finite": finite, "counts": counts,
+            "geglu_backward_calls": backward_calls, "tapped_feedforwards": tapped_ff}
+
+
+def write_sdxl_cache(out_dir: str, seed: int, n: int = 8) -> str:
+    """One shard of seeded SDXL-1024 cached samples: 128x128x4 latents,
+    (77, 2048) prompt embeds, 1280 pooled embeds (fp16), 1024-px time_ids."""
+    import numpy as np
+
+    from pcm_tpu_torch.configs.families import SDXL_CACHED_STEP
+
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    np.savez(os.path.join(out_dir, "shard_00000.npz"),
+             latents=rng.standard_normal((n, 128, 128, 4)).astype(np.float16),
+             prompt_embeds=rng.standard_normal((n, 77, 2048)).astype(np.float16),
+             pooled_embeds=rng.standard_normal((n, 1280)).astype(np.float16),
+             time_ids=np.tile(np.array(SDXL_CACHED_STEP.time_ids, np.float32), (n, 1)))
+    return out_dir
+
+
+def train_adv(tag: str, recipe: str, cache_dir: str, out_dir: str, seed: int, batch: int,
+              pairing: str, steps: int, resume_to: int = 0) -> dict:
+    """``main`` of the training CLI on an adversarial recipe for ``steps``
+    global steps from scratch (then, with ``resume_to``, a resumed run to that
+    step); checks finite losses, that the LoRA and the heads moved and that
+    the adversarial kernels were all launched; returns the launch counts of
+    the first run, its rows and, on a resume, what it restored. ``out_dir``
+    is emptied first."""
+    from pcm_tpu_torch.configs.families import RECIPES, disc_config
+    from pcm_tpu_torch.models.unet import SD15_CONFIG, SDXL_CONFIG
+    from pcm_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pcm_tpu_torch.train.__main__ import main as train_main
+    from pcm_tpu_torch.train.adv import init_discriminator
+
+    argv = ["--recipe", recipe, "--cached-latents-dir", cache_dir, "--output-dir", out_dir,
+            "--batch-size", str(batch), "--seed", str(seed), "--log-every", "1",
+            "--checkpointing-steps", str(steps), "--adv-pairing", pairing]
+    shutil.rmtree(out_dir, ignore_errors=True)  # a run from scratch: no rows or checkpoints
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    trainer = train_main(argv + ["--max-train-steps", str(steps), "--no-resume"])
+    counts = launch_counts()
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    lora_b = max(float(v.abs().max()) for k, v in trainer.state.params.items()
+                 if k.endswith("lora_b"))
+    family = RECIPES[recipe].family
+    unet_cfg = SD15_CONFIG if family == "sd15" else SDXL_CONFIG
+    _, init = init_discriminator(disc_config(family), unet_cfg.tap_channels(),
+                                 torch.Generator("cuda").manual_seed(seed + 1),
+                                 torch.device("cuda"))
+    heads_moved = max(float((trainer.d_state.params[k] - v).abs().max()) for k, v in init.items())
+    out = {"counts": counts, "rows": rows, "lora_b_max": lora_b, "heads_moved": heads_moved,
+           "g_updates": trainer.state.step, "d_updates": trainer.d_state.step}
+    del trainer, init
+    losses = [r[k] for r in rows for k in ("loss", "d_loss") if k in r]
+    log(tag, pairing=pairing, batch=batch, steps=[r["step"] for r in rows],
+        losses=json.dumps([round(r["loss"], 6) if "loss" in r else None for r in rows]),
+        d_losses=json.dumps([round(r["d_loss"], 6) if "d_loss" in r else None for r in rows]),
+        step_ms=json.dumps([round(r["step_ms"], 1) for r in rows]),
+        peak_gib=f"{max(r['peak_gib'] for r in rows):.3f}", lora_b_max=f"{lora_b:.3e}",
+        heads_moved=f"{heads_moved:.3e}", updates=f"G{out['g_updates']}/D{out['d_updates']}",
+        counts=json.dumps(counts))
+    missing = [k for k in ADV_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {tag} path: {missing}")
+    if not (rows and rows[-1]["step"] == steps and all(math.isfinite(x) for x in losses)
+            and any("loss" in r for r in rows) and any("d_loss" in r for r in rows)
+            and lora_b > 0 and heads_moved > 0):
+        raise AssertionError(f"{tag}: rows {rows}, lora_b max {lora_b}, heads moved "
+                             f"{heads_moved}")
+    if resume_to:
+        resumed = train_main(argv + ["--max-train-steps", str(resume_to)])
+        out.update(resumed_from=resumed.resumed_from, resumed_step=resumed.global_step,
+                   resumed_updates=(resumed.state.step, resumed.d_state.step))
+        log(tag, resumed=f"{resumed.resumed_from}->{resumed.global_step}",
+            updates=f"G{resumed.state.step}/D{resumed.d_state.step}")
+        del resumed
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -880,6 +1083,16 @@ def main() -> int:
     log("sdxl-init", seconds=f"{time.perf_counter() - t0:.2f}",
         unet_params_m=round(sum(p.numel() for p in frozen["unet"].parameters()) / 1e6, 1))
     check_sdxl_unet("bf16", sdxl_unet_vs_reference(xl, frozen, gen, int8=False))
+    ag = adv_grad_vs_reference(xl, frozen, gen)
+    log("adv-grad", batch=2, bounds="cos>=0.99,norm<=5e-2", loss=f"{ag['loss']:.6f}",
+        ref_loss=f"{ag['ref_loss']:.6f}", latent="%.6f/%.3e" % ag["latent"],
+        heads="%.6f/%.3e" % ag["heads"], geglu_backward_calls=ag["geglu_backward_calls"],
+        tapped_feedforwards=ag["tapped_feedforwards"], counts=json.dumps(ag["counts"]))
+    missing = [k for k in ADV_KERNELS if ag["counts"][k] == 0]
+    if not (ag["finite"] and all(c >= 0.99 and e <= 5e-2 for c, e in (ag["latent"], ag["heads"]))
+            and ag["geglu_backward_calls"] == ag["tapped_feedforwards"] > 0 and not missing):
+        raise AssertionError(f"adversarial gradients through the SDXL teacher, kernels vs "
+                             f"plain: {ag} (kernels not launched: {missing})")
     quantize_frozen(frozen)
     log("sdxl-unet", int8_params_m=round(sum(b.numel() for n, b in frozen["unet"].named_buffers()
                                              if n.endswith("weight_values")) / 1e6, 1),
@@ -899,6 +1112,19 @@ def main() -> int:
     missing = [k for k in common.KERNELS if sx["counts"][k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the SDXL step: {missing}")
+    del frozen, template, xl
+
+    xl_cache = write_sdxl_cache("build/chip_smoke/cache_xl", args.seed)
+    adv_runs = [train_adv("train-adv", "sdxl_4phase_adv", xl_cache, "build/chip_smoke/adv_fused",
+                          args.seed, 2, "fused", 4),
+                train_adv("train-adv", "sdxl_4phase_adv", xl_cache, "build/chip_smoke/adv_fresh",
+                          args.seed, 2, "fresh", 4, resume_to=6),
+                train_adv("train-adv", "sd15_2phase_adv", cache, "build/chip_smoke/adv_sd15",
+                          args.seed, 4, "fresh", 4)]
+    fresh = adv_runs[1]
+    if (fresh["resumed_from"], fresh["resumed_step"], fresh["resumed_updates"]) != (4, 6, (3, 3)):
+        raise AssertionError(f"adversarial resume: from {fresh['resumed_from']} to "
+                             f"{fresh['resumed_step']}, G/D updates {fresh['resumed_updates']}")
 
     kernels["int8_matmul"] = k6
     sources = {"flash_attention_fwd": ("pcm_tpu_torch/csrc/flash_attention.cu",
@@ -912,12 +1138,16 @@ def main() -> int:
                "geglu": ("pcm_tpu_torch/csrc/geglu.cu", "pcm_tpu/ops/geglu.py:47"),
                "int8_matmul": ("pcm_tpu_torch/csrc/int8_matmul.cu",
                                "pcm_tpu/ops/int8_matmul.py:56")}
-    launches = {k: sum(run["counts"][k] for run in (s, tr, ti, sx)) for k in sources}
+    runs = (s, tr, ti, sx, *adv_runs)
+    launches = {k: sum(run["counts"][k] for run in runs) for k in sources}
+    kernels["group_norm_silu"]["fp32_launches"] = sum(
+        run["counts"]["group_norm_silu_fp32"] for run in runs)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # second headlines (K1, K2, K3, K5, K6), K1's VAE head and K5's bare product
     extra = ("sdxl_ms", "sdxl_plain_ms", "sdxl_bound_ms", "sdxl_library_ms", "vae_ms",
              "vae_plain_ms", "vae_bound_ms", "vae_library_ms", "product_ms", "sdxl_product_ms",
-             "act_none_library")
+             "act_none_library", "fp32_shape", "fp32_ms", "fp32_plain_ms", "fp32_bound_ms",
+             "fp32_library_ms", "fp32_max_abs_err", "fp32_launches")
     line = {"kernels": [{"name": k, "route": "cuda", "source": sources[k][0],
                          "replaces": sources[k][1], "launches": launches[k],
                          **{f: kernels[k][f] for f in keys},

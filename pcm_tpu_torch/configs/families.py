@@ -1,6 +1,6 @@
-"""Model-family bundle constructors and the training recipes (counterpart
-of `pcm_tpu/configs/families.py`; bundles for SD1.5 and, on cached
-embeddings, SDXL so far)."""
+"""Model-family bundle constructors, the training recipes and each family's
+discriminator (counterpart of `pcm_tpu/configs/families.py`; bundles for
+SD1.5 and, on cached embeddings, SDXL so far)."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from ..lora.layers import LoRASpec
 from ..models.clip import CLIP_L_CONFIG, CLIPTextConfig
 from ..models.unet import SD15_CONFIG, SDXL_CONFIG, TINY_SDXL_CONFIG, TINY_UNET_CONFIG
 from ..models.vae import SD15_VAE_CONFIG, TINY_VAE_CONFIG
+from ..train.adv import SD15_DISC_CONFIG, SDXL_DISC_CONFIG, DiscriminatorConfig
 from ..train.bundles import SD15Bundle, SDXLBundle, SD_UNET_LORA_TARGETS
 from ..train.distill import DistillConfig
 
@@ -43,9 +44,24 @@ def sdxl_bundle(lora_rank: int = 64, dtype: torch.dtype = torch.bfloat16,
     )
 
 
+# Each family's discriminator (`pcm_tpu/train/adv.py:63-80`), and with ``tiny``
+# the taps of the 2-level TINY UNets (`scripts/train.py:255-268`).
+_DISC_CONFIGS = {
+    ("sd15", False): SD15_DISC_CONFIG,
+    ("sdxl", False): SDXL_DISC_CONFIG,
+    ("sd15", True): DiscriminatorConfig(taps=("down_0", "down_1", "mid", "up_0", "up_1"),
+                                        num_h_per_head=4, kernel=3),
+    ("sdxl", True): DiscriminatorConfig(taps=("down_0", "down_1", "mid")),
+}
+
+
+def disc_config(family: str, tiny: bool = False) -> DiscriminatorConfig:
+    return _DISC_CONFIGS[family, tiny]
+
+
 # ---------------------------------------------------------------------------
 # The reference recipes, field for field as `pcm_tpu/configs/families.py:125-192`
-# (the port trains the non-adversarial sd15 ones so far).
+# (the port trains the sd15 recipes and sdxl_4phase_adv; SD3 is not ported).
 # ---------------------------------------------------------------------------
 
 

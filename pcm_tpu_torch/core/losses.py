@@ -1,8 +1,11 @@
 """Losses of phased consistency distillation (counterpart of
-`pcm_tpu/core/losses.py`), all in fp32 whatever the input dtype. The hinge
-and feature-matching losses of the adversarial recipes are not ported yet."""
+`pcm_tpu/core/losses.py`), all in fp32 whatever the input dtype: the
+consistency losses, and the hinge and feature-matching losses of the
+adversarial recipes (one term a discriminator head, averaged)."""
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
@@ -32,3 +35,35 @@ def cfg_combine(cond: torch.Tensor, uncond: torch.Tensor, w: torch.Tensor) -> to
     the trailing dims."""
     w = w.reshape(w.shape + (1,) * (cond.ndim - w.ndim))
     return cond + w * (cond - uncond)
+
+
+def hinge_d_loss(fake_logits: Sequence[torch.Tensor], real_logits: Sequence[torch.Tensor],
+                 weight: float = 1.0) -> torch.Tensor:
+    """Hinge discriminator loss, averaged over heads:
+    mean(relu(1 + fake)) + mean(relu(1 - real))."""
+    n = len(fake_logits)
+    loss = 0.0
+    for f, r in zip(fake_logits, real_logits):
+        loss = loss + (torch.mean(weight * torch.relu(f.float() + 1.0))
+                       + torch.mean(weight * torch.relu(1.0 - r.float()))) / n
+    return loss
+
+
+def hinge_g_loss(fake_logits: Sequence[torch.Tensor], weight: float = 1.0) -> torch.Tensor:
+    """Hinge generator loss: mean(relu(1 - fake)), averaged over heads."""
+    n = len(fake_logits)
+    loss = 0.0
+    for f in fake_logits:
+        loss = loss + torch.mean(weight * torch.relu(1.0 - f.float())) / n
+    return loss
+
+
+def feature_matching_loss(fake_features: Sequence[torch.Tensor],
+                          real_features: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Mean squared difference of feature maps, averaged over them."""
+    n = len(fake_features)
+    loss = 0.0
+    for f, r in zip(fake_features, real_features):
+        d = f.float() - r.float()
+        loss = loss + torch.mean(d * d) / n
+    return loss

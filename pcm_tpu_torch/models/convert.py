@@ -120,10 +120,19 @@ def lora_state_from_jax(lora_tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]
     return _flatten(lora_tree)
 
 
-def train_state_from_jax(state):
-    """JAX ``TrainState`` (step, LoRA tree, optax AdamW state) -> the port's
-    `TrainState`: the params and Adam's mu/nu by the leaf rules of
-    `lora_state_from_jax`, Adam's count as the optimizer count. The 8-bit
+def disc_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``Discriminator`` params -> the port's head parameters
+    (`train/adv.py`): ``head_{i}_{j}/conv1/kernel`` (HWIO) ->
+    ``head_{i}_{j}.conv1.weight`` (OIHW), GroupNorm ``scale`` -> ``weight``."""
+    return {k: v for head, tree in params.items()
+            for k, v in _flatten(tree, head + ".").items()}
+
+
+def train_state_from_jax(state, params_from_jax=lora_state_from_jax):
+    """JAX ``TrainState`` (step, params tree, optax AdamW state) -> the port's
+    `TrainState`: the params and Adam's mu/nu by ``params_from_jax``
+    (`lora_state_from_jax` for the student, `disc_state_from_jax` for the
+    discriminator heads), Adam's count as the optimizer count. The 8-bit
     state is refused: its int8 codes are blocked in the JAX layout, so a
     transposed factor would need requantizing."""
     from ..train.state import TrainState
@@ -132,10 +141,10 @@ def train_state_from_jax(state):
     if adam is None:
         raise ValueError("train_state_from_jax takes an optax AdamW state (clip + adamw)")
     return TrainState(step=int(np.asarray(state.step)),
-                      params=lora_state_from_jax(state.params),
+                      params=params_from_jax(state.params),
                       opt_state={"count": int(np.asarray(adam.count)),
-                                 "mu": lora_state_from_jax(adam.mu),
-                                 "nu": lora_state_from_jax(adam.nu)})
+                                 "mu": params_from_jax(adam.mu),
+                                 "nu": params_from_jax(adam.nu)})
 
 
 def _find_adam(node):

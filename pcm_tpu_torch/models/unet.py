@@ -5,8 +5,12 @@ LoRA factors passed per call (``lora=None`` is the teacher). SDXL adds the
 micro-conditioning ``added_cond`` ({"text_embeds", "time_ids"}) through
 ``add_embedding`` and linear transformer projections. ``remat=True``
 checkpoints every ResnetBlock2D and Transformer2D while grad is enabled (the
-JAX package's ``--remat full --remat-gran block`` of training). Not yet
-ported: ``time_cond_proj_dim``, the feature taps and ``stop_after_mid``.
+JAX package's ``--remat full --remat-gran block`` of training).
+`UNet2DCondition.features` returns the discriminator's feature taps (the
+JAX package's ``sow("features", ...)``): ``down_{level}`` after each level
+(its downsampler included), ``mid`` after the mid block and ``up_{i}`` after
+each up block (its upsampler included); with ``stop_after_mid`` no up block
+runs. Not yet ported: ``time_cond_proj_dim``.
 """
 
 from __future__ import annotations
@@ -47,6 +51,12 @@ class UNetConfig:
     @property
     def time_embed_dim(self) -> int:
         return self.block_out_channels[0] * 4
+
+    def tap_channels(self) -> Dict[str, int]:
+        """The channels of each feature tap of `UNet2DCondition.features`."""
+        chans = self.block_out_channels
+        return {**{f"down_{i}": c for i, c in enumerate(chans)}, "mid": chans[-1],
+                **{f"up_{i}": c for i, c in enumerate(reversed(chans))}}
 
 
 SD15_CONFIG = UNetConfig()
@@ -175,6 +185,22 @@ class UNet2DCondition(nn.Module):
                 added_cond: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """sample (N, C, H, W), timesteps (N,), encoder_hidden_states (N, S, D);
         SDXL: added_cond {"text_embeds": (N, 1280), "time_ids": (N, 6)}."""
+        return self._run(sample, timesteps, encoder_hidden_states, lora, added_cond)
+
+    def features(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                 encoder_hidden_states: torch.Tensor, lora: LoRA = None,
+                 added_cond: Optional[Dict[str, torch.Tensor]] = None,
+                 stop_after_mid: bool = False) -> Dict[str, torch.Tensor]:
+        """The feature taps of a forward, NCHW tensors in the model's dtype
+        (arguments as `forward`); with ``stop_after_mid`` the down and mid
+        taps only, and no up block runs."""
+        taps: Dict[str, torch.Tensor] = {}
+        self._run(sample, timesteps, encoder_hidden_states, lora, added_cond, taps,
+                  stop_after_mid)
+        return taps
+
+    def _run(self, sample, timesteps, encoder_hidden_states, lora, added_cond,
+             taps: Optional[Dict[str, torch.Tensor]] = None, stop_after_mid: bool = False):
         run = self._block
         cfg = self.cfg
         dtype = self.conv_norm_out.weight.dtype  # a norm scale: never quantized
@@ -191,9 +217,10 @@ class UNet2DCondition(nn.Module):
         context = encoder_hidden_states.to(dtype)
         sample = sample.to(dtype).contiguous(memory_format=torch.channels_last)
 
+        tap = taps.__setitem__ if taps is not None else lambda name, t: None
         h = self.conv_in(sample, lora)
         skips = [h]
-        for blk in self.down_blocks:
+        for level, blk in enumerate(self.down_blocks):
             for j, resnet in enumerate(blk.resnets):
                 h = run(resnet, h, temb, lora)
                 if len(blk.attentions):
@@ -202,13 +229,17 @@ class UNet2DCondition(nn.Module):
             if hasattr(blk, "downsamplers"):
                 h = blk.downsamplers[0](h, lora)
                 skips.append(h)
+            tap(f"down_{level}", h)
 
         mid = self.mid_block
         h = run(mid.resnets[0], h, temb, lora)
         h = run(mid.attentions[0], h, context, lora)
         h = run(mid.resnets[1], h, temb, lora)
+        tap("mid", h)
+        if stop_after_mid:
+            return None
 
-        for blk in self.up_blocks:
+        for i, blk in enumerate(self.up_blocks):
             for j, resnet in enumerate(blk.resnets):
                 h = torch.cat([h, skips.pop()], dim=1)
                 h = run(resnet, h, temb, lora)
@@ -216,5 +247,6 @@ class UNet2DCondition(nn.Module):
                     h = run(blk.attentions[j], h, context, lora)
             if hasattr(blk, "upsamplers"):
                 h = blk.upsamplers[0](h, lora)
+            tap(f"up_{i}", h)
 
         return self.conv_out(self.conv_norm_out(h), lora)

@@ -46,10 +46,12 @@ _FORCE_REFERENCE = contextvars.ContextVar("pcm_torch_force_reference", default=f
 ALL_KERNELS = "*"
 
 # One launch counter per kernel; a wrapper adds one where it launches its
-# kernel and nowhere else.
+# kernel and nowhere else. K4 counts its fp32 instance (the discriminator
+# heads) on a counter of its own.
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
            "group_norm_silu", "geglu", "int8_matmul")
-_launches: Dict[str, int] = {k: 0 for k in KERNELS}
+COUNTERS = KERNELS + ("group_norm_silu_fp32",)
+_launches: Dict[str, int] = {k: 0 for k in COUNTERS}
 
 
 @contextlib.contextmanager
@@ -100,12 +102,15 @@ def reset_launch_counts() -> None:
         _launches[k] = 0
 
 
-def vjp_of(fn, inputs, args, g):
-    """Gradients of ``fn(*inputs, *args)`` w.r.t. ``inputs`` by autograd: the
-    backward of the ops whose JAX custom VJP differentiates the plain version."""
+def vjp_of(fn, inputs, args, g, needs):
+    """Gradients of ``fn(*inputs, *args)`` w.r.t. the ``inputs`` whose entry
+    of ``needs`` (a Function's ``ctx.needs_input_grad``) is true, None for the
+    others (a frozen weight's), by autograd: the backward of the ops whose
+    JAX custom VJP differentiates the plain version."""
     with torch.enable_grad():
-        xs = [t.detach().requires_grad_(True) for t in inputs]
-        return torch.autograd.grad(fn(*xs, *args), xs, g)
+        xs = [t.detach().requires_grad_(bool(n)) for t, n in zip(inputs, needs)]
+        grads = iter(torch.autograd.grad(fn(*xs, *args), [x for x in xs if x.requires_grad], g))
+        return [next(grads) if x.requires_grad else None for x in xs]
 
 
 def check_cuda(err: int, what: str) -> None:
@@ -244,7 +249,7 @@ def _declare(h: ctypes.CDLL) -> None:
     h.pcm_group_norm_silu.restype = I
     h.pcm_group_norm_silu.argtypes = (
         [P, P, P, P, P]  # x gamma beta out scratch
-        + [I] * 9  # n s c groups act rows_per_chunk rs seg_chan seg_chunk
+        + [I] * 11  # elem_size n s c lanes groups act rows_per_chunk rs seg_chan seg_chunk
         + [F, P]  # eps, stream
     )
     h.pcm_geglu.restype = I

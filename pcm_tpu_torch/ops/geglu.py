@@ -28,7 +28,7 @@ class GEGLUFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return vjp_of(geglu_reference, ctx.saved_tensors, (), g)
+        return tuple(vjp_of(geglu_reference, ctx.saved_tensors, (), g, ctx.needs_input_grad))
 
 
 def geglu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

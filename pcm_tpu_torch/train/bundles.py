@@ -155,6 +155,14 @@ class SD15Bundle:
                 cond: Cond) -> torch.Tensor:
         return self.student(frozen, None, x, t, cond)
 
+    def teacher_features(self, frozen: Frozen, x: torch.Tensor, t: torch.Tensor, cond: Cond,
+                         stop_after_mid: bool = False) -> Dict[str, torch.Tensor]:
+        """The teacher's feature taps (`models/unet.py`), ``(N, h, w, C)`` each
+        (`pcm_tpu/train/bundles.py:212-217`); differentiable in ``x``."""
+        taps = frozen["unet"].features(_nchw(x), t, cond["prompt_embeds"], None,
+                                       cond.get("added_cond"), stop_after_mid)
+        return {k: _nhwc(v) for k, v in taps.items()}
+
     @property
     def latent_channels(self) -> int:
         return self.unet_cfg.in_channels
@@ -208,6 +216,7 @@ class SDXLBundle:
 
     student = SD15Bundle.student
     teacher = SD15Bundle.teacher
+    teacher_features = SD15Bundle.teacher_features
 
 
 def adapter_like(template: Mapping[str, torch.Tensor], generator: torch.Generator,

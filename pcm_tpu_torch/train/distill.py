@@ -8,12 +8,15 @@ backward and the optimizer update. Gradient accumulation averages the
 microbatches' (loss, grads) before one update.
 
 The random draws come from outside: per microbatch ``{"noise", "index",
-"w"}``. `sample_draws` makes them from a ``torch.Generator`` for the trainer;
-tests feed in the values JAX's `ddim_prepare` draws, so both packages run
-the same step. With ``int8_no_grad_fwd`` (the CLI's ``--int8-matmul
-scoped``) the teacher and target forwards run under ``int8_matmul("dense")``
-and the differentiated student keeps the dequantized weights. The
-flow-matching (SD3) step and the adversarial steps are not ported yet.
+"w"}``, and for the adversarial steps (`train/adv.py`) also ``adv_offset``
+(added to the phase end to give the renoising timestep) and the renoising
+noises ``eps_fake`` and ``eps_real``. `sample_draws` makes them from a
+``torch.Generator`` for the trainer; tests feed in the values JAX's
+`ddim_prepare` and adversarial steps draw, so both packages run the same
+step. With ``int8_no_grad_fwd`` (the CLI's ``--int8-matmul scoped``) the
+teacher and target forwards run under ``int8_matmul("dense")`` and the
+differentiated student keeps the dequantized weights. The flow-matching
+(SD3) steps are not ported yet.
 """
 
 from __future__ import annotations
@@ -48,11 +51,14 @@ class DistillConfig:
     int8_no_grad_fwd: bool = False
 
 
-def sample_draws(cfg: DistillConfig, generator: torch.Generator, latents: torch.Tensor
-                 ) -> Draws:
+def sample_draws(cfg: DistillConfig, generator: torch.Generator, latents: torch.Tensor,
+                 adv_schedule: Optional[DDPMSchedule] = None) -> Draws:
     """One microbatch's draws on the latents' device: Gaussian noise shaped
     like the latents, solver indices in [0, S) and guidance scales w in
-    [w_min, w_max) (or ``fixed_w``)."""
+    [w_min, w_max) (or ``fixed_w``); with the schedule of an adversarial
+    step also offsets in [0, T // multiphase), T its
+    ``num_train_timesteps``, and two more Gaussian noises shaped like the
+    latents (`pcm_tpu/train/adv.py:167-172`)."""
     bsz, dev = latents.shape[0], latents.device
     noise = torch.randn(latents.shape, generator=generator, device=dev, dtype=latents.dtype)
     index = torch.randint(0, cfg.num_solver_steps, (bsz,), generator=generator, device=dev)
@@ -60,7 +66,14 @@ def sample_draws(cfg: DistillConfig, generator: torch.Generator, latents: torch.
         w = torch.full((bsz,), cfg.fixed_w, device=dev)
     else:
         w = torch.rand((bsz,), generator=generator, device=dev) * (cfg.w_max - cfg.w_min) + cfg.w_min
-    return {"noise": noise, "index": index, "w": w}
+    draws = {"noise": noise, "index": index, "w": w}
+    if adv_schedule is not None:
+        span = adv_schedule.num_train_timesteps // cfg.multiphase
+        draws["adv_offset"] = torch.randint(0, span, (bsz,), generator=generator, device=dev)
+        for k in ("eps_fake", "eps_real"):
+            draws[k] = torch.randn(latents.shape, generator=generator, device=dev,
+                                   dtype=latents.dtype)
+    return draws
 
 
 def split_microbatches(batch: Dict[str, torch.Tensor], accum: int) -> List[Dict[str, torch.Tensor]]:
@@ -74,24 +87,31 @@ def split_microbatches(batch: Dict[str, torch.Tensor], accum: int) -> List[Dict[
     return [{k: v[a::accum] for k, v in batch.items()} for a in range(accum)]
 
 
+def tree_map(fn: Callable, *trees):
+    """``fn`` over the tensors of nested dicts / tuples of the same structure."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
 def accumulate_grads(grad_fn: Callable, batch: Dict[str, torch.Tensor], draws: Sequence[Draws],
                      accum: int):
-    """Mean of ``grad_fn(microbatch, draws[a])`` -> (loss, grads) over the
-    ``accum`` interleaved microbatches, summed in microbatch order."""
+    """Mean of ``grad_fn(microbatch, draws[a])`` (a tree of tensors: the
+    losses and grads) over the ``accum`` interleaved microbatches, summed in
+    microbatch order."""
     micro = split_microbatches(batch, accum)
     if len(draws) != len(micro):
         raise ValueError(f"{len(draws)} draws for {len(micro)} microbatches")
     if accum <= 1:
         return grad_fn(micro[0], draws[0])
-    total_loss, total = None, None
+    total = None
     for mb, dr in zip(micro, draws):
-        loss, grads = grad_fn(mb, dr)
-        if total is None:
-            total_loss, total = loss, grads
-        else:
-            total_loss = total_loss + loss
-            total = {k: total[k] + g for k, g in grads.items()}
-    return total_loss / accum, {k: g / accum for k, g in total.items()}
+        out = grad_fn(mb, dr)
+        total = out if total is None else tree_map(torch.add, total, out)
+    return tree_map(lambda t: t / accum, total)
 
 
 def _merge_cond(cond, uncond):

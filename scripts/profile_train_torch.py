@@ -3,14 +3,18 @@
 
   python scripts/profile_train_torch.py [--family sd15|sdxl] [--batch-size 4]
       [--remat full] [--steps 6] [--use-8bit-adam] [--frozen-weights bf16|int8]
-      [--int8-matmul scoped|dense|fused] [--seed 0]
+      [--int8-matmul scoped|dense|fused] [--adv fresh|fused] [--seed 0]
 
 Builds the full-width bundle with random weights and its consistency step
 (AdamW): SD1.5 with the `sd15_4phase` recipe at 512 px, or the SDXL-1024
 cached step (40 solver steps, 4 phases, w in [6, 7), as `bench.py` runs it
 for ``--family sdxl``). With ``--frozen-weights int8`` the frozen weights are
 int8 and ``--int8-matmul`` picks the int8 path, as in `python -m
-pcm_tpu_torch.train`. It feeds the step a seeded batch of latents and text
+pcm_tpu_torch.train`. With ``--adv`` it takes the adversarial recipe's
+updates instead (``sd15_2phase_adv`` or ``sdxl_4phase_adv``, the heads
+drawn from the seed): one "step" is then a pair, a D step and a G step on
+their own draws (``fresh``) or one fused pair (``fused``), two global steps
+of the trainer. It feeds the step a seeded batch of latents and text
 embeddings made on the card and times ``--steps`` steps on the host clock
 (each ends in a loss readback, a device sync): per-step ms, the median of all
 but the first two, and the peak memory. Then it traces one more step with
@@ -68,8 +72,8 @@ def bound_tally():
         m = x.numel() // k
         return cs.bound(4.0 * m * k * f, "bf16", 2.0 * (m * k + 2 * f * k + 2 * f + m * f))
 
-    def group_norm(x, *_):  # read x, write y (bf16); ~8 fp32 ops an element
-        return cs.bound(8.0 * x.numel(), "fp32", 4.0 * x.numel())
+    def group_norm(x, *_):  # read x, write y (bf16 or fp32); ~8 fp32 ops an element
+        return cs.bound(8.0 * x.numel(), "fp32", 2.0 * x.element_size() * x.numel())
 
     def int8(x, values, *_):
         k, n = x.shape[-1], values.shape[0]
@@ -78,12 +82,15 @@ def bound_tally():
 
     def wrap(fn, kernel, cost):
         def counted(*a, **kw):
-            before = common.launch_counts()[kernel]
+            name = kernel
+            if kernel == "group_norm_silu" and a[0].dtype == torch.float32:
+                name = "group_norm_silu_fp32"  # K4's fp32 instance counts apart
+            before = common.launch_counts()[name]
             out = fn(*a, **kw)
-            launched = common.launch_counts()[kernel] - before
+            launched = common.launch_counts()[name] - before
             if launched:
-                tally[kernel + " launches"] += launched
-                tally[kernel] += launched * cost(*a)["bound_ms"]
+                tally[name + " launches"] += launched
+                tally[name] += launched * cost(*a)["bound_ms"]
             return out
         return counted
 
@@ -136,6 +143,8 @@ def main() -> None:
     ap.add_argument("--use-8bit-adam", action="store_true")
     ap.add_argument("--frozen-weights", default="bf16", choices=["bf16", "int8"])
     ap.add_argument("--int8-matmul", default=None, choices=["scoped", "dense", "fused"])
+    ap.add_argument("--adv", default=None, choices=["fresh", "fused"],
+                    help="the adversarial recipe's D and G updates, a pair a step")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -143,9 +152,10 @@ def main() -> None:
     if args.int8_matmul and args.frozen_weights != "int8":
         raise SystemExit("--int8-matmul needs --frozen-weights int8")
 
-    from pcm_tpu_torch.configs.families import (RECIPES, SDXL_CACHED_STEP, sd15_bundle,
-                                                sdxl_bundle)
+    from pcm_tpu_torch.configs.families import (RECIPES, SDXL_CACHED_STEP, disc_config,
+                                                sd15_bundle, sdxl_bundle)
     from pcm_tpu_torch.core.schedule import make_ddpm_schedule
+    from pcm_tpu_torch.train import adv
     from pcm_tpu_torch.train.distill import build_ddim_distill_step, sample_draws
     from pcm_tpu_torch.train.state import TrainState, make_optimizer
     from pcm_tpu_torch.utils.quant import int8_matmul, quantize_frozen
@@ -155,12 +165,12 @@ def main() -> None:
     b = args.batch_size
     remat = args.remat == "full"
     if args.family == "sd15":
-        recipe = RECIPES["sd15_4phase"]
+        recipe = RECIPES["sd15_2phase_adv" if args.adv else "sd15_4phase"]
         bundle, cfg, lr = sd15_bundle(recipe.lora_rank, remat=remat), recipe.distill, recipe.lr
         batch = {"latents": torch.randn((b, 64, 64, 4), generator=gen, device=dev),
                  "prompt_embeds": torch.randn((b, 77, 768), generator=gen, device=dev).bfloat16(),
                  "uncond_embeds": torch.randn((b, 77, 768), generator=gen, device=dev).bfloat16()}
-        label = f"sd15_4phase step, batch {b} x 512px"
+        label = f"{recipe.name} step, batch {b} x 512px"
     else:
         bundle = sdxl_bundle(64, remat=remat)
         cfg, lr = SDXL_CACHED_STEP.distill, SDXL_CACHED_STEP.lr
@@ -185,6 +195,31 @@ def main() -> None:
         draws = [sample_draws(cfg, gen, batch["latents"])]
         box["state"], metrics = step(box["state"], frozen, batch, draws)
         float(metrics["loss"])
+
+    if args.adv:  # the adversarial recipe's pair of updates (`python -m pcm_tpu_torch.train`)
+        recipe = RECIPES[{"sd15": "sd15_2phase_adv", "sdxl": "sdxl_4phase_adv"}[args.family]]
+        disc, heads = adv.init_discriminator(disc_config(args.family),
+                                             bundle.unet_cfg.tap_channels(), gen, dev)
+        tx_d = make_optimizer(recipe.adv_lr, b1=0.0, max_grad_norm=1.0)
+        box["d"] = TrainState.create(heads, tx_d)
+        schedule = make_ddpm_schedule()
+        parts = (bundle, schedule, cfg, adv.AdvConfig(recipe.adv_weight), disc, tx, tx_d)
+        g_step, d_step = adv.build_ddim_adv_steps(*parts)
+        pair = adv.build_ddim_adv_fused_pair(*parts)
+
+        def one_step():  # noqa: F811
+            def draws():
+                return [sample_draws(cfg, gen, batch["latents"], adv_schedule=schedule)]
+
+            if args.adv == "fused":
+                box["state"], box["d"], m = pair(box["state"], box["d"], frozen, batch, draws())
+            else:
+                box["d"], m = d_step(box["state"], box["d"], frozen, batch, draws())
+                float(m["d_loss"])
+                box["state"], m = g_step(box["state"], box["d"], frozen, batch, draws())
+            float(m["loss"])
+
+        label += f", {args.adv} adversarial pair ({recipe.name}; D then G)"
 
     label += (f", remat {args.remat}, {args.frozen_weights} frozen weights"
               + (f", int8 matmul {args.int8_matmul}" if args.int8_matmul else "")

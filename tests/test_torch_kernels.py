@@ -126,6 +126,29 @@ def test_group_norm_kernel(cuda, shape, groups, eps, act, offset):
     assert rel_max(out, ref) <= 1e-2
 
 
+@pytest.mark.parametrize("shape,act", [
+    ((4, 64, 64, 320), None), ((4, 32, 32, 1280), None), ((2, 8, 8, 1280), None),
+    ((4, 64, 64, 640), "silu"), ((2, 77, 96), None), ((1, 16, 16, 2048), None)])
+def test_group_norm_kernel_fp32(cuda, shape, act):
+    """K4 on fp32 x, gamma, beta and out (the discriminator heads' GroupNorm:
+    4 channels a 16-byte vector, cg = 3 straddles vectors at C = 96), against
+    the plain version in float64 at 1e-5, and bit-identical on a rerun."""
+    rng = np.random.default_rng(12)
+    c = shape[-1]
+    x, gamma, beta = (torch.from_numpy(a).to(cuda) for a in (
+        rng.standard_normal(shape, dtype=np.float32) * 2 + 0.5,
+        rng.standard_normal(c, dtype=np.float32),
+        rng.standard_normal(c, dtype=np.float32)))
+    common.reset_launch_counts()
+    out = group_norm_silu(x, gamma, beta, 32, 1e-5, act)
+    again = group_norm_silu(x, gamma, beta, 32, 1e-5, act)
+    torch.cuda.synchronize()
+    assert common.launch_counts()["group_norm_silu_fp32"] == 2
+    ref = group_norm_silu_reference(x.double(), gamma.double(), beta.double(), 32, 1e-5, act)
+    assert out.dtype == torch.float32 and out.shape == x.shape
+    assert rel_max(out, ref) <= 1e-5 and torch.equal(out, again)
+
+
 @pytest.mark.parametrize("shape", [(4, 64, 64, 640), (4, 512, 512, 256)])
 def test_group_norm_kernel_is_deterministic(cuda, shape):
     x = _randn(shape, 7, cuda)
@@ -137,13 +160,13 @@ def test_group_norm_kernel_is_deterministic(cuda, shape):
 
 
 def test_group_norm_kernels_do_not_spill(cuda):
-    """ptxas spills in none of K4's three kernel instances (the build's
-    ``-Xptxas -v`` report in ``build.log``)."""
+    """ptxas spills in none of K4's six kernel instances, bf16 and fp32 (the
+    build's ``-Xptxas -v`` report in ``build.log``)."""
     common.lib()
     log = (common.library_path().parent / "build.log").read_text()
-    spills = re.findall(r"Compiling entry function '\S*?(gn_\w+?_kernel(?:ILb[01]E)?)\w*' "
+    spills = re.findall(r"Compiling entry function '\S*?(gn_\w+?_kernel\w*)' "
                         r"for 'sm_90a'\n.*\n.*?(\d+) bytes spill stores", log)
-    assert len(spills) == 3 and all(b == "0" for _, b in spills), spills
+    assert len(spills) == 6 and all(b == "0" for _, b in spills), spills
 
 
 @pytest.mark.parametrize("m,k,f", [(4096, 320, 1280), (1000, 640, 2560), (77, 1280, 5120),
