@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card (H100): the SD1.5 serving
 path, the SD1.5 distillation step (bf16 and int8 frozen weights), the
-SDXL-1024 cached distillation step on int8 frozen weights, and adversarial
-distillation of SD1.5 and SDXL-1024 on cached latents.
+SDXL-1024 cached distillation step on int8 frozen weights, adversarial
+distillation of SD1.5 and SDXL-1024 on cached latents, and SD1.5 training
+from images through to serving the kohya LoRA it writes.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -62,7 +63,26 @@ Phases, one printed line each:
      and a resume of ``fresh`` for 2 more; ``sd15_2phase_adv``, batch 4,
      ``fresh``, 4 steps. Checks finite ``loss`` and ``d_loss``, that the
      LoRA and the heads moved, that the resume restored the heads' state and
-     the step counter, and that K1-K5 and K4 on fp32 were launched.
+     the step counter, and that K1-K5 and K4 on fp32 were launched;
+ 12. encoder: the full-width SD1.5 VAE encoder, batch 4, 512 px, seeded
+     pixels: the posterior mean with the kernels against all plain versions
+     within phase 9's rule, max(2e-2, 2 x the input-nudge yardstick), K1
+     (d = 512) and K4 launched, CUDA-event ms and peak memory of an encode;
+ 13. pixels: 12 seeded PNGs with captions under build/ (two larger and not
+     square, so the resize and the crop run; their rows cycle through the
+     Sub, Up, Average and Paeth filters), each decoded back exactly and its
+     decode + resize timed, then ``python -m
+     pcm_tpu_torch.train --recipe sd15_4phase --train-data-dir`` as a child
+     process at full width, batch 4, 6 steps, checkpoints every 2: SIGTERM
+     after its step-3 row (exit 0, a checkpoint, a kohya file and a
+     ``preempted`` row at the step it stopped), then a rerun that resumes
+     there and ends at 6; K1-K5 launched by the two processes; step ms, peak
+     memory, the host counters and the image decoder it used;
+ 14. serve-lora: the engine of ``python -m pcm_tpu_torch.serving --lora
+     <step-6 file>`` behind the HTTP server: a request, ``POST /lora`` of the
+     step-4 file, the same request; the two images differ and each equals,
+     bit for bit, the engine fed that step's adapter rounded to fp16 as a
+     dict; ``/stats`` counts one swap.
 Each main path runs with the launch counts set to 0 just before it and read
 just after. Then a JSON line of the kernels, the nvidia-smi line, and a last
 JSON line ``{"ok": true, ...}``.
@@ -75,6 +95,7 @@ from __future__ import annotations
 import argparse
 import base64
 import contextlib
+import gc
 import json
 import math
 import os
@@ -159,7 +180,8 @@ ATTN_SHAPES = [
     (4, 4096, 4096, 10, 64), (4, 4096, 77, 10, 64), (4, 1024, 1024, 20, 64),
     (4, 1024, 77, 20, 64),
 ]
-# (shape NHWC, eps, act): UNet resnets / transformer norms, VAE decoder; then
+# (shape NHWC, eps, act): UNet resnets / transformer norms, VAE decoder, the
+# VAE encoder's levels below 512 px (training from pixels); then
 # SDXL at 1024 px, batch 4 (resnets of each level, an up-path concat, a
 # transformer norm)
 GN_SHAPES = [
@@ -168,6 +190,9 @@ GN_SHAPES = [
     ((4, 8, 8, 1280), 1e-5, "silu"), ((4, 64, 64, 320), 1e-6, None),
     ((4, 64, 64, 512), 1e-6, None), ((4, 512, 512, 128), 1e-6, "silu"),
     ((4, 512, 512, 256), 1e-6, "silu"),
+    ((4, 256, 256, 128), 1e-6, "silu"), ((4, 256, 256, 256), 1e-6, "silu"),
+    ((4, 128, 128, 256), 1e-6, "silu"), ((4, 128, 128, 512), 1e-6, "silu"),
+    ((4, 64, 64, 512), 1e-6, "silu"),
     ((4, 128, 128, 320), 1e-5, "silu"), ((4, 64, 64, 640), 1e-5, "silu"),
     ((4, 32, 32, 2560), 1e-5, "silu"), ((4, 128, 128, 960), 1e-5, "silu"),
     ((4, 32, 32, 1280), 1e-6, None),
@@ -999,6 +1024,237 @@ def train_adv(tag: str, recipe: str, cache_dir: str, out_dir: str, seed: int, ba
 
 
 # ---------------------------------------------------------------------------
+# phases 12-14: training from pixels, and serving its kohya files
+# ---------------------------------------------------------------------------
+
+
+def encoder_vs_reference(bundle, frozen, gen) -> dict:
+    """The full-width SD1.5 VAE encoder on seeded 512-px pixels at batch 4:
+    the posterior mean with every kernel against every plain version
+    (``all``) beside the yardstick of bf16 round-off (the all-plain encode of
+    pixels scaled by 1 + 2**-8 against the all-plain encode, ``noise``), each
+    (max |diff| / max |ref|, ||diff|| / ||ref||); the launches of one encode,
+    its CUDA-event ms, the peak memory and its part above what was allocated
+    before the encode (the weights); a posterior sample's finiteness."""
+    from pcm_tpu_torch.ops import launch_counts, reference_ops, reset_launch_counts
+
+    x = torch.rand((4, 512, 512, 3), generator=gen, device="cuda") * 2 - 1
+    noise = torch.randn((4, 64, 64, 4), generator=gen, device="cuda").bfloat16()
+    gc.collect()  # earlier phases' garbage would count in the peak
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        out = bundle.encode_pixels(frozen, x)
+        torch.cuda.synchronize()
+        counts, peak = launch_counts(), torch.cuda.max_memory_allocated()
+        ms = cuda_ms(lambda: bundle.encode_pixels(frozen, x), iters=5, warmup=1)
+        sample = bundle.encode_pixels(frozen, x, noise)
+        with reference_ops():
+            ref = bundle.encode_pixels(frozen, x)
+            nudged = bundle.encode_pixels(frozen, x * (1 + 2 ** -8))
+    finite = bool(torch.isfinite(out).all() and torch.isfinite(sample).all())
+    return {"all": (rel_max(out, ref), rel_l2(out, ref)),
+            "noise": (rel_max(nudged, ref), rel_l2(nudged, ref)), "counts": counts, "ms": ms,
+            "peak_bytes": peak, "encode_bytes": peak - base, "shape": tuple(out.shape),
+            "dtype": str(out.dtype), "finite": finite, "sample_moved": rel_l2(sample, out)}
+
+
+PIXEL_IMAGES = 12
+# two images larger than 512 px and not square: shortest side 576 -> 512, so
+# the Lanczos resize and the center crop both run
+PIXEL_LARGE = {3: (576, 720), 8: (720, 576)}
+HOST_COUNTERS = ("host_data_s", "host_dispatch_s", "fence_s", "feed_iter_s", "feed_put_s")
+
+
+def png_filtered(img) -> bytes:
+    """An (H, W, 3) uint8 image as an RGB PNG whose rows cycle through the
+    Sub, Up, Average and Paeth filters, as adaptive encoders (libpng, PIL)
+    mix them; the port's `png_bytes` leaves every row unfiltered."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, _ = img.shape
+    x = img.reshape(h, w * 3).astype(np.int16)
+    a, b, c = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    a[:, 3:], b[1:], c[1:, 3:] = x[:, :-3], x[:-1], x[:-1, :-3]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    kinds = np.arange(h) % 4 + 1
+    pred = np.stack([a, b, (a + b) >> 1, paeth])[kinds - 1, np.arange(h)]
+    rows = np.concatenate([kinds[:, None], (x - pred) & 255], 1).astype(np.uint8)
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def write_images(out_dir: str, seed: int) -> dict:
+    """``PIXEL_IMAGES`` seeded PNGs (smooth colour fields with noise; 512 x 512
+    but for `PIXEL_LARGE`; rows filtered as `png_filtered`) with sidecar
+    captions, but one without. Checks that the port's PNG decoder gives each
+    image back exactly, and times the loader's decode + resize of each
+    (`load_resized`, the decoder the dataset picks)."""
+    import numpy as np
+
+    from pcm_tpu_torch.data import native_image
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    rng = np.random.default_rng(seed)
+    load_ms = []
+    for i in range(PIXEL_IMAGES):
+        h, w = PIXEL_LARGE.get(i, (512, 512))
+        coarse = rng.uniform(0, 255, (h // 64 + 1, w // 64 + 1, 3))
+        field = np.kron(coarse, np.ones((64, 64, 1)))[:h, :w]
+        img = np.clip(field + rng.normal(0, 12, (h, w, 3)), 0, 255).astype(np.uint8)
+        path = os.path.join(out_dir, f"img_{i:02d}.png")
+        data = png_filtered(img)
+        with open(path, "wb") as f:
+            f.write(data)
+        if not np.array_equal(native_image.decode_png(data), img):
+            raise AssertionError(f"the PNG decoder did not give {path} back exactly")
+        t0 = time.perf_counter()
+        native_image.load_resized(path, 512)
+        load_ms.append((time.perf_counter() - t0) * 1000.0)
+        if i != 5:
+            with open(os.path.join(out_dir, f"img_{i:02d}.txt"), "w") as f:
+                f.write(f"a photo of subject {i}, {['red', 'blue', 'green'][i % 3]} light")
+    return {"dir": out_dir, "load_ms": load_ms}
+
+
+def _train_process(argv, stop_after_step: int = 0, timeout: float = 600) -> dict:
+    """``python -m pcm_tpu_torch.train`` as a child process; with
+    ``stop_after_step`` SIGTERM is sent once its log row of that step is
+    printed. Returns its exit code, printed lines and the stop's wall time."""
+    import signal
+
+    proc = subprocess.Popen([sys.executable, "-u", "-m", "pcm_tpu_torch.train", *argv],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    killer = threading.Timer(timeout, proc.kill)
+    killer.start()
+    lines, signalled = [], None
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if stop_after_step and signalled is None and line.startswith(
+                    f"step {stop_after_step}:"):
+                proc.send_signal(signal.SIGTERM)
+                signalled = time.perf_counter()
+        rc = proc.wait(timeout=60)
+    finally:
+        killer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return {"rc": rc, "lines": lines, "signalled": signalled is not None}
+
+
+# the rate of phase 13's run: the recipe's 5e-6 moves a fresh adapter too
+# little in 6 steps to change a served image, and phase 14 serves two of them
+PIXEL_LR = "1e-2"
+
+
+def train_pixels(img_dir: str, out_dir: str, seed: int) -> dict:
+    """Phase 13: ``sd15_4phase`` from ``img_dir`` at full width, batch 4, 6
+    steps, checkpoints every 2; SIGTERM after the step-3 row, then a rerun
+    that resumes and ends at 6. Checks exit codes, the checkpoint and kohya
+    file at the step the first run stopped, the ``preempted`` row, the
+    resume, finite losses and the kohya files at 4 and 6; sums both
+    processes' launch counts (``launches.jsonl``)."""
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = ["--recipe", "sd15_4phase", "--train-data-dir", img_dir, "--output-dir", out_dir,
+            "--batch-size", "4", "--max-train-steps", "6", "--checkpointing-steps", "2",
+            "--log-every", "1", "--seed", str(seed), "--allow-hash-tokenizer",
+            "--learning-rate", PIXEL_LR, "--dataloader-workers", "4"]
+    first = _train_process(argv, stop_after_step=3)
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    stops = [r["step"] for r in rows if r.get("preempted")]
+    if first["rc"] != 0 or not first["signalled"] or len(stops) != 1:
+        raise AssertionError(f"pixels: SIGTERM run exit {first['rc']}, preempted rows {stops}:\n"
+                             + "\n".join(first["lines"][-30:]))
+    stop = stops[0]
+    left = [os.path.join(out_dir, "checkpoints", f"step_{stop:07d}.pt"),
+            os.path.join(out_dir, f"pcm_lora_{stop:07d}.safetensors")]
+    second = _train_process(argv)
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    with open(os.path.join(out_dir, "launches.jsonl")) as f:
+        runs = [json.loads(line) for line in f]
+    kohya = [os.path.join(out_dir, f"pcm_lora_{s:07d}.safetensors") for s in (4, 6)]
+    steps = [r for r in rows if "loss" in r]
+    decoder = [ln for ln in first["lines"] if " decoder" in ln and ln.startswith("# ")]
+    resumed = f"resumed at step {stop}" in "\n".join(second["lines"])
+    if not (second["rc"] == 0 and resumed and 3 <= stop < 6
+            and [(r["from_step"], r["to_step"]) for r in runs] == [(0, stop), (stop, 6)]
+            and all(os.path.exists(p) for p in left + kohya)
+            and [r["step"] for r in steps] == list(range(1, 7))
+            and all(math.isfinite(r["loss"]) for r in steps)):
+        raise AssertionError(f"pixels: stop {stop}, rerun exit {second['rc']} resumed {resumed}, "
+                             f"runs {runs}, files {[(p, os.path.exists(p)) for p in left + kohya]}"
+                             f", rows {rows}:\n" + "\n".join(second["lines"][-30:]))
+    counts = {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
+    return {"rows": steps, "stop": stop, "counts": counts, "runs": runs,
+            "decoder": decoder[0][2:] if decoder else "not printed"}
+
+
+def serve_lora(run_dir: str, seed: int) -> dict:
+    """Phase 14: the server as ``python -m pcm_tpu_torch.serving --lora
+    <step-6 file>`` builds it (its own `build_engine`), batch 4, 2 steps: a
+    request, ``POST /lora`` of the step-4 file, the same request. Each image
+    against the same engine fed the step's trained adapter (its checkpoint)
+    rounded to fp16 as a dict (``load_lora(tree)``)."""
+    import numpy as np
+
+    from pcm_tpu_torch.data.native_image import decode_png
+    from pcm_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pcm_tpu_torch.serving import BatchingServer
+    from pcm_tpu_torch.serving.__main__ import build_engine, build_parser, check_args
+
+    files = {s: os.path.join(run_dir, f"pcm_lora_{s:07d}.safetensors") for s in (4, 6)}
+    ap = build_parser()
+    args = ap.parse_args(["--lora", files[6], "--batch-size", "4", "--steps", "2",
+                          "--seed", str(seed)])
+    check_args(ap, args)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    engine = build_engine(args)
+    server = BatchingServer(engine, "127.0.0.1", 0, max_wait_ms=50.0)
+    server.start()
+    base = "http://127.0.0.1:%d" % server.address[1]
+    req = {"prompt": "a photo of subject 3, red light", "seed": 11}
+    res = {}
+    try:
+        _post(base + "/generate", req, res, "step6")
+        _post(base + "/lora", {"path": files[4]}, res, "swap")
+        _post(base + "/generate", req, res, "step4")
+        with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+    finally:
+        server.stop()
+    counts = launch_counts()
+    served = {s: decode_png(base64.b64decode(res[f"step{s}"]["image_b64"])) for s in (6, 4)}
+    identical = {}
+    for s in (6, 4):
+        ck = torch.load(os.path.join(run_dir, "checkpoints", f"step_{s:07d}.pt"),
+                        map_location="cpu", weights_only=True)
+        engine.load_lora({k: v.half().float() for k, v in ck["lora"].items()})
+        ref = engine.generate_batch([req["prompt"]], [req["seed"]])[0]
+        identical[s] = bool(np.array_equal(served[s], ref))
+    return {"identical": identical, "differ": bool((served[4] != served[6]).any()),
+            "swap": res["swap"], "stats": stats, "counts": counts,
+            "shape": served[6].shape}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1126,6 +1382,43 @@ def main() -> int:
         raise AssertionError(f"adversarial resume: from {fresh['resumed_from']} to "
                              f"{fresh['resumed_step']}, G/D updates {fresh['resumed_updates']}")
 
+    frozen, _ = bundle.init(gen, torch.device("cuda"))
+    enc = encoder_vs_reference(bundle, frozen, gen)
+    del frozen
+    log("encoder", batch=4, shape=enc["shape"], dtype=enc["dtype"],
+        **{k: "%.3e/%.3e" % enc[k] for k in ("all", "noise")}, bounds="max(2e-2,2*noise)",
+        ms=f"{enc['ms']:.3f}", peak_gib=f"{enc['peak_bytes'] / 2**30:.3f}",
+        encode_gib=f"{enc['encode_bytes'] / 2**30:.3f}",
+        sample_moved=f"{enc['sample_moved']:.3e}", counts=json.dumps(enc["counts"]))
+    caps = [max(2e-2, 2 * n) for n in enc["noise"]]
+    if not (enc["finite"] and all(e <= c for e, c in zip(enc["all"], caps))
+            and enc["counts"]["flash_attention_fwd"] > 0 and enc["counts"]["group_norm_silu"] > 0
+            and enc["sample_moved"] > 0):
+        raise AssertionError(f"full-width VAE encoder, kernels vs plain: {enc}")
+
+    images = write_images("build/chip_smoke/images", args.seed)
+    px = train_pixels(images["dir"], "build/chip_smoke/train_pixels", args.seed)
+    rows = px["rows"]
+    log("pixels", decoder=repr(px["decoder"]), stopped_at=px["stop"],
+        load_ms=json.dumps([round(t, 1) for t in images["load_ms"]]),
+        losses=json.dumps([round(r["loss"], 6) for r in rows]),
+        step_ms=json.dumps([round(r["step_ms"], 1) for r in rows]),
+        peak_gib=f"{max(r['peak_gib'] for r in rows):.3f}",
+        **{k: json.dumps([round(r[k], 4) for r in rows]) for k in HOST_COUNTERS},
+        counts=json.dumps(px["counts"]))
+    missing = [k for k in bf16_kernels if px["counts"][k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the pixels path: {missing}")
+
+    sl = serve_lora("build/chip_smoke/train_pixels", args.seed)
+    log("serve-lora", identical=json.dumps(sl["identical"]), differ=sl["differ"],
+        swaps=sl["stats"]["swaps"], lora=repr(sl["stats"]["lora"]), shape=sl["shape"],
+        counts=json.dumps(sl["counts"]))
+    if not (all(sl["identical"].values()) and sl["differ"] and sl["stats"]["swaps"] == 1
+            and sl["swap"]["swaps"] == 1 and sl["stats"]["lora"].endswith("0000004.safetensors")
+            and sl["shape"] == (512, 512, 3) and sl["counts"]["flash_attention_fwd"] > 0):
+        raise AssertionError(f"serving the trained kohya files: {sl}")
+
     kernels["int8_matmul"] = k6
     sources = {"flash_attention_fwd": ("pcm_tpu_torch/csrc/flash_attention.cu",
                                        "pcm_tpu/ops/flash_attention.py:105"),
@@ -1138,7 +1431,7 @@ def main() -> int:
                "geglu": ("pcm_tpu_torch/csrc/geglu.cu", "pcm_tpu/ops/geglu.py:47"),
                "int8_matmul": ("pcm_tpu_torch/csrc/int8_matmul.cu",
                                "pcm_tpu/ops/int8_matmul.py:56")}
-    runs = (s, tr, ti, sx, *adv_runs)
+    runs = (s, tr, ti, sx, *adv_runs, enc, px, sl)
     launches = {k: sum(run["counts"][k] for run in runs) for k in sources}
     kernels["group_norm_silu"]["fp32_launches"] = sum(
         run["counts"]["group_norm_silu_fp32"] for run in runs)

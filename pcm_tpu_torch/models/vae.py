@@ -1,7 +1,8 @@
-"""AutoencoderKL decode path for SD1.5 (counterpart of `pcm_tpu/models/vae.py`).
-
-``post_quant_conv`` and the ``Decoder``, diffusers names. The encoder comes
-with the training slice.
+"""AutoencoderKL for SD1.5 (counterpart of `pcm_tpu/models/vae.py`), diffusers
+names: the ``Encoder`` and ``quant_conv`` (training from pixels), and
+``post_quant_conv`` and the ``Decoder`` (serving). NCHW in channels-last
+memory; GroupNorm (+SiLU) is K4 and the mid-block's single-head attention
+K1 at d = 512.
 """
 
 from __future__ import annotations
@@ -78,6 +79,55 @@ class _MidBlock(nn.Module):
         self.attentions = nn.ModuleList([VAEAttention(ch, g)])
 
 
+class _Downsampler(nn.Module):
+    """Stride-2 3x3 conv on the input padded by one row and one column at the
+    bottom and right (`pcm_tpu/models/vae.py:100-103`)."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.conv = nn.Conv2d(ch, ch, 3, stride=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
+class _DownBlock(nn.Module):
+    def __init__(self, resnets, downsample_ch):
+        super().__init__()
+        self.resnets = nn.ModuleList(resnets)
+        if downsample_ch:
+            self.downsamplers = nn.ModuleList([_Downsampler(downsample_ch)])
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        chans, g = cfg.block_out_channels, cfg.norm_groups
+        self.conv_in = nn.Conv2d(cfg.in_channels, chans[0], 3, padding=1)
+        self.down_blocks = nn.ModuleList()
+        h_ch = chans[0]
+        for level, ch in enumerate(chans):
+            resnets = []
+            for _ in range(cfg.layers_per_block):
+                resnets.append(VAEResnetBlock(h_ch, ch, g))
+                h_ch = ch
+            self.down_blocks.append(_DownBlock(resnets, ch if level < len(chans) - 1 else 0))
+        self.mid_block = _MidBlock(h_ch, g)
+        self.conv_norm_out = GroupNorm(g, h_ch, 1e-6, act="silu")
+        self.conv_out = nn.Conv2d(h_ch, 2 * cfg.latent_channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv_in(x)
+        for blk in self.down_blocks:
+            for resnet in blk.resnets:
+                h = resnet(h)
+            if hasattr(blk, "downsamplers"):
+                h = blk.downsamplers[0](h)
+        mid = self.mid_block
+        h = mid.resnets[1](mid.attentions[0](mid.resnets[0](h)))
+        return self.conv_out(self.conv_norm_out(h))
+
+
 class _Upsampler(nn.Module):
     def __init__(self, ch: int):
         super().__init__()
@@ -123,15 +173,39 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """Decode half of the SD VAE: ``decode(z)`` maps normalized latents
-    (N, C, h, w) to pixels in [-1, 1]."""
+    """The SD VAE: ``encode(x, noise)`` maps pixels (N, 3, H, W) in [-1, 1]
+    to normalized latents (N, C, H/8, W/8), ``decode(z)`` maps them back."""
+
+    # the encoder's parameters, drawn apart by `train/bundles.py:_fill_fan_in`
+    ENCODER_PREFIXES = ("encoder.", "quant_conv.")
 
     def __init__(self, cfg: VAEConfig = SD15_VAE_CONFIG):
         super().__init__()
         self.cfg = cfg
+        self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
         if cfg.use_quant_conv:
+            self.quant_conv = nn.Conv2d(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1)
             self.post_quant_conv = nn.Conv2d(cfg.latent_channels, cfg.latent_channels, 1)
+
+    def encode_moments(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Pixels (N, 3, H, W) in [-1, 1] -> (mean, logvar) of the latent
+        posterior, logvar clipped to [-30, 20], in the weights' dtype."""
+        dtype = self.encoder.conv_in.weight.dtype
+        moments = self.encoder(x.to(dtype).contiguous(memory_format=torch.channels_last))
+        if self.cfg.use_quant_conv:
+            moments = self.quant_conv(moments)
+        mean, logvar = moments.chunk(2, dim=1)
+        return mean, logvar.clamp(-30.0, 20.0)
+
+    def encode(self, x: torch.Tensor, noise: torch.Tensor = None) -> torch.Tensor:
+        """Normalized latents ``(mean + std * noise - shift) * scale`` (the
+        posterior's mean without ``noise``), ``noise`` (N, C, h, w) drawn by
+        the caller; in the weights' dtype, as the JAX module computes them."""
+        mean, logvar = self.encode_moments(x)
+        if noise is not None:
+            mean = mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)
+        return (mean - self.cfg.shift_factor) * self.cfg.scaling_factor
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         dtype = self.decoder.conv_in.weight.dtype

@@ -4,18 +4,22 @@
   curl -s localhost:8000/generate -d '{"prompt": "an astronaut", "seed": 1}'
 
 The flags are those of `scripts/serve.py`. So far only ``--family sd15`` is
-ported. ``--weights int8`` stores the UNet and text weights as per-channel
-int8 and dequantizes each at its use (weight-only: the products stay bf16).
-Without ``--teacher-checkpoint`` the weights are drawn on the device from
-``--seed``. ``--tiny --device cpu`` runs the tiny configuration on the CPU
-through the kernels' plain versions (a smoke mode; with ``--weights int8``
-it quantizes every Linear and conv weight: all but a few TINY weights are
-under the 65536-element threshold).
+ported. ``--lora <file>`` serves a kohya ``.safetensors`` LoRA (the trainer's
+``pcm_lora_<step>.safetensors``) as the default adapter; with it, or with
+``--enable-lora-swap`` (a no-op adapter), ``POST /lora`` swaps adapters live.
+``--weights int8`` stores the UNet and text weights as per-channel int8 and
+dequantizes each at its use (weight-only: the products stay bf16). Without
+``--teacher-checkpoint`` the weights are drawn on the device from ``--seed``.
+``--tiny --device cpu`` runs the tiny configuration on the CPU through the
+kernels' plain versions (a smoke mode; with ``--weights int8`` it quantizes
+every Linear and conv weight: all but a few TINY weights are under the
+65536-element threshold).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
 
@@ -25,7 +29,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--family", default="sd15", choices=["sd15", "sdxl", "sd3"])
     ap.add_argument("--teacher-checkpoint", default=None,
                     help="torch.save'd {'unet': sd, 'vae': sd, 'text': sd} state dicts")
-    ap.add_argument("--lora", default=None, help="kohya safetensors LoRA (not yet ported)")
+    ap.add_argument("--lora", default=None,
+                    help="kohya safetensors LoRA, the default adapter (implies "
+                         "--enable-lora-swap)")
     ap.add_argument("--tokenizer-dir", default=None)
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--cfg", type=float, default=1.0)
@@ -45,25 +51,26 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None) -> None:
-    ap = build_parser()
-    args = ap.parse_args(argv)
+def check_args(ap: argparse.ArgumentParser, args: argparse.Namespace) -> None:
+    """Refuse what is not ported, and a ``--lora`` that is not a file."""
     if args.family != "sd15":
         ap.error(f"--family {args.family} is not yet ported (sd15 only)")
-    if args.lora:
-        ap.error("--lora: loading a kohya LoRA file is not yet ported")
+    if args.lora and not os.path.isfile(args.lora):
+        ap.error(f"--lora {args.lora}: no such file")
     if args.stochastic or args.data_parallel != 1:
         ap.error("--stochastic and --data-parallel are not yet ported")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: pass --device cpu (with --tiny) to smoke-test on the CPU")
 
+
+def build_engine(args: argparse.Namespace):
+    """The `InferenceEngine` the flags describe: weights drawn from ``--seed``
+    (or ``--teacher-checkpoint``), the ``--lora`` file as its adapter."""
     from ..configs.families import sd15_bundle
     from ..core.schedule import make_ddpm_schedule
+    from ..data.tokenizer import resolve_tokenizers
     from ..sampling.ddim import DDIMSampler
     from .engine import EngineConfig, InferenceEngine
-    from .server import BatchingServer
 
+    device = torch.device(args.device)
     dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
     bundle = sd15_bundle(dtype=dtype, tiny=args.tiny)
     gen = torch.Generator(device).manual_seed(args.seed)
@@ -74,10 +81,7 @@ def main(argv=None) -> None:
         from ..utils.quant import quantize_frozen
 
         frozen = quantize_frozen(frozen, min_size=0 if args.tiny else 65536)
-    lora = template if args.enable_lora_swap else None
-
-    from ..data.tokenizer import resolve_tokenizers
-
+    lora = template if args.enable_lora_swap or args.lora else None
     toks = resolve_tokenizers(args.tokenizer_dir, ["input_ids"])
     res = args.resolution or 512
     engine = InferenceEngine(
@@ -86,8 +90,23 @@ def main(argv=None) -> None:
                      guidance_scale=args.cfg),
         device,
     )
-    print(f"# warming up sd15 {args.steps}-step engine (bs={args.batch_size}) on {device}...",
-          flush=True)
+    if args.lora:
+        engine.load_lora(args.lora, swap=False)
+    return engine
+
+
+def main(argv=None) -> None:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    check_args(ap, args)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --device cpu (with --tiny) to smoke-test on the CPU")
+    from .server import BatchingServer
+
+    engine = build_engine(args)
+    print(f"# warming up sd15 {args.steps}-step engine (bs={args.batch_size}) on {device}"
+          + (f" with {args.lora}" if args.lora else "") + "...", flush=True)
     engine.warmup()
     server = BatchingServer(engine, args.host, args.port, args.max_wait_ms)
     print(f"# serving on http://{args.host}:{server.address[1]}", flush=True)

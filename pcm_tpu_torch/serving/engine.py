@@ -5,7 +5,9 @@ repeating its last request, so each batch runs the same shapes. Each request
 carries its own seed, and its starting noise comes from a generator seeded
 with it on the device, so a request's image does not depend on which batch
 it rode in. Adapters (LoRA factor dicts) are arguments of every forward, so
-a swap replaces a dict and rebuilds nothing.
+a swap replaces a dict and rebuilds nothing. An adapter comes as a dict or
+as a kohya ``.safetensors`` file (`lora/kohya.py`), read into the template's
+keys, shapes and dtypes.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import threading
+import warnings
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
@@ -68,12 +71,27 @@ class InferenceEngine:
         self._latent_shape = (cfg.latent_hw, cfg.latent_hw, bundle.latent_channels)
 
     def _load_tree(self, source: Union[str, os.PathLike, Mapping[str, torch.Tensor]]) -> Adapter:
-        """An adapter dict shaped exactly like the engine's own, on its device."""
-        if isinstance(source, (str, os.PathLike)):
-            raise NotImplementedError("loading a kohya LoRA file is not yet ported")
+        """An adapter dict shaped exactly like the engine's own, on its device.
+        A kohya file's factors are cast to the template's dtypes; a file whose
+        alpha differs from the bundle's `LoRASpec` is loaded with a warning
+        (the spec's scale applies)."""
         if self.lora is None:
             raise ValueError("engine was built without a LoRA tree; construct it with the "
                              "bundle's zero-init lora template to enable hot-swap")
+        if isinstance(source, (str, os.PathLike)):
+            from ..lora.kohya import load_kohya_safetensors
+
+            spec = self.bundle.lora
+            try:
+                tree, file_alpha = load_kohya_safetensors(str(source), self.lora, spec.rank)
+            except KeyError as e:
+                raise ValueError(f"{source}: kohya file lacks {e} of the engine's adapter") from e
+            alpha = spec.alpha if spec.alpha is not None else spec.rank
+            if abs(file_alpha - alpha) > 1e-6:
+                warnings.warn(f"kohya file alpha={file_alpha} != the engine's LoRASpec alpha="
+                              f"{alpha}: the adapter runs at {alpha / max(file_alpha, 1e-9):.3g}x "
+                              "its intended strength", stacklevel=3)
+            source = {k: v.to(self.lora[k].dtype) for k, v in tree.items()}
         if set(source) != set(self.lora):
             missing = sorted(set(self.lora) - set(source))[:3]
             extra = sorted(set(source) - set(self.lora))[:3]
@@ -84,13 +102,16 @@ class InferenceEngine:
             raise ValueError(f"lora leaf shape/dtype mismatch: {bad[:3]}")
         return {k: v.to(self.device) for k, v in source.items()}
 
-    def load_lora(self, source) -> None:
-        """Swap the default adapter (between batches, never mid-batch)."""
+    def load_lora(self, source, swap: bool = True) -> None:
+        """Swap the default adapter (between batches, never mid-batch):
+        ``source`` is an adapter dict or a kohya ``.safetensors`` path.
+        ``swap=False`` sets the starting adapter, not counted in ``lora_swaps``."""
         new = self._load_tree(source)
         with self._lock:
             self.lora = new
-            self.lora_source = source if isinstance(source, str) else "<tree>"
-            self.stats["lora_swaps"] += 1
+            self.lora_source = (os.fspath(source) if isinstance(source, (str, os.PathLike))
+                                else "<tree>")
+            self.stats["lora_swaps"] += int(swap)
 
     def register_adapter(self, name: str, source) -> None:
         """Register a named adapter for per-request selection."""

@@ -6,7 +6,11 @@ API:
   GET  /stats      -> latency percentiles, throughput, batch occupancy
   POST /generate   {"prompt": str, "seed": int?, "adapter": str?}
                    -> {"image_b64": png, "batch_size": n, "latency_ms": t}
-  POST /lora       {"path": str} -> 501: loading a kohya file is not yet ported
+  POST /lora       {"path": str, "name": str?} -> without "name": swap the
+                   default adapter for a kohya .safetensors file (batches in
+                   flight finish on the old one); with "name": register it for
+                   requests' "adapter". A bad path or a file that does not fit
+                   the engine's adapter answers 400 and changes nothing.
   DELETE /lora/<name>  -> unregister a named adapter
 
 A single dispatcher thread coalesces requests for the same adapter into one
@@ -19,6 +23,7 @@ from __future__ import annotations
 import base64
 import collections
 import json
+import os
 import queue
 import struct
 import threading
@@ -148,6 +153,8 @@ class BatchingServer:
         eng = dict(self.engine.stats)
         return {
             **eng,
+            "lora": self.engine.lora_source,
+            "swaps": eng["lora_swaps"],
             "errors": errors,
             "uptime_s": round(uptime, 1),
             "requests_per_s": round(eng.get("requests", 0) / max(uptime, 1e-9), 3),
@@ -178,6 +185,26 @@ class BatchingServer:
                 length = int(self.headers.get("Content-Length", 0))
                 return json.loads(self.rfile.read(length) or b"{}")
 
+            def _post_lora(self):
+                try:
+                    req = self._body()
+                    path, name = req["path"], req.get("name")
+                    if not isinstance(path, str) or not os.path.isfile(path):
+                        raise FileNotFoundError(path)
+                    if name is not None:
+                        outer.engine.register_adapter(name, path)
+                    else:
+                        outer.engine.load_lora(path)
+                except (KeyError, ValueError, OSError, json.JSONDecodeError) as e:
+                    self._json(400, {"error": f"{type(e).__name__}: {e}"})
+                    return
+                except Exception as e:  # not the client's fault: a device or loader failure
+                    self._json(500, {"error": f"{type(e).__name__}: {e}"})
+                    return
+                self._json(200, {"ok": True, "lora": outer.engine.lora_source,
+                                 "adapters": outer.engine.adapter_names,
+                                 "swaps": outer.engine.stats["lora_swaps"]})
+
             def do_GET(self):
                 if self.path == "/healthz":
                     self._json(200, {"ok": True, "stats": outer.engine.stats})
@@ -199,7 +226,7 @@ class BatchingServer:
 
             def do_POST(self):
                 if self.path == "/lora":
-                    self._json(501, {"error": "loading a kohya LoRA file is not yet ported"})
+                    self._post_lora()
                     return
                 if self.path != "/generate":
                     self._json(404, {"error": "unknown path"})

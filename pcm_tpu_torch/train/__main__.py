@@ -2,6 +2,8 @@
 
   python -m pcm_tpu_torch.train --recipe sd15_4phase --cached-latents-dir cache/ \\
       --output-dir runs/sd15_4phase
+  python -m pcm_tpu_torch.train --recipe sd15_4phase --train-data-dir imgs/ \\
+      --output-dir runs/sd15_4phase [--tokenizer-dir tok/ | --allow-hash-tokenizer]
   python -m pcm_tpu_torch.train --recipe sdxl_4phase_adv --cached-latents-dir xl_cache/ \\
       --output-dir runs/sdxl_adv [--adv-pairing fresh|fused]
   python -m pcm_tpu_torch.train --recipe sd15_4phase --tiny --device cpu \\
@@ -10,7 +12,16 @@
 The flags are those of `scripts/train.py` for this path: the sd15 recipes
 (consistency-only and ``sd15_2phase_adv``) on cached latents (``shard_*.npz``
 with ``latents`` and ``prompt_embeds``) and ``sdxl_4phase_adv`` on cached
-latents and embeddings (also ``pooled_embeds`` and ``time_ids``). Without
+latents and embeddings (also ``pooled_embeds`` and ``time_ids``). The
+consistency-only sd15 recipes also train from a folder of images with
+sidecar ``.txt`` captions (``--train-data-dir``): each step encodes the
+batch's pixels with the VAE encoder (a posterior sample, in chunks of
+``--vae-encode-chunk``) and its captions with CLIP-L, as the reference does;
+the images are center-cropped at ``--resolution`` (the recipe's by default)
+and loaded by ``--dataloader-workers`` workers (`data/dataset.py`). Captions
+take the tokenizer of ``--tokenizer-dir``, or hashed ids with
+``--allow-hash-tokenizer`` (or ``--tiny``); cached runs hash the empty
+uncond prompt unless ``--tokenizer-dir`` is given. Without
 ``--teacher-checkpoint`` the weights are drawn on the device from
 ``--seed``, the discriminator heads of the adversarial recipes from
 ``--seed + 1``. The SD1.5 uncond embeddings are encoded once, from empty
@@ -21,7 +32,11 @@ pair as two global steps, so ``--max-train-steps``, ``--log-every`` and
 ``--checkpointing-steps`` are best even. ``--tiny --device cpu`` runs the
 tiny configuration on the CPU through the kernels' plain versions (a smoke
 mode). A run resumes from the newest checkpoint in ``--output-dir`` unless
-``--no-resume``.
+``--no-resume``. Each save writes a checkpoint and the LoRA as a kohya file,
+``<output-dir>/pcm_lora_<step>.safetensors``; SIGTERM or SIGINT ends the run
+after the step in flight with both, and a rerun resumes there. Each run
+appends the kernels' launch counts of its process to
+``<output-dir>/launches.jsonl``.
 
 ``--frozen-weights int8`` stores the frozen UNet and text weights as int8
 codes with per-channel scales (`utils/quant.py`); ``--int8-matmul`` then
@@ -35,6 +50,8 @@ weights are under the 65536-element threshold).
 from __future__ import annotations
 
 import argparse
+import json
+import os
 
 import torch
 
@@ -48,7 +65,23 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cached-latents-dir", default=None,
                     help="dir of shard_*.npz (latents, prompt_embeds; SDXL also "
                          "pooled_embeds, time_ids)")
-    ap.add_argument("--train-data-dir", default=None, help="image folder (" + NOT_PORTED + ")")
+    ap.add_argument("--train-data-dir", default=None,
+                    help="image folder with sidecar .txt captions (the sd15 consistency "
+                         "recipes)")
+    ap.add_argument("--resolution", type=int, default=None,
+                    help="image side of --train-data-dir (default: the recipe's)")
+    ap.add_argument("--dataloader-workers", type=int, default=16,
+                    help="threads (processes with the numpy decoder) that load a batch's "
+                         "images")
+    ap.add_argument("--tokenizer-dir", default=None,
+                    help="tokenizer dir (vocab.json + merges.txt for the native CLIP BPE, or "
+                         "a transformers dir)")
+    ap.add_argument("--allow-hash-tokenizer", action="store_true",
+                    help="hash captions to ids without --tokenizer-dir (smoke runs only: the "
+                         "text conditioning is garbage)")
+    ap.add_argument("--vae-encode-chunk", type=int, default=None,
+                    help="samples a VAE encode call with --train-data-dir (default: the "
+                         "whole batch, up to 32)")
     ap.add_argument("--teacher-checkpoint", default=None,
                     help="torch.save'd {'unet': sd, 'vae': sd, 'text': sd} state dicts")
     ap.add_argument("--max-train-steps", type=int, default=None)
@@ -115,9 +148,15 @@ def main(argv=None):
                  "quantizes activations against int8 weights)")
     if args.validation_steps or args.validation_prompts:
         ap.error(f"validation grids are {NOT_PORTED}")
-    if not args.cached_latents_dir:
-        ap.error(f"training from --train-data-dir (VAE-encoding images) is {NOT_PORTED}: "
-                 "pass --cached-latents-dir")
+    if bool(args.cached_latents_dir) == bool(args.train_data_dir):
+        ap.error("pass one of --train-data-dir / --cached-latents-dir")
+    if args.train_data_dir and (recipe.family != "sd15" or recipe.adversarial):
+        ap.error(f"--train-data-dir with {args.recipe} is {NOT_PORTED} (the SDXL text towers "
+                 "and VAE, the adversarial steps' posterior draws): pass --cached-latents-dir")
+    if args.train_data_dir and not (args.tokenizer_dir or args.allow_hash_tokenizer
+                                    or args.tiny):
+        ap.error("no tokenizer for the captions: pass --tokenizer-dir, or "
+                 "--allow-hash-tokenizer for smoke runs (prompts hashed to pseudo-random ids)")
     if args.remat not in ("full", "none"):
         ap.error(f"--remat {args.remat} is {NOT_PORTED} (full|none)")
     device = torch.device(args.device)
@@ -129,20 +168,36 @@ def main(argv=None):
 
     from ..core.schedule import make_ddpm_schedule
     from ..data.cached import CachedLatentsDataset, batches
-    from ..data.tokenizer import HashTokenizer
+    from ..data.tokenizer import resolve_tokenizers
+    from ..ops import launch_counts, reset_launch_counts
     from ..utils.quant import int8_matmul, quantize_frozen
     from .adv import AdvConfig, build_ddim_adv_train_step, init_discriminator
     from .distill import build_ddim_distill_step
     from .loop import LoopConfig, Trainer
     from .state import TrainState, make_optimizer
 
-    ds = CachedLatentsDataset(args.cached_latents_dir)
-    needed = ("prompt_embeds", "pooled_embeds", "time_ids") if recipe.family == "sdxl" \
-        else ("prompt_embeds",)
-    missing = [k for k in needed if k not in ds.get(0)]
-    if missing:
-        ap.error(f"cached shards without {missing} (captions through the text towers) are "
-                 f"{NOT_PORTED}")
+    if args.cached_latents_dir:
+        ds = CachedLatentsDataset(args.cached_latents_dir)
+        needed = ("prompt_embeds", "pooled_embeds", "time_ids") if recipe.family == "sdxl" \
+            else ("prompt_embeds",)
+        missing = [k for k in needed if k not in ds.get(0)]
+        if missing:
+            ap.error(f"cached shards without {missing} (captions through the text towers) "
+                     f"are {NOT_PORTED}")
+    else:
+        from ..data.dataset import DataLoader, ImageFolderDataset, make_collate
+
+        res = args.resolution or recipe.resolution
+        try:
+            images = ImageFolderDataset(args.train_data_dir, resolution=res,
+                                        proportion_empty_prompts=recipe.proportion_empty_prompts,
+                                        seed=args.seed)
+        except (FileNotFoundError, ValueError) as e:
+            ap.error(str(e))
+    try:
+        toks = resolve_tokenizers(args.tokenizer_dir, ["input_ids"])
+    except (FileNotFoundError, OSError) as e:
+        ap.error(str(e))
     batch = args.batch_size or recipe.batch_per_chip
     accum = args.gradient_accumulation_steps
     max_steps = args.max_train_steps or recipe.max_steps
@@ -152,6 +207,8 @@ def main(argv=None):
     make_bundle = sd15_bundle if recipe.family == "sd15" else sdxl_bundle
     bundle = make_bundle(recipe.lora_rank, dtype=dtype, tiny=args.tiny,
                          remat=args.remat == "full")
+    if args.train_data_dir:
+        bundle = dataclasses.replace(bundle, vae_encode_chunk=args.vae_encode_chunk or 32)
     gen = torch.Generator(device).manual_seed(args.seed)
     frozen, lora = bundle.init(gen, device)
     if args.teacher_checkpoint:
@@ -170,14 +227,16 @@ def main(argv=None):
     proc_batch = batch * accum
     extra = {}
     if recipe.family == "sd15":  # uncond embeds from empty prompts (scripts/train.py:348-352)
-        ids = torch.from_numpy(HashTokenizer()([""] * proc_batch)).long().to(device)
+        ids = torch.from_numpy(toks["input_ids"]([""] * proc_batch)).long().to(device)
         with torch.no_grad():
             extra["uncond_embeds"] = bundle.encode_prompts(frozen, ids)["prompt_embeds"]
 
     loop_cfg = LoopConfig(output_dir=args.output_dir, max_train_steps=max_steps,
                           checkpointing_steps=args.checkpointing_steps,
                           checkpoints_total_limit=args.checkpoints_total_limit,
-                          log_every=args.log_every, seed=args.seed, resume=not args.no_resume)
+                          log_every=args.log_every, seed=args.seed, resume=not args.no_resume,
+                          lora_alpha=bundle.lora.alpha if bundle.lora.alpha is not None
+                          else bundle.lora.rank)
     schedule = make_ddpm_schedule()
     if recipe.adversarial:
         disc, d_params = init_discriminator(
@@ -187,7 +246,8 @@ def main(argv=None):
         step = build_ddim_adv_train_step(bundle, schedule, distill_cfg,
                                          AdvConfig(recipe.adv_weight), disc, tx, tx_d,
                                          args.adv_pairing, accum)
-        trainer = Trainer(loop_cfg, frozen, state, step, distill_cfg, schedule, device, accum,
+        trainer = Trainer(loop_cfg, frozen, state, step, distill_cfg, schedule,
+                          bundle.latents_like, device, accum,
                           d_state=TrainState.create(d_params, tx_d))
     else:
         distill_step = build_ddim_distill_step(bundle, schedule, distill_cfg, tx,
@@ -197,7 +257,8 @@ def main(argv=None):
             state, metrics = distill_step(state, frozen, batch, draws)
             return state, d_state, metrics, 1
 
-        trainer = Trainer(loop_cfg, frozen, state, step, distill_cfg, schedule, device, accum)
+        trainer = Trainer(loop_cfg, frozen, state, step, distill_cfg, schedule,
+                          bundle.latents_like, device, accum)
     print(f"# {args.recipe}: batch {batch} x accum {accum}, {max_steps} steps on {device}, "
           f"{args.frozen_weights} frozen weights"
           + (f", {args.adv_pairing} adversarial pairing" if recipe.adversarial else "")
@@ -207,8 +268,22 @@ def main(argv=None):
     # dense/fused: every int8 product of the run (the scoped mode is in the step)
     run_ctx = (int8_matmul(args.int8_matmul) if args.int8_matmul in ("dense", "fused")
                else contextlib.nullcontext())
+    if args.train_data_dir:
+        from ..data.native_image import native_error
+
+        why = f" ({native_error()})" if images.decoder == "numpy" else ""
+        print(f"# {len(images)} images at {res} px, {images.decoder} decoder{why}", flush=True)
+        data = DataLoader(images, proc_batch, make_collate(toks),
+                          num_workers=args.dataloader_workers, seed=args.seed)
+    else:
+        data = batches(ds, proc_batch, args.seed)
+    start = trainer.global_step
+    reset_launch_counts()  # launches.jsonl counts the run alone, not the set-up
     with run_ctx:
-        trainer.run(batches(ds, proc_batch, args.seed), extra)
+        trainer.run(data, extra)
+    with open(os.path.join(args.output_dir, "launches.jsonl"), "a") as f:
+        f.write(json.dumps({"from_step": start, "to_step": trainer.global_step,
+                            "launches": launch_counts()}) + "\n")
     return trainer
 
 

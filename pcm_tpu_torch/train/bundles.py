@@ -8,7 +8,7 @@ keeps the JAX package's layout: latents and images are ``(N, H, W, C)``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -37,12 +37,16 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def _fill_fan_in(module: nn.Module, generator: torch.Generator) -> None:
-    """Random weights drawn in place: 1-D weights (norm scales) 1, biases 0,
-    everything else N(0, 1/fan_in) with fan_in the product of all dims but
-    the output one (``train/bundles.py:init_frozen_fast`` of the JAX package)."""
+def _fill_fan_in(module: nn.Module, generator: torch.Generator,
+                 which: Callable[[str], bool] = lambda name: True) -> None:
+    """Random weights drawn in place for the parameters ``which`` names:
+    1-D weights (norm scales) 1, biases 0, everything else N(0, 1/fan_in)
+    with fan_in the product of all dims but the output one
+    (``train/bundles.py:init_frozen_fast`` of the JAX package)."""
     with torch.no_grad():
         for name, p in module.named_parameters():
+            if not which(name):
+                continue
             if name.endswith("bias"):
                 p.zero_()
             elif p.ndim == 1:
@@ -53,6 +57,16 @@ def _fill_fan_in(module: nn.Module, generator: torch.Generator) -> None:
                 noise = torch.randn(p.shape, generator=generator, device=p.device,
                                     dtype=torch.float32)
                 p.copy_(noise * fan_in ** -0.5)
+
+
+def _own_stream(generator: torch.Generator, tag: int) -> torch.Generator:
+    """A generator of its own, seeded from ``generator``'s seed and ``tag``:
+    drawing from it leaves ``generator``'s stream where it was."""
+    seed = (generator.initial_seed() * 1000003 + tag) % 2 ** 63
+    return torch.Generator(generator.device).manual_seed(seed)
+
+
+_ENCODER_STREAM = 0x5D15E  # the VAE encoder's weights (`SD15Bundle.init`)
 
 
 def _owner(root: nn.Module, param_name: str) -> nn.Module:
@@ -95,6 +109,7 @@ class SD15Bundle:
     lora: LoRASpec
     dtype: torch.dtype = torch.bfloat16
     remat: bool = False  # checkpoint each UNet block while grad is on (training)
+    vae_encode_chunk: Optional[int] = None  # samples a VAE encode call (None: the batch)
 
     def build(self, device: torch.device) -> Frozen:
         """The bundle's modules with uninitialized weights on ``device``
@@ -107,16 +122,25 @@ class SD15Bundle:
     def init(self, generator: torch.Generator, device: torch.device
              ) -> Tuple[Frozen, Dict[str, torch.Tensor]]:
         """Random weights from ``generator`` (fan-in scaled) and a zero-effect
-        adapter template (LoRA ``b = 0``)."""
+        adapter template (LoRA ``b = 0``). The VAE encoder's weights come from
+        a stream of their own (`_own_stream`), so every other weight and the
+        template are the draws they were before the encoder was ported."""
         frozen = self.build(device)
-        for m in frozen.values():
-            _fill_fan_in(m, generator)
-        return frozen, init_lora(frozen["unet"], self.lora.rank, generator, device)
+
+        def encoder(name: str) -> bool:
+            return name.startswith(AutoencoderKL.ENCODER_PREFIXES)
+
+        for k, m in frozen.items():
+            _fill_fan_in(m, generator, lambda n: k != "vae" or not encoder(n))
+        template = init_lora(frozen["unet"], self.lora.rank, generator, device)
+        if "vae" in frozen:
+            _fill_fan_in(frozen["vae"], _own_stream(generator, _ENCODER_STREAM), encoder)
+        return frozen, template
 
     def from_states(self, states: Mapping[str, Mapping[str, torch.Tensor]],
                     device: torch.device) -> Frozen:
         """Modules loaded from state dicts ``{"unet": ..., "vae": ..., "text": ...}``;
-        keys a module lacks (the VAE encoder's) are ignored, missing ones raise."""
+        keys a module lacks are ignored, missing ones raise."""
         return _from_states(self.build(device), states)
 
     # -- encoding / decoding ---------------------------------------------
@@ -124,22 +148,48 @@ class SD15Bundle:
         _, last, _ = frozen["text"](input_ids)
         return {"prompt_embeds": last}
 
-    def encode(self, frozen: Frozen, batch: Mapping[str, torch.Tensor]
-               ) -> Tuple[torch.Tensor, Cond, Cond]:
+    def encode(self, frozen: Frozen, batch: Mapping[str, torch.Tensor],
+               vae_noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Cond, Cond]:
         """(latents, cond, uncond) of a training batch (`pcm_tpu/train/bundles.py:177-198`):
-        cached ``latents``, ``prompt_embeds`` (or ``input_ids`` through the
-        text tower) and ``uncond_embeds``."""
-        if "latents" not in batch:
-            raise NotImplementedError(
-                "training from pixels (the VAE encoder) is not yet ported to pcm_tpu_torch: "
-                "train on cached latents (--cached-latents-dir)")
+        cached ``latents`` or ``pixel_values`` (N, H, W, 3) in [-1, 1] through the
+        VAE encoder with the posterior noise ``vae_noise`` (N, h, w, C), in
+        chunks of ``vae_encode_chunk`` samples; ``prompt_embeds`` or
+        ``input_ids`` through the text tower; ``uncond_embeds``."""
         if "prompt_embeds" in batch:
             prompt_embeds = batch["prompt_embeds"]
         else:
             with torch.no_grad():
                 prompt_embeds = self.encode_prompts(frozen, batch["input_ids"])["prompt_embeds"]
-        return (batch["latents"], {"prompt_embeds": prompt_embeds},
+        if "latents" in batch:
+            latents = batch["latents"]
+        else:
+            latents = self.encode_pixels(frozen, batch["pixel_values"], vae_noise)
+        return (latents, {"prompt_embeds": prompt_embeds},
                 {"prompt_embeds": batch["uncond_embeds"]})
+
+    @torch.no_grad()
+    def encode_pixels(self, frozen: Frozen, pixels: torch.Tensor,
+                      noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(N, H, W, 3) pixels -> (N, h, w, C) latents, ``vae_encode_chunk``
+        samples a call (the reference encodes in chunks of up to 32); row i
+        takes the posterior noise ``noise[i]``."""
+        n = pixels.shape[0]
+        chunk = self.vae_encode_chunk or n
+        outs = []
+        for i in range(0, n, chunk):
+            eps = None if noise is None else _nchw(noise[i:i + chunk])
+            outs.append(_nhwc(frozen["vae"].encode(_nchw(pixels[i:i + chunk]), eps)))
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+    def latents_like(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """An empty tensor shaped, typed and placed like the latents of
+        ``batch`` (its cached ``latents``, or what its pixels encode to)."""
+        if "latents" in batch:
+            return batch["latents"]
+        n, h, w, _ = batch["pixel_values"].shape
+        s = self.vae_scale
+        return torch.empty((n, h // s, w // s, self.vae_cfg.latent_channels), dtype=self.dtype,
+                           device=batch["pixel_values"].device)
 
     def decode_latents(self, frozen: Frozen, latents: torch.Tensor) -> torch.Tensor:
         """(N, h, w, C) latents -> (N, H, W, 3) pixels in [-1, 1]."""
@@ -195,8 +245,8 @@ class SDXLBundle:
                     device: torch.device) -> Frozen:
         return _from_states(self.build(device), states)
 
-    def encode(self, frozen: Frozen, batch: Mapping[str, torch.Tensor]
-               ) -> Tuple[torch.Tensor, Cond, Cond]:
+    def encode(self, frozen: Frozen, batch: Mapping[str, torch.Tensor],
+               vae_noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Cond, Cond]:
         """(latents, cond, uncond) of a cached batch; the uncond branch is
         zero embeds and zero pooled embeds with the same ``time_ids``
         (`pcm_tpu/train/bundles.py:315-326`)."""
@@ -213,6 +263,9 @@ class SDXLBundle:
         uncond = {"prompt_embeds": torch.zeros_like(prompt_embeds),
                   "added_cond": {"text_embeds": torch.zeros_like(pooled), "time_ids": time_ids}}
         return batch["latents"], cond, uncond
+
+    def latents_like(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        return batch["latents"]
 
     student = SD15Bundle.student
     teacher = SD15Bundle.teacher

@@ -8,9 +8,10 @@ backward and the optimizer update. Gradient accumulation averages the
 microbatches' (loss, grads) before one update.
 
 The random draws come from outside: per microbatch ``{"noise", "index",
-"w"}``, and for the adversarial steps (`train/adv.py`) also ``adv_offset``
-(added to the phase end to give the renoising timestep) and the renoising
-noises ``eps_fake`` and ``eps_real``. `sample_draws` makes them from a
+"w"}`` (with ``vae_noise``, the VAE posterior's, on a batch of pixels), and
+for the adversarial steps (`train/adv.py`) also ``adv_offset`` (added to the
+phase end to give the renoising timestep) and the renoising noises
+``eps_fake`` and ``eps_real``. `sample_draws` makes them from a
 ``torch.Generator`` for the trainer; tests feed in the values JAX's
 `ddim_prepare` and adversarial steps draw, so both packages run the same
 step. With ``int8_no_grad_fwd`` (the CLI's ``--int8-matmul scoped``) the
@@ -52,13 +53,16 @@ class DistillConfig:
 
 
 def sample_draws(cfg: DistillConfig, generator: torch.Generator, latents: torch.Tensor,
-                 adv_schedule: Optional[DDPMSchedule] = None) -> Draws:
+                 adv_schedule: Optional[DDPMSchedule] = None, posterior: bool = False) -> Draws:
     """One microbatch's draws on the latents' device: Gaussian noise shaped
     like the latents, solver indices in [0, S) and guidance scales w in
     [w_min, w_max) (or ``fixed_w``); with the schedule of an adversarial
     step also offsets in [0, T // multiphase), T its
     ``num_train_timesteps``, and two more Gaussian noises shaped like the
-    latents (`pcm_tpu/train/adv.py:167-172`)."""
+    latents (`pcm_tpu/train/adv.py:167-172`); with ``posterior`` (a batch of
+    pixels) last the VAE posterior's noise ``vae_noise``, shaped like the
+    latents (`pcm_tpu/train/distill.py:143-144`). ``latents`` gives shape,
+    dtype and device only (`SD15Bundle.latents_like` for pixels)."""
     bsz, dev = latents.shape[0], latents.device
     noise = torch.randn(latents.shape, generator=generator, device=dev, dtype=latents.dtype)
     index = torch.randint(0, cfg.num_solver_steps, (bsz,), generator=generator, device=dev)
@@ -73,6 +77,9 @@ def sample_draws(cfg: DistillConfig, generator: torch.Generator, latents: torch.
         for k in ("eps_fake", "eps_real"):
             draws[k] = torch.randn(latents.shape, generator=generator, device=dev,
                                    dtype=latents.dtype)
+    if posterior:
+        draws["vae_noise"] = torch.randn(latents.shape, generator=generator, device=dev,
+                                         dtype=latents.dtype)
     return draws
 
 
@@ -132,7 +139,7 @@ def ddim_prepare(bundle, schedule: DDPMSchedule, solver: PhasedDDIMSolver,
     """Everything up to the stop-grad target: noising, the CFG teacher ODE
     step and the target network's jump (`ddim_prepare`, :137-184).
     ``lora`` is the student's current adapter."""
-    latents, cond, uncond = bundle.encode(frozen, batch)
+    latents, cond, uncond = bundle.encode(frozen, batch, draws.get("vae_noise"))
     noise, index, w = draws["noise"], draws["index"].long(), draws["w"]
     start_t = solver.table("timesteps", latents.device)[index]
     topk = schedule.num_train_timesteps // cfg.num_solver_steps

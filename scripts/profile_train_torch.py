@@ -3,7 +3,7 @@
 
   python scripts/profile_train_torch.py [--family sd15|sdxl] [--batch-size 4]
       [--remat full] [--steps 6] [--use-8bit-adam] [--frozen-weights bf16|int8]
-      [--int8-matmul scoped|dense|fused] [--adv fresh|fused] [--seed 0]
+      [--int8-matmul scoped|dense|fused] [--adv fresh|fused] [--pixels] [--seed 0]
 
 Builds the full-width bundle with random weights and its consistency step
 (AdamW): SD1.5 with the `sd15_4phase` recipe at 512 px, or the SDXL-1024
@@ -15,7 +15,10 @@ updates instead (``sd15_2phase_adv`` or ``sdxl_4phase_adv``, the heads
 drawn from the seed): one "step" is then a pair, a D step and a G step on
 their own draws (``fresh``) or one fused pair (``fused``), two global steps
 of the trainer. It feeds the step a seeded batch of latents and text
-embeddings made on the card and times ``--steps`` steps on the host clock
+embeddings made on the card, or with ``--pixels`` (SD1.5, consistency only)
+a seeded batch of 512-px pixels and hashed caption ids, which every step
+encodes with the VAE encoder (a posterior sample, the CLI's chunk of 32) and
+CLIP-L as ``--train-data-dir`` runs do; and times ``--steps`` steps on the host clock
 (each ends in a loss readback, a device sync): per-step ms, the median of all
 but the first two, and the peak memory. Then it traces one more step with
 ``torch.profiler``: host wall time, summed kernel time by category (the
@@ -27,7 +30,8 @@ plain version, no kernel of its own) launches, under a
 `GroupNormSiLUFn.backward` for this step only. Last,
 one more step with every kernel wrapper wrapped (`bound_tally`) prints the
 step's launches and least time by kernel: the sum over its launches of
-`chip_smoke.bound` at each call's own shapes.
+`chip_smoke.bound` at each call's own shapes; with ``--pixels`` also those of
+one encode alone.
 """
 
 import argparse
@@ -145,8 +149,13 @@ def main() -> None:
     ap.add_argument("--int8-matmul", default=None, choices=["scoped", "dense", "fused"])
     ap.add_argument("--adv", default=None, choices=["fresh", "fused"],
                     help="the adversarial recipe's D and G updates, a pair a step")
+    ap.add_argument("--pixels", action="store_true",
+                    help="SD1.5 from 512-px pixels and caption ids (the VAE encoder and CLIP-L "
+                         "every step)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    if args.pixels and (args.family != "sd15" or args.adv):
+        raise SystemExit("--pixels is the sd15 consistency step only")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     if args.int8_matmul and args.frozen_weights != "int8":
@@ -171,6 +180,16 @@ def main() -> None:
                  "prompt_embeds": torch.randn((b, 77, 768), generator=gen, device=dev).bfloat16(),
                  "uncond_embeds": torch.randn((b, 77, 768), generator=gen, device=dev).bfloat16()}
         label = f"{recipe.name} step, batch {b} x 512px"
+        if args.pixels:
+            from pcm_tpu_torch.data.tokenizer import HashTokenizer
+
+            bundle = dataclasses.replace(bundle, vae_encode_chunk=32)
+            ids = HashTokenizer()([f"a photo of subject {i}" for i in range(b)])
+            pixels = torch.rand((b, 512, 512, 3), generator=gen, device=dev) * 2 - 1
+            batch = {"pixel_values": pixels,
+                     "input_ids": torch.from_numpy(ids).long().to(dev),
+                     "uncond_embeds": batch["uncond_embeds"]}
+            label += " from pixels (VAE encode + CLIP-L)"
     else:
         bundle = sdxl_bundle(64, remat=remat)
         cfg, lr = SDXL_CACHED_STEP.distill, SDXL_CACHED_STEP.lr
@@ -192,7 +211,8 @@ def main() -> None:
                else contextlib.nullcontext())
 
     def one_step():
-        draws = [sample_draws(cfg, gen, batch["latents"])]
+        draws = [sample_draws(cfg, gen, bundle.latents_like(batch) if args.pixels
+                              else batch["latents"], posterior=args.pixels)]
         box["state"], metrics = step(box["state"], frozen, batch, draws)
         float(metrics["loss"])
 
@@ -247,8 +267,17 @@ def main() -> None:
         tally, unwrap = bound_tally()
         one_step()
         unwrap()
+        if args.pixels:
+            enc_tally, unwrap = bound_tally()
+            bundle.encode_pixels(frozen, batch["pixel_values"],
+                                 sample_draws(cfg, gen, bundle.latents_like(batch),
+                                              posterior=True)["vae_noise"])
+            unwrap()
     print(f"== {label}: launches and bound ms a step by kernel "
           + json.dumps({k: round(v, 4) for k, v in sorted(tally.items())}))
+    if args.pixels:
+        print(f"== {label}: launches and bound ms of one VAE encode by kernel "
+              + json.dumps({k: round(v, 4) for k, v in sorted(enc_tally.items())}))
     print(torch.cuda.get_device_name(0))
 
 

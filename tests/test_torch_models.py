@@ -204,9 +204,7 @@ def test_full_width_structure_matches_jax_bundle():
                 if not k.startswith(drop)}
 
     assert convert.state_shapes_from_jax(frozen["unet"]) == shapes(port["unet"])
-    vae = {k: s for k, s in convert.state_shapes_from_jax(frozen["vae"]).items()
-           if k.startswith(("decoder.", "post_quant_conv."))}
-    assert vae == shapes(port["vae"])
+    assert convert.state_shapes_from_jax(frozen["vae"]) == shapes(port["vae"])  # encoder too
     text = convert.state_shapes_from_jax(convert.clip_tree_from_jax(frozen["text"], CLIP_L_CONFIG))
     assert text == shapes(port["text"])
     assert convert.state_shapes_from_jax(lora) == lora_shapes(port["unet"], 64)

@@ -148,7 +148,7 @@ def test_engine_adapters(port_slice):
         engine.load_lora({k: v.double() for k, v in trained.items()})
     with pytest.raises(ValueError, match="structure"):
         engine.load_lora(dict(list(trained.items())[:-2]))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(FileNotFoundError):  # a kohya path that is not there
         engine.load_lora("adapter.safetensors")
     engine.unregister_adapter("style")
     with pytest.raises(ValueError, match="without a LoRA tree"):
@@ -207,7 +207,7 @@ def test_http_server_batches_concurrent_requests(port_slice):
             _post(url + "/lora", {"path": "a.safetensors"})
     finally:
         server.stop()
-    assert bad.value.code == 400 and lora.value.code == 501
+    assert bad.value.code == 400 and lora.value.code == 400  # no such kohya file
     assert health["ok"] and health["stats"]["requests"] == 2
     assert stats["window"] == 2 and stats["errors"] == 0
     assert stats["batch_occupancy"] == 1.0  # both requests rode one full batch
@@ -244,7 +244,7 @@ def test_serve_entry_point_tiny_cpu():
 @pytest.mark.parametrize("argv,msg", [
     (["--family", "sdxl"], "not yet ported"),
     (["--stochastic"], "not yet ported"),
-    (["--lora", "x.safetensors"], "not yet ported"),
+    (["--lora", "x.safetensors"], "no such file"),  # --lora is ported: tests/test_torch_kohya.py
 ])
 def test_serve_entry_point_rejects_unported(argv, msg, capsys):
     from pcm_tpu_torch.serving.__main__ import main
