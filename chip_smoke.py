@@ -2,8 +2,10 @@
 """Smoke run of the PyTorch port on one CUDA card (H100): the SD1.5 serving
 path, the SD1.5 distillation step (bf16 and int8 frozen weights), the
 SDXL-1024 cached distillation step on int8 frozen weights, adversarial
-distillation of SD1.5 and SDXL-1024 on cached latents, and SD1.5 training
-from images through to serving the kohya LoRA it writes.
+distillation of SD1.5 and SDXL-1024 on cached latents, SD1.5 training
+from images through to serving the kohya LoRA it writes, and SDXL-1024 from
+text and from pixels: its VAE and text towers, its latent cache, adversarial
+training from images and SDXL serving of the LoRA that training writes.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -83,6 +85,32 @@ Phases, one printed line each:
      step-4 file, the same request; the two images differ and each equals,
      bit for bit, the engine fed that step's adapter rounded to fp16 as a
      dict; ``/stats`` counts one swap.
+ 15. sdxl-vae: the full-width SDXL VAE at 1024 px: an encode at batch 1 (the
+     posterior mean) and a decode at batch 4 on seeded pixels and latents,
+     kernels against all plain versions within phase 12's rule, CUDA-event ms,
+     peak memory and the K1 / K4 launches of each; whether the decoder gives a
+     sample the same bits at another batch position, decoded as a batch and
+     one sample a call (chunk 1, as ``--family sdxl`` serving decodes), and
+     the chunk-1 decode's ms; the encode's peak at batch 4 in chunks of 1 and
+     of 4;
+ 16. sdxl-towers: CLIP-L + CLIP-bigG ``encode_prompts`` at batch 4, full
+     width: (4, 77, 2048) and (4, 1280), finite, ms;
+ 17. sdxl-pixels: 8 seeded captioned PNGs under build/ (two larger than
+     1024 px and not square, so the resize and the random crop run), ``python
+     -m pcm_tpu_torch.data.cache_latents --family sdxl``'s ``main`` over them
+     (the four arrays' shapes, crops in ``time_ids``), then ``python -m
+     pcm_tpu_torch.train --recipe sdxl_4phase_adv --train-data-dir`` as a child
+     process at full width, batch 2, ``--adv-pairing fused``, 4 global steps,
+     checkpoints every 2: finite ``loss`` and ``d_loss``, the LoRA and the
+     heads moved, kohya files at 2 and 4, K1-K5 and K4 on fp32 launched, and
+     the loader's ``time_ids`` (the same sample streams) not all the
+     uncropped [1024, 1024, 0, 0, 1024, 1024]; step ms, peak, host counters;
+ 18. sdxl-serve: the engine of ``python -m pcm_tpu_torch.serving --family sdxl
+     --lora <step-4 file>`` behind the HTTP server, 2 steps, batch 4, 1024 px:
+     a full batch of 4 and a partial one, the shared request's image equal bit
+     for bit; a teacher engine on the same weights at guidance 7.5 (K5); the
+     steady batch latency and peak of each; the UNet's batch-4 forward with
+     cuDNN on and off.
 Each main path runs with the launch counts set to 0 just before it and read
 just after. Then a JSON line of the kernels, the nvidia-smi line, and a last
 JSON line ``{"ok": true, ...}``.
@@ -171,19 +199,29 @@ def attn_bound(shape, products: int, outputs: int) -> dict:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# (b, sq, sk, h, d) of the SDXL VAE's mid-block head at 1024 px: an encode at
+# batch 1, a decode at batch 4 (each a row of K1's ``vae_1024`` field)
+VAE_XL_ATTN = [(1, 16384, 16384, 1, 512), (4, 16384, 16384, 1, 512)]
 # (b, sq, sk, h, d): SD1.5 at 512 px, batch 4 (UNet self/cross, mid, VAE mid);
-# then the SDXL UNet at 1024 px, batch 4 (self/cross at 64x64 and 32x32)
+# then the SDXL UNet at 1024 px, batch 4 (self/cross at 64x64 and 32x32); last
+# ``VAE_XL_ATTN``
 ATTN_SHAPES = [
     (4, 4096, 4096, 8, 40), (4, 4096, 77, 8, 40), (4, 1024, 1024, 8, 80),
     (4, 1024, 77, 8, 80), (4, 256, 256, 8, 160), (4, 256, 77, 8, 160),
     (4, 64, 64, 8, 160), (4, 4096, 4096, 1, 512),
     (4, 4096, 4096, 10, 64), (4, 4096, 77, 10, 64), (4, 1024, 1024, 20, 64),
-    (4, 1024, 77, 20, 64),
+    (4, 1024, 77, 20, 64), *VAE_XL_ATTN,
 ]
+# (shape NHWC, eps, act) of the SDXL VAE at 1024 px: the encoder's top level at
+# batch 1, the decoder's levels at batch 4 and its attention's norm (each a row
+# of K4's ``gn_1024`` field)
+VAE_XL_GN = [((1, 1024, 1024, 128), 1e-6, "silu"), ((4, 1024, 1024, 128), 1e-6, "silu"),
+             ((4, 1024, 1024, 256), 1e-6, "silu"), ((4, 512, 512, 512), 1e-6, "silu"),
+             ((4, 256, 256, 512), 1e-6, "silu"), ((4, 128, 128, 512), 1e-6, None)]
 # (shape NHWC, eps, act): UNet resnets / transformer norms, VAE decoder, the
 # VAE encoder's levels below 512 px (training from pixels); then
 # SDXL at 1024 px, batch 4 (resnets of each level, an up-path concat, a
-# transformer norm)
+# transformer norm); last ``VAE_XL_GN``
 GN_SHAPES = [
     ((4, 64, 64, 320), 1e-5, "silu"), ((4, 64, 64, 960), 1e-5, "silu"),
     ((4, 32, 32, 1920), 1e-5, "silu"), ((4, 16, 16, 2560), 1e-5, "silu"),
@@ -196,6 +234,7 @@ GN_SHAPES = [
     ((4, 128, 128, 320), 1e-5, "silu"), ((4, 64, 64, 640), 1e-5, "silu"),
     ((4, 32, 32, 2560), 1e-5, "silu"), ((4, 128, 128, 960), 1e-5, "silu"),
     ((4, 32, 32, 1280), 1e-6, None),
+    *VAE_XL_GN,
 ]
 # (N, S, C) of the discriminator heads' fp32 GroupNorm at the D step's 2B = 4:
 # SDXL's 64x64 tap (also SD1.5's up_3) and its 32x32 taps at 1280, SD1.5's
@@ -272,10 +311,17 @@ def check_kernels(gen) -> dict:
             raise AssertionError(f"flash attention {shp}: rel {err:.3e}, lse {err_lse:.3e}, "
                                  f"bit-identical rerun {same}")
         record("flash_attention_fwd", shp, abs_max(o, ref), ms, plain)
-        if headline_prefix("flash_attention_fwd", shp) is not None:
+        if headline_prefix("flash_attention_fwd", shp) is not None or shp in VAE_XL_ATTN:
             qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))  # (b, h, s, d)
             lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
-            headline("flash_attention_fwd", shp, library_ms=lib, **attn_bound(shp, 2, 1))
+            if shp in VAE_XL_ATTN:
+                row = {"shape": shp, "rel_max": err, "ms": ms, "plain_ms": plain,
+                       "bound_ms": attn_bound(shp, 2, 1)["bound_ms"], "library_ms": lib}
+                results["flash_attention_fwd"].setdefault("vae_1024", []).append(row)
+                log("kernel", name="flash_attention_fwd", **{k: f"{v:.4f}" if isinstance(
+                    v, float) else v for k, v in row.items()})
+            else:
+                headline("flash_attention_fwd", shp, library_ms=lib, **attn_bound(shp, 2, 1))
             del qt, kt, vt
         del q, k, v, o, ref, again
 
@@ -300,8 +346,13 @@ def check_kernels(gen) -> dict:
         if not err <= 1e-2:
             raise AssertionError(f"group norm {key}: rel {err:.3e}")
         record("group_norm_silu", key, abs_max(out, ref), ms, plain)
-        if key == HEADLINE["group_norm_silu"]:  # read x, write y (bf16); ~8 fp32 ops each
-            results["group_norm_silu"].update(bound(8.0 * x.numel(), "fp32", 4.0 * x.numel()))
+        b = bound(8.0 * x.numel(), "fp32", 4.0 * x.numel())  # read x, write y (bf16); ~8 ops
+        if key == HEADLINE["group_norm_silu"]:
+            results["group_norm_silu"].update(b)
+        if key in VAE_XL_GN:
+            results["group_norm_silu"].setdefault("gn_1024", []).append(
+                {"shape": shp, "act": act, "rel_max": err, "ms": ms, "plain_ms": plain,
+                 "bound_ms": b["bound_ms"], "library_ms": lib})
         del x, out, ref
 
     # stability on a large mean (the Pallas one-pass variance cancels here)
@@ -1255,6 +1306,361 @@ def serve_lora(run_dir: str, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 15-18: SDXL-1024 from text and from pixels
+# ---------------------------------------------------------------------------
+
+XL_RES = 1024
+
+
+def _measured(fn) -> tuple:
+    """``fn()``'s result, its launch counts and its peak memory above what
+    was allocated before it."""
+    from pcm_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    gc.collect()  # earlier phases' garbage would count in the peak
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts(), torch.cuda.max_memory_allocated() - base
+
+
+def sdxl_vae_vs_reference(gen) -> dict:
+    """Phase 15: the full-width SDXL VAE at 1024 px: an encode at batch 1
+    (the posterior mean) and a decode at batch 4, on seeded pixels and
+    latents. Each with every kernel against every plain version (``all``)
+    beside the input-nudge yardstick (``noise``), as phase 12; its launches,
+    CUDA-event ms and the peak memory above the weights. Also the encode of
+    a batch of 4 in chunks of 1 and of 4 (peaks), and whether the decoder
+    gives each sample the same bits in reversed batch order (cuDNN on), as a
+    batch and one sample a call, with the latter's ms."""
+    import dataclasses
+
+    from pcm_tpu_torch.configs.families import sdxl_bundle
+    from pcm_tpu_torch.ops import reference_ops
+
+    bundle = sdxl_bundle()
+    frozen, _ = bundle.init(gen, torch.device("cuda"), modules=("vae",))
+    x = torch.rand((1, XL_RES, XL_RES, 3), generator=gen, device="cuda") * 2 - 1
+    z = torch.randn((4, XL_RES // 8, XL_RES // 8, 4), generator=gen, device="cuda")
+    res = {}
+    with torch.inference_mode():
+        for tag, fn, arg in (("encode", bundle.encode_pixels, x),
+                             ("decode", bundle.decode_latents, z)):
+            out, counts, peak = _measured(lambda: fn(frozen, arg))
+            ms = cuda_ms(lambda: fn(frozen, arg), iters=5, warmup=1)
+            with reference_ops():
+                ref = fn(frozen, arg)
+                nudged = fn(frozen, arg * (1 + 2 ** -8))
+            res[tag] = {"all": (rel_max(out, ref), rel_l2(out, ref)),
+                        "noise": (rel_max(nudged, ref), rel_l2(nudged, ref)),
+                        "counts": counts, "ms": ms, "peak_bytes": peak,
+                        "shape": tuple(out.shape), "finite": bool(torch.isfinite(out).all())}
+            del out, ref, nudged
+        # the bits of a sample at another batch position: decoded as a batch
+        # (cuDNN on, as the pipeline decodes) and one sample a call (chunk 1)
+        for chunk in (None, 1):
+            rev = bundle.decode_latents(frozen, z.flip(0), chunk).flip(0)
+            res[f"decode_chunk{chunk or 4}_position_invariant"] = bool(torch.equal(
+                rev, bundle.decode_latents(frozen, z, chunk)))
+        res["decode_chunk1_ms"] = cuda_ms(lambda: bundle.decode_latents(frozen, z, 1), iters=5,
+                                          warmup=1)
+        x4 = torch.rand((4, XL_RES, XL_RES, 3), generator=gen, device="cuda") * 2 - 1
+        res["encode4_peak_bytes"] = {
+            c: _measured(lambda: dataclasses.replace(bundle, vae_encode_chunk=c)
+                            .encode_pixels(frozen, x4))[2] for c in (1, 4)}
+    return res
+
+
+def sdxl_towers(gen) -> dict:
+    """Phase 16: CLIP-L + CLIP-bigG at full width, `encode_prompts` of 4
+    hashed captions: shapes, finiteness, CUDA-event ms (no kernel of the
+    port runs in the towers: their attention is a masked matmul)."""
+    from pcm_tpu_torch.configs.families import sdxl_bundle
+    from pcm_tpu_torch.data.tokenizer import HashTokenizer
+
+    bundle = sdxl_bundle()
+    frozen, _ = bundle.init(gen, torch.device("cuda"), modules=("text", "text2"))
+    caps = [f"a photo of subject {i}, {['red', 'blue', 'green'][i % 3]} light" for i in range(4)]
+    ids = torch.from_numpy(HashTokenizer()(caps)).long().cuda()
+    time_ids = torch.tensor([[XL_RES, XL_RES, 0, 0, XL_RES, XL_RES]] * 4, device="cuda")
+    with torch.inference_mode():
+        cond = bundle.encode_prompts(frozen, ids, ids, time_ids)
+        ms = cuda_ms(lambda: bundle.encode_prompts(frozen, ids, ids, time_ids), iters=10)
+    emb, pooled = cond["prompt_embeds"], cond["added_cond"]["text_embeds"]
+    return {"shapes": (tuple(emb.shape), tuple(pooled.shape)), "ms": ms,
+            "finite": bool(torch.isfinite(emb).all() and torch.isfinite(pooled).all()),
+            "params_m": {k: round(sum(p.numel() for p in m.parameters()) / 1e6, 1)
+                         for k, m in frozen.items()}}
+
+
+XL_IMAGES = 8
+# two images larger than 1024 px and not square (width x height 1152 x 896 and
+# 896 x 1216): the resize and the random crop both run
+XL_LARGE = {2: (896, 1152), 5: (1216, 896)}  # index: (height, width)
+XL_TIME_IDS_PLAIN = [XL_RES, XL_RES, 0, 0, XL_RES, XL_RES]
+
+
+def write_xl_images(out_dir: str, seed: int) -> str:
+    """``XL_IMAGES`` seeded captioned PNGs at 1024 px but for `XL_LARGE`,
+    rows filtered as `png_filtered`."""
+    import numpy as np
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    rng = np.random.default_rng(seed)
+    for i in range(XL_IMAGES):
+        h, w = XL_LARGE.get(i, (XL_RES, XL_RES))
+        coarse = rng.uniform(0, 255, (h // 64 + 1, w // 64 + 1, 3))
+        field = np.kron(coarse, np.ones((64, 64, 1)))[:h, :w]
+        img = np.clip(field + rng.normal(0, 12, (h, w, 3)), 0, 255).astype(np.uint8)
+        with open(os.path.join(out_dir, f"img_{i:02d}.png"), "wb") as f:
+            f.write(png_filtered(img))
+        with open(os.path.join(out_dir, f"img_{i:02d}.txt"), "w") as f:
+            f.write(f"a photo of subject {i}, {['red', 'blue', 'green'][i % 3]} light")
+    return out_dir
+
+
+def sdxl_cache(img_dir: str, out_dir: str, seed: int) -> dict:
+    """Phase 17a: ``python -m pcm_tpu_torch.data.cache_latents --family sdxl``
+    over ``img_dir`` (batch 4): the four arrays' shapes and ``time_ids``."""
+    import numpy as np
+
+    from pcm_tpu_torch.data import cache_latents
+    from pcm_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cache_latents.main(["--family", "sdxl", "--train-data-dir", img_dir, "--output-dir",
+                             out_dir, "--batch", "4", "--seed", str(seed)])
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    shard = np.load(os.path.join(out_dir, "shard_00000.npz"))
+    return {"rc": rc, "seconds": seconds, "counts": counts,
+            "shapes": {k: shard[k].shape for k in shard.files},
+            "finite": all(bool(np.isfinite(shard[k]).all()) for k in shard.files),
+            "time_ids": shard["time_ids"].tolist()}
+
+
+def loader_time_ids(img_dir: str, seed: int, batch: int, batches: int) -> list:
+    """The ``time_ids`` of the first batches that the training CLI's loader
+    gives for ``img_dir`` and ``seed`` (random crop, the same sample streams)."""
+    from pcm_tpu_torch.data.dataset import DataLoader, ImageFolderDataset, make_collate
+    from pcm_tpu_torch.data.tokenizer import HashTokenizer
+
+    ds = ImageFolderDataset(img_dir, resolution=XL_RES, seed=seed, crop="random")
+    toks = {"input_ids": HashTokenizer(), "input_ids_2": HashTokenizer()}
+    it = iter(DataLoader(ds, batch, make_collate(toks, XL_RES, sdxl=True), num_workers=2,
+                         seed=seed))
+    try:
+        return [next(it)["time_ids"].tolist() for _ in range(batches)]
+    finally:
+        it.close()
+
+
+def train_xl_pixels(img_dir: str, out_dir: str, seed: int) -> dict:
+    """Phase 17b: ``python -m pcm_tpu_torch.train --recipe sdxl_4phase_adv
+    --train-data-dir`` as a child process at full width, batch 2, ``fused``,
+    4 global steps, checkpoints every 2. Checks the exit code, finite
+    ``loss`` and ``d_loss``, kohya files at 2 and 4, that the LoRA and the
+    heads moved (the step-4 checkpoint against the seed's heads and zero
+    ``lora_b``) and that the adversarial kernels were launched."""
+    from pcm_tpu_torch.configs.families import disc_config
+    from pcm_tpu_torch.models.unet import SDXL_CONFIG
+    from pcm_tpu_torch.train.adv import init_discriminator
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = ["--recipe", "sdxl_4phase_adv", "--train-data-dir", img_dir, "--output-dir", out_dir,
+            "--batch-size", "2", "--max-train-steps", "4", "--checkpointing-steps", "2",
+            "--log-every", "1", "--seed", str(seed), "--allow-hash-tokenizer",
+            "--adv-pairing", "fused", "--dataloader-workers", "4"]
+    run = _train_process(argv)
+    if run["rc"] != 0:
+        raise AssertionError(f"sdxl-pixels: exit {run['rc']}:\n" + "\n".join(run["lines"][-30:]))
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    with open(os.path.join(out_dir, "launches.jsonl")) as f:
+        counts = json.loads(f.readline())["launches"]
+    ck = torch.load(os.path.join(out_dir, "checkpoints", "step_0000004.pt"), map_location="cpu",
+                    weights_only=True)
+    _, init = init_discriminator(disc_config("sdxl"), SDXL_CONFIG.tap_channels(),
+                                 torch.Generator("cuda").manual_seed(seed + 1),
+                                 torch.device("cuda"))
+    heads_moved = max(float((ck["d_params"][k] - v.cpu()).abs().max()) for k, v in init.items())
+    lora_b = max(float(v.abs().max()) for k, v in ck["lora"].items() if k.endswith("lora_b"))
+    kohya = [os.path.join(out_dir, f"pcm_lora_{s:07d}.safetensors") for s in (2, 4)]
+    decoder = [ln for ln in run["lines"] if " decoder" in ln and ln.startswith("# ")]
+    return {"rows": rows, "counts": counts, "heads_moved": heads_moved, "lora_b_max": lora_b,
+            "kohya": all(os.path.exists(p) for p in kohya), "updates": (ck["lora_step"],
+                                                                        ck["d_step"]),
+            "decoder": decoder[0][2:] if decoder else "not printed"}
+
+
+def serve_sdxl(run_dir: str, seed: int, gen) -> dict:
+    """Phase 18: the engine of ``python -m pcm_tpu_torch.serving --family
+    sdxl --lora <step-4 file>`` (its own `build_engine`) behind the HTTP
+    server, 2 steps, batch 4, 1024 px: a full batch of 4 and a partial one,
+    the shared request's image equal bit for bit; steady batch latency; a
+    teacher engine on the same weights at guidance 7.5 (K5, the UNet at
+    batch 8); the UNet's batch-4 forward with cuDNN on and off."""
+    import dataclasses
+
+    from pcm_tpu_torch.core.schedule import make_ddpm_schedule
+    from pcm_tpu_torch.data.tokenizer import HashTokenizer
+    from pcm_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pcm_tpu_torch.sampling.ddim import DDIMSampler
+    from pcm_tpu_torch.serving import BatchingServer, InferenceEngine
+    from pcm_tpu_torch.serving.__main__ import build_engine, build_parser, check_args
+
+    ap = build_parser()
+    args = ap.parse_args(["--family", "sdxl", "--lora", os.path.join(
+        run_dir, "pcm_lora_0000004.safetensors"), "--batch-size", "4", "--steps", "2",
+        "--seed", str(seed)])
+    check_args(ap, args)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    engine = build_engine(args)
+    server = BatchingServer(engine, "127.0.0.1", 0, max_wait_ms=1000.0)
+    server.start()
+    url = "http://127.0.0.1:%d/generate" % server.address[1]
+    full = [{"key": f"f{i}", "prompt": f"a photo of subject {i}", "seed": 300 + i}
+            for i in range(4)]
+    partial = [{"key": "p0", "prompt": full[1]["prompt"], "seed": full[1]["seed"]},
+               {"key": "p1", "prompt": "a partial batch", "seed": 9}]
+    res = {}
+    try:
+        _concurrent(url, full, res)
+        _concurrent(url, partial, res)
+        s_lat = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.generate_batch([p["prompt"] for p in full], [p["seed"] for p in full])
+            s_lat.append((time.perf_counter() - t0) * 1000)
+        stats = server.stats()
+    finally:
+        server.stop()
+    s_counts, s_peak = launch_counts(), torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    teacher = InferenceEngine(engine.bundle, DDIMSampler.create(make_ddpm_schedule(), 2),
+                              engine.frozen, None, {"input_ids": HashTokenizer(),
+                                                    "input_ids_2": HashTokenizer()},
+                              dataclasses.replace(engine.cfg, guidance_scale=7.5),
+                              torch.device("cuda"))
+    t_lat = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs_t = teacher.generate_batch([f"teacher prompt {j}" for j in range(4)],
+                                        [400 + j for j in range(4)])
+        t_lat.append((time.perf_counter() - t0) * 1000)
+    t_counts, t_peak = launch_counts(), torch.cuda.max_memory_allocated()
+
+    bundle, frozen = engine.bundle, engine.frozen
+    x = torch.randn((4, XL_RES // 8, XL_RES // 8, 4), generator=gen, device="cuda")
+    t = torch.full((4,), 999.0, device="cuda")
+    cond = engine._encode([p["prompt"] for p in full])
+    unet_ms = {}
+    with torch.inference_mode():
+        for on in (True, False):
+            with torch.backends.cudnn.flags(enabled=on):
+                unet_ms["cudnn_on" if on else "cudnn_off"] = cuda_ms(
+                    lambda: bundle.student(frozen, engine.lora, x, t, cond), iters=5, warmup=1)
+    pngs = {k: base64.b64decode(r["image_b64"]) for k, r in res.items()}
+    return {"sizes": {k: r["batch_size"] for k, r in res.items()},
+            "same_seed_identical": pngs["f1"] == pngs["p0"], "differ": pngs["f0"] != pngs["f1"],
+            "header": _png_header(pngs["f0"]), "student_batch_ms": s_lat,
+            "teacher_batch_ms": t_lat, "student_peak_bytes": s_peak, "teacher_peak_bytes": t_peak,
+            "student_counts": s_counts, "teacher_counts": t_counts,
+            "counts": {k: s_counts[k] + t_counts[k] for k in s_counts}, "stats": stats,
+            "teacher_shape": imgs_t.shape, "unet_ms": unet_ms, "lora": engine.lora_source}
+
+
+def sdxl_phases(seed: int, gen) -> list:
+    """Phases 15-18, each checked; returns the runs whose launches count."""
+    xv = sdxl_vae_vs_reference(gen)
+    for tag, batch in (("encode", 1), ("decode", 4)):
+        r = xv[tag]
+        log("sdxl-vae", op=tag, batch=batch, shape=r["shape"],
+            **{k: "%.3e/%.3e" % r[k] for k in ("all", "noise")}, bounds="max(2e-2,2*noise)",
+            ms=f"{r['ms']:.3f}", peak_gib=f"{r['peak_bytes'] / 2**30:.3f}",
+            counts=json.dumps(r["counts"]))
+        caps = [max(2e-2, 2 * n) for n in r["noise"]]
+        if not (r["finite"] and all(e <= c for e, c in zip(r["all"], caps))
+                and r["counts"]["flash_attention_fwd"] > 0 and r["counts"]["group_norm_silu"] > 0):
+            raise AssertionError(f"full-width SDXL VAE {tag}, kernels vs plain: {r}")
+    log("sdxl-vae", decode_chunk4_position_invariant=xv["decode_chunk4_position_invariant"],
+        decode_chunk1_position_invariant=xv["decode_chunk1_position_invariant"],
+        decode_chunk1_ms=f"{xv['decode_chunk1_ms']:.3f}",
+        encode_batch4_peak_gib=json.dumps({c: round(b / 2**30, 3)
+                                           for c, b in xv["encode4_peak_bytes"].items()}))
+
+    tw = sdxl_towers(gen)
+    log("sdxl-towers", batch=4, shapes=tw["shapes"], finite=tw["finite"], ms=f"{tw['ms']:.3f}",
+        params_m=json.dumps(tw["params_m"]))
+    if not (tw["finite"] and tw["shapes"] == ((4, 77, 2048), (4, 1280))):
+        raise AssertionError(f"SDXL text towers: {tw}")
+
+    xl_imgs = write_xl_images("build/chip_smoke/images_xl", seed)
+    xc = sdxl_cache(xl_imgs, "build/chip_smoke/cache_xl_pixels", seed)
+    log("sdxl-pixels", cache_shapes=json.dumps(xc["shapes"]), seconds=f"{xc['seconds']:.1f}",
+        time_ids=json.dumps(xc["time_ids"]), counts=json.dumps(xc["counts"]))
+    if not (xc["rc"] == 0 and xc["finite"] and xc["shapes"] == {
+            "latents": (8, 128, 128, 4), "prompt_embeds": (8, 77, 2048),
+            "pooled_embeds": (8, 1280), "time_ids": (8, 6)}
+            and any(row != XL_TIME_IDS_PLAIN for row in xc["time_ids"])
+            and xc["counts"]["flash_attention_fwd"] > 0 and xc["counts"]["group_norm_silu"] > 0):
+        raise AssertionError(f"SDXL latent cache: {xc}")
+    xp = train_xl_pixels(xl_imgs, "build/chip_smoke/train_xl_pixels", seed)
+    fed = loader_time_ids(xl_imgs, seed, 2, 2)  # the run's two batches (fused pairs)
+    rows = xp["rows"]
+    log("sdxl-pixels", decoder=repr(xp["decoder"]), steps=[r["step"] for r in rows],
+        losses=json.dumps([r.get("loss") for r in rows]),
+        d_losses=json.dumps([r.get("d_loss") for r in rows]),
+        step_ms=json.dumps([round(r["step_ms"], 1) for r in rows]),
+        peak_gib=f"{max(r['peak_gib'] for r in rows):.3f}", lora_b_max=f"{xp['lora_b_max']:.3e}",
+        heads_moved=f"{xp['heads_moved']:.3e}", updates=xp["updates"], kohya_2_4=xp["kohya"],
+        fed_time_ids=json.dumps(fed),
+        **{k: json.dumps([round(r[k], 4) for r in rows]) for k in HOST_COUNTERS},
+        counts=json.dumps(xp["counts"]))
+    losses = [r[k] for r in rows for k in ("loss", "d_loss") if k in r]
+    missing = [k for k in ADV_KERNELS if xp["counts"][k] == 0]
+    if not (rows and rows[-1]["step"] == 4 and len(losses) >= 4
+            and all(math.isfinite(x) for x in losses) and xp["kohya"] and not missing
+            and xp["lora_b_max"] > 0 and xp["heads_moved"] > 0 and xp["updates"] == (2, 2)
+            and any(row != XL_TIME_IDS_PLAIN for b in fed for row in b)):
+        raise AssertionError(f"SDXL training from pixels: {xp} (kernels not launched: "
+                             f"{missing}; fed time_ids {fed})")
+
+    sv = serve_sdxl("build/chip_smoke/train_xl_pixels", seed, gen)
+    log("sdxl-serve", sizes=json.dumps(sv["sizes"]), same_seed_identical=sv["same_seed_identical"],
+        student_batch_ms=json.dumps([round(x, 1) for x in sv["student_batch_ms"]]),
+        teacher_batch_ms=json.dumps([round(x, 1) for x in sv["teacher_batch_ms"]]),
+        student_peak_gib=f"{sv['student_peak_bytes'] / 2**30:.3f}",
+        teacher_peak_gib=f"{sv['teacher_peak_bytes'] / 2**30:.3f}",
+        unet_bs4_ms=json.dumps({k: round(v, 2) for k, v in sv["unet_ms"].items()}),
+        lora=repr(sv["lora"]), student=json.dumps(sv["student_counts"]),
+        teacher=json.dumps(sv["teacher_counts"]))
+    sc, tc = sv["student_counts"], sv["teacher_counts"]
+    if not (sv["sizes"] == {"f0": 4, "f1": 4, "f2": 4, "f3": 4, "p0": 2, "p1": 2}
+            and sv["same_seed_identical"] and sv["differ"] and sv["header"] == (1024, 1024, 8, 2)
+            and sv["teacher_shape"] == (4, 1024, 1024, 3) and sc["geglu"] == 0
+            and tc["geglu"] > 0 and all(c[k] > 0 for c in (sc, tc)
+                                        for k in ("flash_attention_fwd", "group_norm_silu"))
+            and sv["lora"].endswith("pcm_lora_0000004.safetensors")):
+        raise AssertionError(f"SDXL serving: {sv}")
+
+    return [xv["encode"], xv["decode"], xc, xp, sv]
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1419,6 +1825,8 @@ def main() -> int:
             and sl["shape"] == (512, 512, 3) and sl["counts"]["flash_attention_fwd"] > 0):
         raise AssertionError(f"serving the trained kohya files: {sl}")
 
+    xl_runs = sdxl_phases(args.seed, gen)
+
     kernels["int8_matmul"] = k6
     sources = {"flash_attention_fwd": ("pcm_tpu_torch/csrc/flash_attention.cu",
                                        "pcm_tpu/ops/flash_attention.py:105"),
@@ -1431,16 +1839,17 @@ def main() -> int:
                "geglu": ("pcm_tpu_torch/csrc/geglu.cu", "pcm_tpu/ops/geglu.py:47"),
                "int8_matmul": ("pcm_tpu_torch/csrc/int8_matmul.cu",
                                "pcm_tpu/ops/int8_matmul.py:56")}
-    runs = (s, tr, ti, sx, *adv_runs, enc, px, sl)
+    runs = (s, tr, ti, sx, *adv_runs, enc, px, sl, *xl_runs)
     launches = {k: sum(run["counts"][k] for run in runs) for k in sources}
     kernels["group_norm_silu"]["fp32_launches"] = sum(
         run["counts"]["group_norm_silu_fp32"] for run in runs)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # second headlines (K1, K2, K3, K5, K6), K1's VAE head and K5's bare product
+    # second headlines (K1, K2, K3, K5, K6), K1's VAE head and K5's bare product;
+    # the SDXL VAE's K1 and K4 rows at 1024 px
     extra = ("sdxl_ms", "sdxl_plain_ms", "sdxl_bound_ms", "sdxl_library_ms", "vae_ms",
              "vae_plain_ms", "vae_bound_ms", "vae_library_ms", "product_ms", "sdxl_product_ms",
              "act_none_library", "fp32_shape", "fp32_ms", "fp32_plain_ms", "fp32_bound_ms",
-             "fp32_library_ms", "fp32_max_abs_err", "fp32_launches")
+             "fp32_library_ms", "fp32_max_abs_err", "fp32_launches", "vae_1024", "gn_1024")
     line = {"kernels": [{"name": k, "route": "cuda", "source": sources[k][0],
                          "replaces": sources[k][1], "launches": launches[k],
                          **{f: kernels[k][f] for f in keys},

@@ -1,6 +1,6 @@
 """Model-family bundle constructors, the training recipes and each family's
 discriminator (counterpart of `pcm_tpu/configs/families.py`; bundles for
-SD1.5 and, on cached embeddings, SDXL so far)."""
+SD1.5 and SDXL so far)."""
 
 from __future__ import annotations
 
@@ -9,9 +9,9 @@ import dataclasses
 import torch
 
 from ..lora.layers import LoRASpec
-from ..models.clip import CLIP_L_CONFIG, CLIPTextConfig
+from ..models.clip import CLIP_BIG_G_CONFIG, CLIP_L_CONFIG, CLIPTextConfig
 from ..models.unet import SD15_CONFIG, SDXL_CONFIG, TINY_SDXL_CONFIG, TINY_UNET_CONFIG
-from ..models.vae import SD15_VAE_CONFIG, TINY_VAE_CONFIG
+from ..models.vae import SD15_VAE_CONFIG, SDXL_VAE_CONFIG, TINY_VAE_CONFIG
 from ..train.adv import SD15_DISC_CONFIG, SDXL_DISC_CONFIG, DiscriminatorConfig
 from ..train.bundles import SD15Bundle, SDXLBundle, SD_UNET_LORA_TARGETS
 from ..train.distill import DistillConfig
@@ -19,6 +19,11 @@ from ..train.distill import DistillConfig
 # tiny text tower for `tiny=True` (CPU smoke mode): CLIP-width vocab, width
 # matched to TINY_UNET_CONFIG.cross_attention_dim
 _TINY_CLIP_SD15 = CLIPTextConfig(hidden_size=32, num_layers=2, num_heads=2, intermediate_size=64)
+# SDXL's two towers, concatenated to TINY_SDXL_CONFIG's 32-wide context; bigG's
+# projection is its 32-wide pooled input (`pcm_tpu/configs/families.py:33-39`)
+_TINY_CLIP_XL1 = CLIPTextConfig(hidden_size=16, num_layers=2, num_heads=2, intermediate_size=32)
+_TINY_CLIP_XL2 = CLIPTextConfig(hidden_size=16, num_layers=2, num_heads=2, intermediate_size=32,
+                                hidden_act="gelu", projection_dim=32)
 
 
 def sd15_bundle(lora_rank: int = 64, dtype: torch.dtype = torch.bfloat16,
@@ -35,9 +40,11 @@ def sd15_bundle(lora_rank: int = 64, dtype: torch.dtype = torch.bfloat16,
 
 def sdxl_bundle(lora_rank: int = 64, dtype: torch.dtype = torch.bfloat16,
                 tiny: bool = False, remat: bool = False) -> SDXLBundle:
-    """SDXL on cached latents and text embeddings (the bundle holds the UNet)."""
     return SDXLBundle(
         unet_cfg=TINY_SDXL_CONFIG if tiny else SDXL_CONFIG,
+        vae_cfg=TINY_VAE_CONFIG if tiny else SDXL_VAE_CONFIG,
+        text_cfg=_TINY_CLIP_XL1 if tiny else CLIP_L_CONFIG,
+        text2_cfg=_TINY_CLIP_XL2 if tiny else CLIP_BIG_G_CONFIG,
         lora=LoRASpec(rank=lora_rank, alpha=8.0, targets=SD_UNET_LORA_TARGETS),
         dtype=dtype,
         remat=remat,

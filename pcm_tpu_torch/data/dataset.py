@@ -1,9 +1,11 @@
 """Image-folder dataset with sidecar ``.txt`` captions and a parallel loader
-(counterpart of `pcm_tpu/data/dataset.py:23-236`, the SD1.5 path).
+(counterpart of `pcm_tpu/data/dataset.py:23-236`).
 
 `ImageFolderDataset` resizes each image's shortest side to the resolution
-(Lanczos-3, `data/native_image.py`), center-crops it (SD1.5; SDXL's random
-crop is not ported), scales it to [-1, 1] and reads ``<stem>.txt`` as its caption
+(Lanczos-3, `data/native_image.py`), crops it to a square, center (SD1.5)
+or at random (SDXL, which also returns the resized size and the crop's
+top-left corner for the UNet's micro-conditioning), scales it to [-1, 1]
+and reads ``<stem>.txt`` as its caption
 (empty when missing), replaced by the empty prompt with probability
 ``proportion_empty_prompts``; a sample that fails to load is replaced by
 another drawn at random, up to 16 times (the reference's skip-bad-sample
@@ -57,11 +59,13 @@ def sample_rng(seed: int, epoch: int, position: int) -> random.Random:
 
 class ImageFolderDataset:
     def __init__(self, root: str, resolution: int = 512, proportion_empty_prompts: float = 0.0,
-                 seed: int = 0, use_native: Optional[bool] = None):
+                 seed: int = 0, use_native: Optional[bool] = None,
+                 crop: str = "center"):  # "center" | "random" (SDXL)
         self.files = list_image_files(root)
         if not self.files:
             raise FileNotFoundError(f"no images under {root}")
         self.resolution = resolution
+        self.crop = crop
         self.proportion_empty_prompts = proportion_empty_prompts
         self.seed = seed
         self.use_native = native_image.available() if use_native is None else use_native
@@ -80,10 +84,16 @@ class ImageFolderDataset:
         return len(self.files)
 
     def _load(self, idx: int, rng: random.Random) -> Dict:
+        """The sample; ``rng`` draws the random crop's left, then its top, then
+        the dropout, in the JAX dataset's order (`pcm_tpu/data/dataset.py:91-104`)."""
         path, res = self.files[idx], self.resolution
         rgb = native_image.load_resized(path, res, self.use_native)
         h, w = rgb.shape[:2]
-        left, top = (w - res) // 2, (h - res) // 2
+        if self.crop == "center":
+            left, top = (w - res) // 2, (h - res) // 2
+        else:
+            left = rng.randint(0, w - res) if w > res else 0
+            top = rng.randint(0, h - res) if h > res else 0
         crop = rgb[top:top + res, left:left + res]
         caption = ""
         cap_path = os.path.splitext(path)[0] + ".txt"
@@ -92,7 +102,11 @@ class ImageFolderDataset:
                 caption = f.read().strip()
         if self.proportion_empty_prompts > 0 and rng.random() < self.proportion_empty_prompts:
             caption = ""
-        return {"pixel_values": crop.astype(np.float32) / 127.5 - 1.0, "caption": caption}
+        out = {"pixel_values": crop.astype(np.float32) / 127.5 - 1.0, "caption": caption}
+        if self.crop == "random":  # SDXL's micro-conditioning
+            out["original_size"] = np.asarray([h, w], np.float32)
+            out["crop_coords"] = np.asarray([top, left], np.float32)
+        return out
 
     def get(self, idx: int, rng: Optional[random.Random] = None) -> Dict:
         """Sample ``idx`` (its randomness from ``rng``, else from (seed, 0, idx));
@@ -164,15 +178,25 @@ class DataLoader:
             feed.close()
 
 
-def make_collate(tokenizers: Mapping[str, Callable]) -> Callable[[List[Dict]], Dict]:
-    """SD1.5's batch assembly: stacked pixels and each tower's token ids of
-    the captions (`pcm_tpu/data/dataset.py:219-236` without SDXL's time_ids)."""
+def make_collate(tokenizers: Mapping[str, Callable], resolution: Optional[int] = None,
+                 sdxl: bool = False) -> Callable[[List[Dict]], Dict]:
+    """The batch assembly (`pcm_tpu/data/dataset.py:219-236`): stacked pixels,
+    each tower's token ids of the captions and, with ``sdxl`` (samples of a
+    random-crop dataset), ``time_ids`` [orig_h, orig_w, top, left,
+    resolution, resolution] in float32."""
+    if sdxl and not resolution:
+        raise ValueError("the SDXL collate needs the resolution (the time_ids' target size)")
 
     def collate(samples: List[Dict]) -> Dict[str, np.ndarray]:
         caps = [s["caption"] for s in samples]
         batch = {"pixel_values": np.stack([s["pixel_values"] for s in samples])}
         for key, tok in tokenizers.items():
             batch[key] = tok(caps)
+        if sdxl:
+            orig = np.stack([s["original_size"] for s in samples])
+            crop = np.stack([s["crop_coords"] for s in samples])
+            target = np.full((len(samples), 2), resolution, np.float32)
+            batch["time_ids"] = np.concatenate([orig, crop, target], axis=1)
         return batch
 
     return collate

@@ -30,7 +30,12 @@ class CLIPTextConfig:
     projection_dim: Optional[int] = None
 
 
-CLIP_L_CONFIG = CLIPTextConfig()
+CLIP_L_CONFIG = CLIPTextConfig()  # SD1.5; SDXL's first tower
+# SDXL's second tower (OpenCLIP bigG as CLIPTextModelWithProjection):
+# `pcm_tpu/models/clip.py:41`, exact-erf gelu, a bias-free 1280 projection
+CLIP_BIG_G_CONFIG = CLIPTextConfig(hidden_size=1280, num_layers=32, num_heads=20,
+                                   intermediate_size=5120, hidden_act="gelu",
+                                   projection_dim=1280)
 
 
 def _act(name: str):

@@ -1,4 +1,4 @@
-"""AutoencoderKL for SD1.5 (counterpart of `pcm_tpu/models/vae.py`), diffusers
+"""AutoencoderKL for SD1.5 and SDXL (counterpart of `pcm_tpu/models/vae.py`), diffusers
 names: the ``Encoder`` and ``quant_conv`` (training from pixels), and
 ``post_quant_conv`` and the ``Decoder`` (serving). NCHW in channels-last
 memory; GroupNorm (+SiLU) is K4 and the mid-block's single-head attention
@@ -31,6 +31,7 @@ class VAEConfig:
 
 
 SD15_VAE_CONFIG = VAEConfig()
+SDXL_VAE_CONFIG = VAEConfig(scaling_factor=0.13025)  # the same module, its own scale
 TINY_VAE_CONFIG = VAEConfig(block_out_channels=(32, 64), layers_per_block=1)
 
 

@@ -1,7 +1,8 @@
 """Few-step text-to-image pipeline (counterpart of `pcm_tpu/sampling/pipeline.py`).
 
 Text encode, k UNet forwards with optional classifier-free guidance (cond
-and uncond batched into one forward), sampler steps, VAE decode. Runs under
+and uncond batched into one forward, every leaf of the cond tree: SDXL's
+``added_cond`` too), sampler steps, VAE decode. Runs under
 ``torch.inference_mode()``. On a CUDA device every GroupNorm, attention and
 (teacher) GEGLU goes through the port's kernels.
 """
@@ -14,27 +15,28 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..lora.layers import LoRA
+from ..train.distill import _merge_cond
 
 
 @dataclasses.dataclass(frozen=True)
 class TextToImagePipeline:
-    bundle: Any  # SD15Bundle
+    bundle: Any  # SD15Bundle | SDXLBundle
     sampler: Any  # DDIMSampler
 
     @torch.inference_mode()
     def generate(self, frozen: Dict[str, Any], lora: LoRA, cond: Dict[str, Any],
                  uncond: Optional[Dict[str, Any]], init_latents: torch.Tensor,
-                 guidance_scale: float = 1.0) -> torch.Tensor:
+                 guidance_scale: float = 1.0, decode_chunk: Optional[int] = None
+                 ) -> torch.Tensor:
         """cond/uncond from ``bundle.encode_prompts``, starting noise
-        ``init_latents`` (N, h, w, C); returns (N, H, W, 3) images in [-1, 1].
-        The caller draws the noise (the engine: one generator per request seed)."""
+        ``init_latents`` (N, h, w, C); returns (N, H, W, 3) images in [-1, 1],
+        decoded ``decode_chunk`` samples at a time (None: the batch). The
+        caller draws the noise (the engine: one generator per request seed)."""
         bundle, sampler = self.bundle, self.sampler
-        embeds = cond["prompt_embeds"]
-        device = embeds.device
+        device = cond["prompt_embeds"].device
         latents = init_latents.float()
         use_cfg = guidance_scale > 1.0 and uncond is not None
-        merged = ({"prompt_embeds": torch.cat([embeds, uncond["prompt_embeds"]])}
-                  if use_cfg else cond)
+        merged = _merge_cond(cond, uncond) if use_cfg else cond
 
         def model_fn(x, t):
             ts = torch.full((x.shape[0],), float(t), device=device)
@@ -42,7 +44,9 @@ class TextToImagePipeline:
             # 32x32 on the H100) round a row differently by its position in
             # the batch; PyTorch's own per-sample convolution does not. So a
             # request's image stays the same in any batch, at the UNet's
-            # cuDNN speed-up (the VAE decoder measured position-invariant).
+            # cuDNN speed-up. The VAE decoder measured position-invariant at
+            # 512 px and not at 1024 px, where the serving CLI decodes one
+            # sample a call (``decode_chunk`` 1).
             with torch.backends.cudnn.flags(enabled=False):
                 if lora is None:
                     return bundle.teacher(frozen, x, ts, merged)
@@ -55,4 +59,4 @@ class TextToImagePipeline:
             else:
                 model_output = model_fn(latents, t)
             latents = sampler.step(model_output, i, latents)
-        return bundle.decode_latents(frozen, latents)
+        return bundle.decode_latents(frozen, latents, decode_chunk)

@@ -30,18 +30,31 @@ Adapter = Dict[str, torch.Tensor]
 class EngineConfig:
     batch_size: int = 4
     latent_hw: int = 64  # image side // vae scale
+    resolution: int = 512  # image side (SDXL's time_ids)
     guidance_scale: float = 1.0
+    decode_chunk: Optional[int] = None  # samples a VAE decode call (None: the batch)
 
 
-def make_prompt_encoder(bundle, toks: Mapping[str, Callable], frozen, device) -> Callable:
-    """``encode(prompts) -> cond`` over the bundle's text tower (SD1.5)."""
-    if type(bundle).__name__ != "SD15Bundle":
-        raise NotImplementedError(f"{type(bundle).__name__} serving is not yet ported")
+def make_prompt_encoder(bundle, toks: Mapping[str, Callable], frozen, device,
+                        resolution: int = 512) -> Callable:
+    """``encode(prompts) -> cond`` over the bundle's text towers
+    (`pcm_tpu/serving/engine.py:make_prompt_encoder`): SD1.5's CLIP-L, or
+    SDXL's two towers with ``time_ids`` [res, res, 0, 0, res, res]."""
+    family = type(bundle).__name__
+    if family not in ("SD15Bundle", "SDXLBundle"):
+        raise NotImplementedError(f"{family} serving is not yet ported")
+
+    def ids(key: str, prompts: Sequence[str]) -> torch.Tensor:
+        return torch.from_numpy(toks[key](list(prompts))).long().to(device)
 
     def encode(prompts: Sequence[str]):
-        ids = torch.from_numpy(toks["input_ids"](list(prompts))).long().to(device)
         with torch.inference_mode():
-            return bundle.encode_prompts(frozen, ids)
+            if family == "SD15Bundle":
+                return bundle.encode_prompts(frozen, ids("input_ids", prompts))
+            time_ids = torch.tensor([[resolution, resolution, 0, 0, resolution, resolution]],
+                                    dtype=torch.float32, device=device).repeat(len(prompts), 1)
+            return bundle.encode_prompts(frozen, ids("input_ids", prompts),
+                                         ids("input_ids_2", prompts), time_ids)
 
     return encode
 
@@ -63,7 +76,7 @@ class InferenceEngine:
         self.lora_source: Optional[str] = None
         self.adapters: Dict[str, Adapter] = {}
         self.pipe = TextToImagePipeline(bundle, sampler)
-        self._encode = make_prompt_encoder(bundle, toks, frozen, self.device)
+        self._encode = make_prompt_encoder(bundle, toks, frozen, self.device, cfg.resolution)
         self._lock = threading.Lock()  # one device executor
         self.stats = {"requests": 0, "batches": 0, "pad_rows": 0, "lora_swaps": 0}
         self._uncond = (self._encode([""] * cfg.batch_size)
@@ -151,7 +164,8 @@ class InferenceEngine:
                 raise KeyError(f"unknown adapter {adapter!r}; registered: {self.adapter_names}")
             lora = self.adapters[adapter] if adapter is not None else self.lora
             imgs = self.pipe.generate(self.frozen, lora, self._encode(prompts), self._uncond,
-                                      self._init_noise(seeds), self.cfg.guidance_scale)[:n].float()
+                                      self._init_noise(seeds), self.cfg.guidance_scale,
+                                      self.cfg.decode_chunk)[:n].float()
             if not torch.isfinite(imgs).all():
                 raise FloatingPointError("non-finite pixels in the generated batch")
             out = ((imgs + 1) * 127.5).clamp(0, 255).to(torch.uint8).cpu().numpy()

@@ -6,26 +6,32 @@
       --output-dir runs/sd15_4phase [--tokenizer-dir tok/ | --allow-hash-tokenizer]
   python -m pcm_tpu_torch.train --recipe sdxl_4phase_adv --cached-latents-dir xl_cache/ \\
       --output-dir runs/sdxl_adv [--adv-pairing fresh|fused]
+  python -m pcm_tpu_torch.train --recipe sdxl_4phase_adv --train-data-dir imgs/ \\
+      --output-dir runs/sdxl_adv [--tokenizer-dir tok/ | --allow-hash-tokenizer]
   python -m pcm_tpu_torch.train --recipe sd15_4phase --tiny --device cpu \\
       --cached-latents-dir tiny_cache/ --output-dir runs/tiny --max-train-steps 2
 
 The flags are those of `scripts/train.py` for this path: the sd15 recipes
 (consistency-only and ``sd15_2phase_adv``) on cached latents (``shard_*.npz``
 with ``latents`` and ``prompt_embeds``) and ``sdxl_4phase_adv`` on cached
-latents and embeddings (also ``pooled_embeds`` and ``time_ids``). The
-consistency-only sd15 recipes also train from a folder of images with
-sidecar ``.txt`` captions (``--train-data-dir``): each step encodes the
-batch's pixels with the VAE encoder (a posterior sample, in chunks of
-``--vae-encode-chunk``) and its captions with CLIP-L, as the reference does;
-the images are center-cropped at ``--resolution`` (the recipe's by default)
-and loaded by ``--dataloader-workers`` workers (`data/dataset.py`). Captions
+latents and embeddings (also ``pooled_embeds`` and ``time_ids``). Every one
+of them also trains from a folder of images with sidecar ``.txt`` captions
+(``--train-data-dir``): each step (each D and each G step of an adversarial
+recipe) encodes the batch's pixels with the VAE encoder (a posterior sample
+of its own, in chunks of ``--vae-encode-chunk``) and its captions with the
+text towers (CLIP-L; SDXL also CLIP-bigG), as the reference does; the
+images are cropped at ``--resolution`` (the recipe's by default), center
+for SD1.5, at random for SDXL (whose ``time_ids`` carry each image's size
+and crop), and loaded by ``--dataloader-workers`` workers
+(`data/dataset.py`). Captions
 take the tokenizer of ``--tokenizer-dir``, or hashed ids with
 ``--allow-hash-tokenizer`` (or ``--tiny``); cached runs hash the empty
 uncond prompt unless ``--tokenizer-dir`` is given. Without
 ``--teacher-checkpoint`` the weights are drawn on the device from
 ``--seed``, the discriminator heads of the adversarial recipes from
 ``--seed + 1``. The SD1.5 uncond embeddings are encoded once, from empty
-prompts; SDXL's are zeros inside the step. ``--adv-pairing fresh`` (the
+prompts; SDXL's are zeros inside the step. SDXL on caches draws the UNet
+alone, from pixels the VAE and both text towers too. ``--adv-pairing fresh`` (the
 default) alternates a D update (even global steps) and a G update (odd),
 each on its own batch; ``fused`` trains both on one batch and counts the
 pair as two global steps, so ``--max-train-steps``, ``--log-every`` and
@@ -66,8 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="dir of shard_*.npz (latents, prompt_embeds; SDXL also "
                          "pooled_embeds, time_ids)")
     ap.add_argument("--train-data-dir", default=None,
-                    help="image folder with sidecar .txt captions (the sd15 consistency "
-                         "recipes)")
+                    help="image folder with sidecar .txt captions")
     ap.add_argument("--resolution", type=int, default=None,
                     help="image side of --train-data-dir (default: the recipe's)")
     ap.add_argument("--dataloader-workers", type=int, default=16,
@@ -80,10 +85,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="hash captions to ids without --tokenizer-dir (smoke runs only: the "
                          "text conditioning is garbage)")
     ap.add_argument("--vae-encode-chunk", type=int, default=None,
-                    help="samples a VAE encode call with --train-data-dir (default: the "
-                         "whole batch, up to 32)")
+                    help="samples a VAE encode call with --train-data-dir (default: 1 at >= "
+                         "1024 px with a batch above 1, as the reference; else the whole "
+                         "batch, up to 32)")
     ap.add_argument("--teacher-checkpoint", default=None,
-                    help="torch.save'd {'unet': sd, 'vae': sd, 'text': sd} state dicts")
+                    help="torch.save'd {'unet': sd, 'vae': sd, 'text': sd} state dicts "
+                         "(SDXL: also 'text2')")
     ap.add_argument("--max-train-steps", type=int, default=None)
     ap.add_argument("--batch-size", type=int, default=None, help="per-card batch")
     ap.add_argument("--seed", type=int, default=42)
@@ -150,9 +157,6 @@ def main(argv=None):
         ap.error(f"validation grids are {NOT_PORTED}")
     if bool(args.cached_latents_dir) == bool(args.train_data_dir):
         ap.error("pass one of --train-data-dir / --cached-latents-dir")
-    if args.train_data_dir and (recipe.family != "sd15" or recipe.adversarial):
-        ap.error(f"--train-data-dir with {args.recipe} is {NOT_PORTED} (the SDXL text towers "
-                 "and VAE, the adversarial steps' posterior draws): pass --cached-latents-dir")
     if args.train_data_dir and not (args.tokenizer_dir or args.allow_hash_tokenizer
                                     or args.tiny):
         ap.error("no tokenizer for the captions: pass --tokenizer-dir, or "
@@ -176,10 +180,10 @@ def main(argv=None):
     from .loop import LoopConfig, Trainer
     from .state import TrainState, make_optimizer
 
+    sdxl = recipe.family == "sdxl"
     if args.cached_latents_dir:
         ds = CachedLatentsDataset(args.cached_latents_dir)
-        needed = ("prompt_embeds", "pooled_embeds", "time_ids") if recipe.family == "sdxl" \
-            else ("prompt_embeds",)
+        needed = ("prompt_embeds", "pooled_embeds", "time_ids") if sdxl else ("prompt_embeds",)
         missing = [k for k in needed if k not in ds.get(0)]
         if missing:
             ap.error(f"cached shards without {missing} (captions through the text towers) "
@@ -191,11 +195,12 @@ def main(argv=None):
         try:
             images = ImageFolderDataset(args.train_data_dir, resolution=res,
                                         proportion_empty_prompts=recipe.proportion_empty_prompts,
-                                        seed=args.seed)
+                                        seed=args.seed, crop="random" if sdxl else "center")
         except (FileNotFoundError, ValueError) as e:
             ap.error(str(e))
+    tok_keys = ["input_ids", "input_ids_2"] if sdxl and args.train_data_dir else ["input_ids"]
     try:
-        toks = resolve_tokenizers(args.tokenizer_dir, ["input_ids"])
+        toks = resolve_tokenizers(args.tokenizer_dir, tok_keys)
     except (FileNotFoundError, OSError) as e:
         ap.error(str(e))
     batch = args.batch_size or recipe.batch_per_chip
@@ -207,10 +212,14 @@ def main(argv=None):
     make_bundle = sd15_bundle if recipe.family == "sd15" else sdxl_bundle
     bundle = make_bundle(recipe.lora_rank, dtype=dtype, tiny=args.tiny,
                          remat=args.remat == "full")
-    if args.train_data_dir:
-        bundle = dataclasses.replace(bundle, vae_encode_chunk=args.vae_encode_chunk or 32)
+    if args.train_data_dir:  # the reference's rule (`scripts/train.py:215-217`), else <= 32
+        chunk = args.vae_encode_chunk or (1 if res >= 1024 and batch > 1 else 32)
+        bundle = dataclasses.replace(bundle, vae_encode_chunk=chunk)
     gen = torch.Generator(device).manual_seed(args.seed)
-    frozen, lora = bundle.init(gen, device)
+    # SDXL on cached embeddings and latents needs the UNet alone (its draws are
+    # the whole bundle's: the other modules draw from streams of their own)
+    frozen, lora = (bundle.init(gen, device, modules=("unet",)) if sdxl and args.cached_latents_dir
+                    else bundle.init(gen, device))
     if args.teacher_checkpoint:
         frozen = bundle.from_states(torch.load(args.teacher_checkpoint, weights_only=True), device)
     if args.frozen_weights == "int8":  # --tiny: quantize the small TINY weights too
@@ -273,7 +282,7 @@ def main(argv=None):
 
         why = f" ({native_error()})" if images.decoder == "numpy" else ""
         print(f"# {len(images)} images at {res} px, {images.decoder} decoder{why}", flush=True)
-        data = DataLoader(images, proc_batch, make_collate(toks),
+        data = DataLoader(images, proc_batch, make_collate(toks, res, sdxl=sdxl),
                           num_workers=args.dataloader_workers, seed=args.seed)
     else:
         data = batches(ds, proc_batch, args.seed)

@@ -1,6 +1,7 @@
 """Model bundles for SD1.5 and SDXL (counterpart of `pcm_tpu/train/bundles.py`).
 
-``frozen`` is a dict of the bundle's modules (``unet``, ``vae``, ``text``);
+``frozen`` is a dict of the bundle's modules (``unet``, ``vae``, ``text``,
+and SDXL's ``text2``);
 adapters are dicts of LoRA factors (`lora/layers.py`). The bundle-level API
 keeps the JAX package's layout: latents and images are ``(N, H, W, C)``.
 """
@@ -67,6 +68,9 @@ def _own_stream(generator: torch.Generator, tag: int) -> torch.Generator:
 
 
 _ENCODER_STREAM = 0x5D15E  # the VAE encoder's weights (`SD15Bundle.init`)
+# SDXL's modules besides the UNet, each from a stream of its own (`SDXLBundle.init`)
+_SDXL_STREAMS = {"vae": 0x5D1C1, "text": 0x5D1C2, "text2": 0x5D1C3}
+TEXT_TOWERS = ("text", "text2")
 
 
 def _owner(root: nn.Module, param_name: str) -> nn.Module:
@@ -77,16 +81,17 @@ def _build(make: Callable[[], Frozen], lora: LoRASpec, dtype: torch.dtype,
            device: torch.device) -> Frozen:
     """The modules ``make()`` builds, with uninitialized weights on ``device``
     (``torch.device("meta")`` builds the structure only); LoRA marked on the
-    UNet, every module but the text tower in channels-last memory."""
+    UNet, every module but the text towers in channels-last memory."""
     with torch.device("meta"):
         frozen = make()
-    attach_lora(frozen["unet"], lora)
+    if "unet" in frozen:
+        attach_lora(frozen["unet"], lora)
     if torch.device(device).type == "meta":
         return frozen
     out = {}
     for k, m in frozen.items():
         m = m.to_empty(device=device).to(dtype).eval().requires_grad_(False)
-        if k != "text":
+        if k not in TEXT_TOWERS:
             m = m.to(memory_format=torch.channels_last)
         out[k] = m
     return out
@@ -97,6 +102,19 @@ def _from_states(frozen: Frozen, states: Mapping[str, Mapping[str, torch.Tensor]
         own = m.state_dict()
         m.load_state_dict({n: v for n, v in states[k].items() if n in own}, strict=True)
     return frozen
+
+
+def _decode(frozen: Frozen, latents: torch.Tensor, chunk: Optional[int]) -> torch.Tensor:
+    """(N, h, w, C) latents -> (N, H, W, 3) pixels in [-1, 1], ``chunk``
+    samples a decoder call (the reference's `_decode_chunked`: the batch
+    must divide by the chunk)."""
+    n = latents.shape[0]
+    if not chunk or n <= chunk:
+        return _nhwc(frozen["vae"].decode(_nchw(latents)))
+    if n % chunk:
+        raise ValueError(f"batch {n} not divisible by decode chunk {chunk}")
+    return torch.cat([_nhwc(frozen["vae"].decode(_nchw(latents[i:i + chunk])))
+                      for i in range(0, n, chunk)])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,9 +209,11 @@ class SD15Bundle:
         return torch.empty((n, h // s, w // s, self.vae_cfg.latent_channels), dtype=self.dtype,
                            device=batch["pixel_values"].device)
 
-    def decode_latents(self, frozen: Frozen, latents: torch.Tensor) -> torch.Tensor:
-        """(N, h, w, C) latents -> (N, H, W, 3) pixels in [-1, 1]."""
-        return _nhwc(frozen["vae"].decode(_nchw(latents)))
+    def decode_latents(self, frozen: Frozen, latents: torch.Tensor,
+                       chunk: Optional[int] = None) -> torch.Tensor:
+        """(N, h, w, C) latents -> (N, H, W, 3) pixels in [-1, 1], ``chunk``
+        samples a decoder call (None: the batch)."""
+        return _decode(frozen, latents, chunk)
 
     # -- forwards ----------------------------------------------------------
     def student(self, frozen: Frozen, lora: LoRA, x: torch.Tensor, t: torch.Tensor,
@@ -224,52 +244,104 @@ class SD15Bundle:
 
 @dataclasses.dataclass(frozen=True)
 class SDXLBundle:
-    """SDXL on cached text embeddings (`pcm_tpu/train/bundles.py:SDXLBundle`,
-    its cached path): the shard holds ``prompt_embeds`` (N, 77, 2048), the
-    pooled CLIP-bigG ``pooled_embeds`` (N, 1280) and ``time_ids`` (N, 6). The
-    text towers (CLIP-L + CLIP-bigG), ``encode_prompts`` and the SDXL VAE
-    are not yet ported, so ``frozen`` holds the UNet alone."""
+    """SDXL: CLIP-L and CLIP-bigG (penultimate hidden states concatenated,
+    bigG's projected pooled output), the SDXL VAE and the UNet's
+    micro-conditioning (`pcm_tpu/train/bundles.py:SDXLBundle`). A batch
+    holds cached ``prompt_embeds`` (N, 77, 2048) and ``pooled_embeds``
+    (N, 1280) or the two towers' ``input_ids`` and ``input_ids_2``; cached
+    ``latents`` or ``pixel_values``; and ``time_ids`` (N, 6): original
+    size, crop top-left, target size."""
 
     unet_cfg: UNetConfig
+    vae_cfg: VAEConfig
+    text_cfg: CLIPTextConfig  # CLIP-L
+    text2_cfg: CLIPTextConfig  # CLIP-bigG, with its projection
     lora: LoRASpec
     dtype: torch.dtype = torch.bfloat16
     remat: bool = False
+    vae_encode_chunk: Optional[int] = None  # samples a VAE encode call (None: the batch)
 
-    def build(self, device: torch.device) -> Frozen:
-        return _build(lambda: {"unet": UNet2DCondition(self.unet_cfg, remat=self.remat)},
-                      self.lora, self.dtype, device)
+    MODULES = ("unet", "vae", "text", "text2")
 
-    init = SD15Bundle.init
+    def build(self, device: torch.device, modules: Tuple[str, ...] = MODULES) -> Frozen:
+        """``modules`` of the bundle with uninitialized weights on ``device``."""
+        make = {"unet": lambda: UNet2DCondition(self.unet_cfg, remat=self.remat),
+                "vae": lambda: AutoencoderKL(self.vae_cfg),
+                "text": lambda: CLIPTextModel(self.text_cfg),
+                "text2": lambda: CLIPTextModel(self.text2_cfg)}
+        return _build(lambda: {k: make[k]() for k in modules}, self.lora, self.dtype, device)
+
+    def init(self, generator: torch.Generator, device: torch.device,
+             modules: Tuple[str, ...] = MODULES) -> Tuple[Frozen, Dict[str, torch.Tensor]]:
+        """Random weights of ``modules`` and the zero-effect adapter template
+        (empty without the UNet). The UNet and the template take
+        ``generator``'s draws, as when the bundle held the UNet alone; the
+        VAE and each text tower draw from a stream of their own
+        (`_own_stream`), so any subset of the modules gets the weights the
+        whole bundle gets."""
+        frozen = self.build(device, modules)
+        template = {}
+        if "unet" in frozen:
+            _fill_fan_in(frozen["unet"], generator)
+            template = init_lora(frozen["unet"], self.lora.rank, generator, device)
+        for k, tag in _SDXL_STREAMS.items():
+            if k in frozen:
+                _fill_fan_in(frozen[k], _own_stream(generator, tag))
+        return frozen, template
 
     def from_states(self, states: Mapping[str, Mapping[str, torch.Tensor]],
                     device: torch.device) -> Frozen:
-        return _from_states(self.build(device), states)
+        """The modules ``states`` names (of ``{"unet", "vae", "text",
+        "text2"}``) loaded from their state dicts; a run on cached
+        embeddings and latents needs the UNet alone."""
+        return _from_states(self.build(device, tuple(k for k in self.MODULES if k in states)),
+                            states)
+
+    # -- encoding / decoding ---------------------------------------------
+    def encode_prompts(self, frozen: Frozen, input_ids: torch.Tensor, input_ids_2: torch.Tensor,
+                       time_ids: torch.Tensor) -> Cond:
+        """The towers' penultimate hidden states concatenated (N, 77, 768 +
+        1280) and bigG's projected pooled output as ``text_embeds``
+        (`pcm_tpu/train/bundles.py:282-289`)."""
+        hidden1, _, _ = frozen["text"](input_ids)
+        hidden2, _, pooled2 = frozen["text2"](input_ids_2)
+        return {"prompt_embeds": torch.cat([hidden1[-2], hidden2[-2]], dim=-1),
+                "added_cond": {"text_embeds": pooled2, "time_ids": time_ids}}
 
     def encode(self, frozen: Frozen, batch: Mapping[str, torch.Tensor],
                vae_noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Cond, Cond]:
-        """(latents, cond, uncond) of a cached batch; the uncond branch is
-        zero embeds and zero pooled embeds with the same ``time_ids``
-        (`pcm_tpu/train/bundles.py:315-326`)."""
-        missing = [k for k in ("latents", "prompt_embeds", "pooled_embeds", "time_ids")
-                   if k not in batch]
-        if missing:
-            raise NotImplementedError(
-                f"SDXL batches without {missing} (the VAE encoder and the text towers) are "
-                "not yet ported to pcm_tpu_torch: train on cached latents and embeddings")
-        prompt_embeds, pooled = batch["prompt_embeds"], batch["pooled_embeds"]
+        """(latents, cond, uncond) of a training batch (`pcm_tpu/train/bundles.py:294-327`):
+        cached embeddings or the captions' ids through the towers; cached
+        ``latents`` or ``pixel_values`` through the VAE encoder with the
+        posterior noise ``vae_noise`` (`SD15Bundle.encode_pixels`). The
+        uncond branch is zero embeds and zero pooled embeds with the batch's
+        own ``time_ids``."""
         time_ids = batch["time_ids"]
+        if "prompt_embeds" in batch:
+            prompt_embeds, pooled = batch["prompt_embeds"], batch["pooled_embeds"]
+        else:
+            with torch.no_grad():
+                c = self.encode_prompts(frozen, batch["input_ids"], batch["input_ids_2"],
+                                        time_ids)
+            prompt_embeds, pooled = c["prompt_embeds"], c["added_cond"]["text_embeds"]
+        if "latents" in batch:
+            latents = batch["latents"]
+        else:
+            latents = self.encode_pixels(frozen, batch["pixel_values"], vae_noise)
         cond = {"prompt_embeds": prompt_embeds,
                 "added_cond": {"text_embeds": pooled, "time_ids": time_ids}}
         uncond = {"prompt_embeds": torch.zeros_like(prompt_embeds),
                   "added_cond": {"text_embeds": torch.zeros_like(pooled), "time_ids": time_ids}}
-        return batch["latents"], cond, uncond
+        return latents, cond, uncond
 
-    def latents_like(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        return batch["latents"]
-
+    encode_pixels = SD15Bundle.encode_pixels
+    latents_like = SD15Bundle.latents_like
+    decode_latents = SD15Bundle.decode_latents
     student = SD15Bundle.student
     teacher = SD15Bundle.teacher
     teacher_features = SD15Bundle.teacher_features
+    latent_channels = SD15Bundle.latent_channels
+    vae_scale = SD15Bundle.vae_scale
 
 
 def adapter_like(template: Mapping[str, torch.Tensor], generator: torch.Generator,

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Times of the forward kernels K1 (flash attention) and K5 (GEGLU) of one
 checkout of the port, at every shape of `chip_smoke.py`'s ``ATTN_SHAPES`` and
-``GEGLU_SHAPES`` (SD1.5 at 512 px and SDXL at 1024 px, batch 4), and K1 at
-the SDXL VAE mid-block's single 512-wide head at 1024 px (``VAE_SHAPES``:
-the SDXL VAE is not ported yet, so this shape runs here only).
+``GEGLU_SHAPES`` (SD1.5 at 512 px and SDXL at 1024 px, batch 4; K1 also at
+the VAE mid-blocks' single 512-wide head, the SDXL VAE's at 1024 px over
+16384 tokens at batch 1 and 4).
 
     python scripts/bench_forward_kernels.py [--root DIR] [--tag NAME] [--out FILE]
 
@@ -37,8 +37,6 @@ import torch.nn.functional as F
 from bench_attention_bwd import cuda_ms, device_ms, ptxas_report
 
 FWD_KERNELS = r"flash_fwd_(?:mma_|d512_)?kernel|geglu_kernel"
-# (b, sq, sk, h, d): the SDXL VAE's mid-block attention at 1024 px, batch 1
-VAE_SHAPES = [(1, 16384, 16384, 1, 512)]
 
 
 def main() -> int:
@@ -67,7 +65,7 @@ def main() -> int:
         print(json.dumps(row), flush=True)
         rows.append(row)
 
-    for shp in [*ATTN_SHAPES, *VAE_SHAPES]:
+    for shp in ATTN_SHAPES:
         b, sq, sk, h, d = shp
         q = torch.randn((b, sq, h, d), generator=gen, device="cuda").bfloat16()
         k, v = (torch.randn((b, sk, h, d), generator=gen, device="cuda").bfloat16() for _ in "kv")

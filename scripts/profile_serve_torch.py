@@ -1,9 +1,11 @@
 #!/usr/bin/env python
-"""Where the device time of the port's SD1.5 serving batch goes (CUDA only).
+"""Where the device time of the port's served batch goes (CUDA only).
 
-  python scripts/profile_serve_torch.py [--batch-size 4] [--steps 2] [--seed 0]
+  python scripts/profile_serve_torch.py [--family sd15|sdxl] [--batch-size 4] [--steps 2]
+      [--seed 0]
 
-Builds the full-width SD1.5 bundle with random weights, warms up one student
+Builds the full-width bundle with random weights (SD1.5 at 512 px, SDXL at
+1024 px with the serving CLI's decode chunk), warms up one student
 batch (seeded adapter, guidance 1.0) and one teacher batch (guidance 7.5),
 then traces one more of each with ``torch.profiler``. For each it prints
 the host wall time, the summed kernel time by category (the port's three
@@ -66,6 +68,7 @@ def trace(fn, label: str):
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--family", default="sd15", choices=["sd15", "sdxl"])
     ap.add_argument("--batch-size", type=int, default=4)
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
@@ -73,28 +76,35 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
 
-    from pcm_tpu_torch.configs.families import sd15_bundle
+    from pcm_tpu_torch.configs.families import sd15_bundle, sdxl_bundle
     from pcm_tpu_torch.core.schedule import make_ddpm_schedule
     from pcm_tpu_torch.data.tokenizer import HashTokenizer
     from pcm_tpu_torch.sampling.ddim import DDIMSampler
     from pcm_tpu_torch.serving import EngineConfig, InferenceEngine
+    from pcm_tpu_torch.serving.__main__ import FAMILIES, decode_chunk
     from pcm_tpu_torch.train.bundles import adapter_like
 
     dev = torch.device("cuda")
-    bundle = sd15_bundle()
+    bundle = sd15_bundle() if args.family == "sd15" else sdxl_bundle()
+    res, tok_keys = FAMILIES[args.family]
     gen = torch.Generator(dev).manual_seed(args.seed)
     frozen, template = bundle.init(gen, dev)
     sampler = DDIMSampler.create(make_ddpm_schedule(), args.steps)
-    toks = {"input_ids": HashTokenizer()}
+    toks = {k: HashTokenizer() for k in tok_keys}
     prompts = [f"a photo of subject {i}" for i in range(args.batch_size)]
     seeds = list(range(args.batch_size))
     for label, lora, cfg in (("student", adapter_like(template, gen), 1.0),
                              ("teacher", None, 7.5)):
         eng = InferenceEngine(bundle, sampler, frozen, lora, toks,
-                              EngineConfig(batch_size=args.batch_size, guidance_scale=cfg), dev)
+                              EngineConfig(batch_size=args.batch_size,
+                                           latent_hw=res // bundle.vae_scale, resolution=res,
+                                           guidance_scale=cfg,
+                                           decode_chunk=decode_chunk(res)),
+                              dev)
         eng.generate_batch(prompts, seeds)  # warm-up
         trace(lambda: eng.generate_batch(prompts, seeds),
-              f"{label} batch {args.batch_size} x 512px, {args.steps} steps, guidance {cfg}")
+              f"{args.family} {label} batch {args.batch_size} x {res}px, {args.steps} steps, "
+              f"guidance {cfg}")
     print(torch.cuda.get_device_name(0))
 
 

@@ -15,10 +15,12 @@ updates instead (``sd15_2phase_adv`` or ``sdxl_4phase_adv``, the heads
 drawn from the seed): one "step" is then a pair, a D step and a G step on
 their own draws (``fresh``) or one fused pair (``fused``), two global steps
 of the trainer. It feeds the step a seeded batch of latents and text
-embeddings made on the card, or with ``--pixels`` (SD1.5, consistency only)
-a seeded batch of 512-px pixels and hashed caption ids, which every step
-encodes with the VAE encoder (a posterior sample, the CLI's chunk of 32) and
-CLIP-L as ``--train-data-dir`` runs do; and times ``--steps`` steps on the host clock
+embeddings made on the card, or with ``--pixels`` a seeded batch of pixels
+and hashed caption ids (SD1.5 at 512 px; SDXL at 1024 px with ``--adv``, its
+only recipe, and uncropped ``time_ids``), which every step (each D and G
+step) encodes with the VAE encoder (a posterior sample, in the CLI's chunks:
+32, or 1 at 1024 px) and the text towers as ``--train-data-dir`` runs do;
+and times ``--steps`` steps on the host clock
 (each ends in a loss readback, a device sync): per-step ms, the median of all
 but the first two, and the peak memory. Then it traces one more step with
 ``torch.profiler``: host wall time, summed kernel time by category (the
@@ -150,12 +152,12 @@ def main() -> None:
     ap.add_argument("--adv", default=None, choices=["fresh", "fused"],
                     help="the adversarial recipe's D and G updates, a pair a step")
     ap.add_argument("--pixels", action="store_true",
-                    help="SD1.5 from 512-px pixels and caption ids (the VAE encoder and CLIP-L "
+                    help="from pixels and caption ids (the VAE encoder and the text towers "
                          "every step)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
-    if args.pixels and (args.family != "sd15" or args.adv):
-        raise SystemExit("--pixels is the sd15 consistency step only")
+    if args.pixels and args.family == "sdxl" and not args.adv:
+        raise SystemExit("--pixels with --family sdxl needs --adv (sdxl_4phase_adv)")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     if args.int8_matmul and args.frozen_weights != "int8":
@@ -199,7 +201,19 @@ def main() -> None:
                  "pooled_embeds": torch.randn((b, 1280), generator=gen, device=dev).bfloat16(),
                  "time_ids": torch.tensor([SDXL_CACHED_STEP.time_ids] * b, device=dev)}
         label = f"SDXL-1024 cached step, batch {b}"
-    frozen, lora = bundle.init(gen, dev)
+        if args.pixels:
+            from pcm_tpu_torch.data.tokenizer import HashTokenizer
+
+            bundle = dataclasses.replace(bundle, vae_encode_chunk=1 if b > 1 else None)
+            ids = torch.from_numpy(HashTokenizer()([f"a photo of subject {i}" for i in range(b)]))
+            batch = {"pixel_values": torch.rand((b, 1024, 1024, 3), generator=gen,
+                                                device=dev) * 2 - 1,
+                     "input_ids": ids.long().to(dev), "input_ids_2": ids.long().to(dev),
+                     "time_ids": batch["time_ids"]}
+            label = f"SDXL-1024 from pixels (VAE encode + CLIP-L + bigG), batch {b}"
+    # SDXL on caches needs the UNet alone (the other modules draw their own streams)
+    frozen, lora = (bundle.init(gen, dev, modules=("unet",))
+                    if args.family == "sdxl" and not args.pixels else bundle.init(gen, dev))
     if args.frozen_weights == "int8":
         quantize_frozen(frozen)
     if args.int8_matmul == "scoped":
@@ -229,7 +243,8 @@ def main() -> None:
 
         def one_step():  # noqa: F811
             def draws():
-                return [sample_draws(cfg, gen, batch["latents"], adv_schedule=schedule)]
+                return [sample_draws(cfg, gen, bundle.latents_like(batch), adv_schedule=schedule,
+                                     posterior=args.pixels)]
 
             if args.adv == "fused":
                 box["state"], box["d"], m = pair(box["state"], box["d"], frozen, batch, draws())

@@ -535,9 +535,9 @@ def test_trainer_feeder_errors_and_exhaustion(tmp_path):
 
     trainer = _trainer(tmp_path / "c", 50)
 
-    def endless():
+    def endless():  # the feeder runs ahead of the steps: it may never see step 3 itself
         while True:
-            if trainer.global_step == 3:
+            if trainer.global_step >= 3:
                 trainer.request_stop()
             yield {"latents": np.ones((1, 2, 2, 4), np.float32)}
 
@@ -636,12 +636,12 @@ def test_train_cli_pixels_sigterm_and_resume(tmp_path):
 
 
 @pytest.mark.parametrize("extra,msg", [
-    (["--recipe", "sdxl_4phase_adv"], "not yet ported"),
-    (["--recipe", "sd15_2phase_adv"], "not yet ported"),
+    (["--recipe", "sd3_2phase_adv"], "not yet ported"),
+    (["--recipe", "sd15_2phase_adv", "--frozen-weights", "int8"], "not yet ported"),
     (["--recipe", "sd15_4phase", "--cached-latents-dir", "x"], "one of"),
     (["--recipe", "sd15_4phase", "--no-tiny-tokenizer"], "no tokenizer"),
     (["--recipe", "sd15_4phase", "--with-bmp"], "1 of the 1 images")],
-    ids=["sdxl", "adversarial", "both_sources", "no_tokenizer", "unreadable_image"])
+    ids=["sd3", "adversarial_int8", "both_sources", "no_tokenizer", "unreadable_image"])
 def test_train_cli_refuses_pixels(tmp_path, capsys, extra, msg):
     from pcm_tpu_torch.train.__main__ import main
 
@@ -684,5 +684,5 @@ def test_cache_writer_feeds_both_readers(tmp_path):
                           str(tmp_path / "run"), "--batch-size", "2", "--max-train-steps", "1"])
     assert trainer.global_step == 1
     with pytest.raises(SystemExit):
-        cache_latents.main(["--family", "sdxl", "--device", "cpu", "--train-data-dir", imgs,
+        cache_latents.main(["--family", "sd3", "--device", "cpu", "--train-data-dir", imgs,
                             "--output-dir", str(tmp_path / "c3")])

@@ -181,7 +181,7 @@ def _batch(n, seed):
 def test_sdxl_encode_matches_jax(tiny):
     """The cached path: cond from the shard's keys, uncond zero embeds and
     zero pooled embeds with the same time_ids; `_merge_cond` batches the
-    nested ``added_cond``."""
+    nested ``added_cond``; a batch without embeddings needs caption ids."""
     jb = jax_sdxl_bundle(RANK, dtype=jnp.float32, remat=False, tiny=True)
     pb = sdxl_bundle(RANK, dtype=torch.float32, tiny=True)
     batch = _batch(3, 23)
@@ -199,8 +199,8 @@ def test_sdxl_encode_matches_jax(tiny):
     np.testing.assert_array_equal(merged["added_cond"]["text_embeds"].numpy(),
                                   np.asarray(ref["added_cond"]["text_embeds"]))
     assert merged["added_cond"]["time_ids"].shape == (6, 6)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pb.encode({}, {"latents": t(batch["latents"])})
+    with pytest.raises(KeyError, match="input_ids"):  # neither embeddings nor caption ids
+        pb.encode({}, {"latents": t(batch["latents"]), "time_ids": t(batch["time_ids"])})
 
 
 def test_cached_reader_reads_sdxl_keys(tmp_path):

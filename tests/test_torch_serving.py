@@ -242,7 +242,7 @@ def test_serve_entry_point_tiny_cpu():
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--family", "sdxl"], "not yet ported"),
+    (["--family", "sd3"], "not yet ported"),
     (["--stochastic"], "not yet ported"),
     (["--lora", "x.safetensors"], "no such file"),  # --lora is ported: tests/test_torch_kohya.py
 ])
