@@ -5,7 +5,10 @@ SDXL-1024 cached distillation step on int8 frozen weights, adversarial
 distillation of SD1.5 and SDXL-1024 on cached latents, SD1.5 training
 from images through to serving the kohya LoRA it writes, and SDXL-1024 from
 text and from pixels: its VAE and text towers, its latent cache, adversarial
-training from images and SDXL serving of the LoRA that training writes.
+training from images and SDXL serving of the LoRA that training writes; and
+SD3 at 1024 px: the MMDiT, T5-XXL and the two CLIP towers, the 16-channel
+VAE, the flow consistency step on cached latents and ``--family sd3``
+serving, deterministic and stochastic.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -26,7 +29,11 @@ Phases, one printed line each:
      SD1.5 and SDXL headline shapes; the GroupNorm Function's gradients; the fused
      int8 matmul (K6) at the SD1.5 and SDXL shapes of the int8 paths; K4 on
      fp32 at the discriminator heads' shapes (``fp32_*`` fields, beside
-     ``F.group_norm`` on the same tensor, bit-identical reruns); beside
+     ``F.group_norm`` on the same tensor, bit-identical reruns); K1 at SD3's
+     joint sequence (b, 4250, 4250, 24, 64), ragged in q and k, at the served
+     student's b = 4 (``sd3_*`` fields) and the CFG teacher's 8 (rows of
+     ``sd3_4250``), and K2 / K3 at the cached step's (2, 4250, 4250, 24, 64)
+     (``sd3_*`` fields); beside
      each kernel the least time the card could take (``bound_ms``) and the
      one PyTorch call that computes the same function, where there is one;
   4. unet: one full-width SD1.5 UNet forward at batch 4, kernels against the
@@ -111,6 +118,28 @@ Phases, one printed line each:
      for bit; a teacher engine on the same weights at guidance 7.5 (K5); the
      steady batch latency and peak of each; the UNet's batch-4 forward with
      cuDNN on and off.
+ 19. sd3-mmdit: the full-width SD3 MMDiT (2085.0 M params, remat full) at
+     batch 2, 128x128x16 latents and (154, 4096) context: one teacher forward
+     with K1 against every plain version within max(2e-2, 2 x the input-nudge
+     yardstick), its ms and 24 K1 launches; then the LoRA gradients of a
+     student forward + backward (rank 32, seeded b != 0) against the plain
+     versions and against K2 alone and K3 alone plain (as phase 6);
+ 20. sd3-step: the SD3 cached consistency step (`sd3_bundle` +
+     `build_flow_distill_step` on `SD3_CACHED_STEP`: 100 Euler solver steps,
+     4 phases, fixed w = 3, lr 5e-6) at batch 2 for 4 steps, zero uncond:
+     finite losses, step ms, peak memory, K1-K3 launched;
+ 21. sd3-towers: CLIP-L (768 projection), CLIP-bigG and T5-XXL
+     ``encode_prompts`` at batch 4: (4, 154, 4096) and (4, 2048), finite,
+     ms, T5's range;
+ 22. sd3-vae: the SD3 VAE decoding one 1024-px sample (as serving decodes),
+     kernels against plain within phase 15's rule, ms, K4 / K1 launches;
+ 23. sd3-serve: the engine of ``python -m pcm_tpu_torch.serving --family sd3
+     --lora <kohya file under lora_transformer>`` behind the HTTP server, 2
+     PCM-FM steps on the 100-point grid, batch 4, 1024 px: a full batch and
+     a partial one, the shared request's image equal bit for bit; a teacher
+     engine at guidance 3.0 (the MMDiT at batch 8); a ``--stochastic``
+     engine whose request image is also equal in a full and a partial batch
+     and differs from the deterministic one; batch latencies and peaks.
 Each main path runs with the launch counts set to 0 just before it and read
 just after. Then a JSON line of the kernels, the nvidia-smi line, and a last
 JSON line ``{"ok": true, ...}``.
@@ -202,15 +231,20 @@ def attn_bound(shape, products: int, outputs: int) -> dict:
 # (b, sq, sk, h, d) of the SDXL VAE's mid-block head at 1024 px: an encode at
 # batch 1, a decode at batch 4 (each a row of K1's ``vae_1024`` field)
 VAE_XL_ATTN = [(1, 16384, 16384, 1, 512), (4, 16384, 16384, 1, 512)]
+# (b, sq, sk, h, d) of SD3's joint attention at 1024 px, 4096 image + 154 text
+# tokens (66 x 64 + 26: ragged in q and k): the served student at batch 4,
+# the teacher under CFG at 8 (each a row of K1's ``sd3_4250`` field; the
+# first also its ``sd3_`` headline)
+SD3_ATTN = [(4, 4250, 4250, 24, 64), (8, 4250, 4250, 24, 64)]
 # (b, sq, sk, h, d): SD1.5 at 512 px, batch 4 (UNet self/cross, mid, VAE mid);
-# then the SDXL UNet at 1024 px, batch 4 (self/cross at 64x64 and 32x32); last
-# ``VAE_XL_ATTN``
+# then the SDXL UNet at 1024 px, batch 4 (self/cross at 64x64 and 32x32);
+# ``VAE_XL_ATTN``; last ``SD3_ATTN``
 ATTN_SHAPES = [
     (4, 4096, 4096, 8, 40), (4, 4096, 77, 8, 40), (4, 1024, 1024, 8, 80),
     (4, 1024, 77, 8, 80), (4, 256, 256, 8, 160), (4, 256, 77, 8, 160),
     (4, 64, 64, 8, 160), (4, 4096, 4096, 1, 512),
     (4, 4096, 4096, 10, 64), (4, 4096, 77, 10, 64), (4, 1024, 1024, 20, 64),
-    (4, 1024, 77, 20, 64), *VAE_XL_ATTN,
+    (4, 1024, 77, 20, 64), *VAE_XL_ATTN, *SD3_ATTN,
 ]
 # (shape NHWC, eps, act) of the SDXL VAE at 1024 px: the encoder's top level at
 # batch 1, the decoder's levels at batch 4 and its attention's norm (each a row
@@ -254,11 +288,14 @@ SDXL_HEADLINE = {"flash_attention_fwd": (4, 4096, 4096, 10, 64), "geglu": (8192,
 # a third, into ``vae_*`` fields: K1's 512-wide instance, the VAE mid-block's
 # single head (SD1.5 decode at batch 4)
 VAE_HEADLINE = {"flash_attention_fwd": (4, 4096, 4096, 1, 512)}
+# a fourth, into ``sd3_*`` fields: SD3's joint attention of the served student
+SD3_HEADLINE = {"flash_attention_fwd": SD3_ATTN[0]}
 
 
 def headline_prefix(name, key):
-    """The field prefix of a headline shape ("", "sdxl_", "vae_"), or None."""
-    for prefix, table in (("", HEADLINE), ("sdxl_", SDXL_HEADLINE), ("vae_", VAE_HEADLINE)):
+    """The field prefix of a headline shape ("", "sdxl_", "vae_", "sd3_"), or None."""
+    for prefix, table in (("", HEADLINE), ("sdxl_", SDXL_HEADLINE), ("vae_", VAE_HEADLINE),
+                          ("sd3_", SD3_HEADLINE)):
         if key == table.get(name):
             return prefix
     return None
@@ -311,16 +348,17 @@ def check_kernels(gen) -> dict:
             raise AssertionError(f"flash attention {shp}: rel {err:.3e}, lse {err_lse:.3e}, "
                                  f"bit-identical rerun {same}")
         record("flash_attention_fwd", shp, abs_max(o, ref), ms, plain)
-        if headline_prefix("flash_attention_fwd", shp) is not None or shp in VAE_XL_ATTN:
+        rows = "vae_1024" if shp in VAE_XL_ATTN else "sd3_4250" if shp in SD3_ATTN else None
+        if headline_prefix("flash_attention_fwd", shp) is not None or rows:
             qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))  # (b, h, s, d)
             lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
-            if shp in VAE_XL_ATTN:
+            if rows:
                 row = {"shape": shp, "rel_max": err, "ms": ms, "plain_ms": plain,
                        "bound_ms": attn_bound(shp, 2, 1)["bound_ms"], "library_ms": lib}
-                results["flash_attention_fwd"].setdefault("vae_1024", []).append(row)
+                results["flash_attention_fwd"].setdefault(rows, []).append(row)
                 log("kernel", name="flash_attention_fwd", **{k: f"{v:.4f}" if isinstance(
                     v, float) else v for k, v in row.items()})
-            else:
+            if rows != "vae_1024" and headline_prefix("flash_attention_fwd", shp) is not None:
                 headline("flash_attention_fwd", shp, library_ms=lib, **attn_bound(shp, 2, 1))
             del qt, kt, vt
         del q, k, v, o, ref, again
@@ -421,16 +459,20 @@ def check_kernels(gen) -> dict:
 
 
 # (b, sq, sk, h, d): the SD1.5 UNet's attentions at 512 px, training batch 4,
-# then SDXL's at 1024 px
+# then SDXL's at 1024 px, then SD3's joint attention of the cached step's
+# student (batch 2, 4250 tokens: ragged in q and k)
 BWD_SHAPES = [
     (4, 4096, 4096, 8, 40), (4, 4096, 77, 8, 40), (4, 1024, 1024, 8, 80),
     (4, 1024, 77, 8, 80), (4, 256, 256, 8, 160), (4, 256, 77, 8, 160),
     (4, 64, 64, 8, 160), (4, 64, 77, 8, 160),
     (4, 4096, 4096, 10, 64), (4, 4096, 77, 10, 64), (4, 1024, 1024, 20, 64),
-    (4, 1024, 77, 20, 64),
+    (4, 1024, 77, 20, 64), (2, 4250, 4250, 24, 64),
 ]
 BWD_HEADLINE = (4, 4096, 4096, 8, 40)
-BWD_SDXL = (4, 4096, 4096, 10, 64)  # second headline: SDXL-1024 self-attention
+# the field prefix of each headline: SD1.5 (plain fields), SDXL-1024
+# self-attention, SD3's joint attention
+BWD_HEADLINES = {BWD_HEADLINE: "", (4, 4096, 4096, 10, 64): "sdxl_",
+                 (2, 4250, 4250, 24, 64): "sd3_"}
 
 
 def _autograd(fn, inputs, grad_out):
@@ -452,8 +494,9 @@ def check_backward(gen) -> dict:
     """K2/K3 through FlashAttentionFn against autograd of the fp32 plain
     attention on the same bf16 inputs; each kernel timed alone against its
     plain version (from the same saved o / lse / delta). At the SD1.5 and the
-    SDXL headline shapes also the SDPA backward (dQ, dK, dV in one call) and
-    the bounds; the SDXL readings go into ``sdxl_*`` fields."""
+    SDXL and SD3 headline shapes also the SDPA backward (dQ, dK, dV in one
+    call) and the bounds; the SDXL and SD3 readings go into ``sdxl_*`` and
+    ``sd3_*`` fields."""
     from pcm_tpu_torch.ops.flash_attention import (attention_bwd_dkv_reference,
                                                    attention_bwd_dq_reference, attention_delta,
                                                    attention_reference, flash_attention,
@@ -495,20 +538,20 @@ def check_backward(gen) -> dict:
                 ("flash_attention_bwd_dq", abs_max(grads[0], refs[0]), ms_dq, plain_dq)):
             r = results[name]
             r["max_abs_err"] = max(r["max_abs_err"], err)
-            if shp == BWD_HEADLINE:
-                r["ms"], r["plain_ms"] = ms, plain
-            if shp == BWD_SDXL:
-                r.update(sdxl_ms=ms, sdxl_plain_ms=plain)
-        if shp in (BWD_HEADLINE, BWD_SDXL):  # the library call: one backward gives dQ, dK and dV
+            if shp in BWD_HEADLINES:
+                prefix = BWD_HEADLINES[shp]
+                r[prefix + "ms"], r[prefix + "plain_ms"] = ms, plain
+        if shp in BWD_HEADLINES:  # the library call: one backward gives dQ, dK and dV
+            prefix = BWD_HEADLINES[shp]
             lib = sdpa_backward_ms(q, k, v, do)
             bounds = {"flash_attention_bwd_dkv": attn_bound(shp, 4, 2),  # S, dV, dP, dK
                       "flash_attention_bwd_dq": attn_bound(shp, 3, 1)}  # S, dP, dQ
             for name in results:
-                if shp == BWD_HEADLINE:
+                if not prefix:
                     results[name].update(library_ms=lib, **bounds[name])
                 else:
-                    results[name].update(sdxl_library_ms=lib,
-                                         sdxl_bound_ms=bounds[name]["bound_ms"])
+                    results[name].update({prefix + "library_ms": lib,
+                                          prefix + "bound_ms": bounds[name]["bound_ms"]})
             log("kernel", name="flash_attention_bwd", shape=shp, library_ms=f"{lib:.4f}",
                 dkv_bound_ms=f"{bounds['flash_attention_bwd_dkv']['bound_ms']:.4f}",
                 dq_bound_ms=f"{bounds['flash_attention_bwd_dq']['bound_ms']:.4f}",
@@ -713,16 +756,23 @@ BWD_SWAPS = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 
 
 def unet_grad_vs_reference(bundle, frozen, template, gen) -> dict:
-    """The LoRA gradients of one student forward + backward with every
-    kernel, against every plain version (``all``) and against K2 alone and
-    K3 alone plain: (cosine, relative norm error) each."""
+    """The LoRA gradients of one SD1.5 student forward + backward at batch 2
+    (`lora_grad_readings`)."""
+    x = torch.randn((2, 64, 64, 4), generator=gen, device="cuda")
+    cond = {"prompt_embeds": bf16_randn((2, 77, 768), gen)}
+    return lora_grad_readings(bundle, frozen, template, gen, x, cond)
+
+
+def lora_grad_readings(bundle, frozen, template, gen, x, cond) -> dict:
+    """The LoRA gradients of one student forward + backward at latents ``x``
+    (timesteps 999 and 421) with every kernel, against every plain version
+    (``all``) and against K2 alone and K3 alone plain: (cosine, relative
+    norm error) each."""
     from pcm_tpu_torch.ops import reference_ops
     from pcm_tpu_torch.train.bundles import adapter_like
 
     adapter = adapter_like(template, gen)  # b != 0: every factor gets a gradient
-    x = torch.randn((2, 64, 64, 4), generator=gen, device="cuda")
     t = torch.tensor([999, 421], device="cuda")
-    cond = {"prompt_embeds": bf16_randn((2, 77, 768), gen)}
 
     def lora_grads():
         lora = {k: v.clone().requires_grad_(True) for k, v in adapter.items()}
@@ -1500,26 +1550,19 @@ def train_xl_pixels(img_dir: str, out_dir: str, seed: int) -> dict:
             "decoder": decoder[0][2:] if decoder else "not printed"}
 
 
-def serve_sdxl(run_dir: str, seed: int, gen) -> dict:
-    """Phase 18: the engine of ``python -m pcm_tpu_torch.serving --family
-    sdxl --lora <step-4 file>`` (its own `build_engine`) behind the HTTP
-    server, 2 steps, batch 4, 1024 px: a full batch of 4 and a partial one,
-    the shared request's image equal bit for bit; steady batch latency; a
-    teacher engine on the same weights at guidance 7.5 (K5, the UNet at
-    batch 8); the UNet's batch-4 forward with cuDNN on and off."""
-    import dataclasses
-
-    from pcm_tpu_torch.core.schedule import make_ddpm_schedule
-    from pcm_tpu_torch.data.tokenizer import HashTokenizer
+def _serve_family(family: str, lora_path: str, seed: int, seed_base: int, *flags: str):
+    """The engine of ``python -m pcm_tpu_torch.serving --family <family>
+    --lora <file> [flags]`` (its own `build_engine`: the full-width bundle
+    from ``--seed``) behind the HTTP server, 2 steps, batch 4, 1024 px: a
+    full batch of 4 and a partial one, the shared request's image equal bit
+    for bit; steady batch latency. Returns the engine and its readings."""
     from pcm_tpu_torch.ops import launch_counts, reset_launch_counts
-    from pcm_tpu_torch.sampling.ddim import DDIMSampler
-    from pcm_tpu_torch.serving import BatchingServer, InferenceEngine
+    from pcm_tpu_torch.serving import BatchingServer
     from pcm_tpu_torch.serving.__main__ import build_engine, build_parser, check_args
 
     ap = build_parser()
-    args = ap.parse_args(["--family", "sdxl", "--lora", os.path.join(
-        run_dir, "pcm_lora_0000004.safetensors"), "--batch-size", "4", "--steps", "2",
-        "--seed", str(seed)])
+    args = ap.parse_args(["--family", family, "--lora", lora_path, "--batch-size", "4",
+                          "--steps", "2", "--seed", str(seed), *flags])
     check_args(ap, args)
     gc.collect()
     torch.cuda.synchronize()
@@ -1529,7 +1572,7 @@ def serve_sdxl(run_dir: str, seed: int, gen) -> dict:
     server = BatchingServer(engine, "127.0.0.1", 0, max_wait_ms=1000.0)
     server.start()
     url = "http://127.0.0.1:%d/generate" % server.address[1]
-    full = [{"key": f"f{i}", "prompt": f"a photo of subject {i}", "seed": 300 + i}
+    full = [{"key": f"f{i}", "prompt": f"a photo of subject {i}", "seed": seed_base + i}
             for i in range(4)]
     partial = [{"key": "p0", "prompt": full[1]["prompt"], "seed": full[1]["seed"]},
                {"key": "p1", "prompt": "a partial batch", "seed": 9}]
@@ -1537,50 +1580,81 @@ def serve_sdxl(run_dir: str, seed: int, gen) -> dict:
     try:
         _concurrent(url, full, res)
         _concurrent(url, partial, res)
-        s_lat = []
+        lat = []
         for _ in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            engine.generate_batch([p["prompt"] for p in full], [p["seed"] for p in full])
-            s_lat.append((time.perf_counter() - t0) * 1000)
+            images = engine.generate_batch([p["prompt"] for p in full], [p["seed"] for p in full])
+            lat.append((time.perf_counter() - t0) * 1000)
         stats = server.stats()
     finally:
         server.stop()
-    s_counts, s_peak = launch_counts(), torch.cuda.max_memory_allocated()
+    pngs = {k: base64.b64decode(r["image_b64"]) for k, r in res.items()}
+    return engine, {
+        "sizes": {k: r["batch_size"] for k, r in res.items()},
+        "same_seed_identical": pngs["f1"] == pngs["p0"], "differ": pngs["f0"] != pngs["f1"],
+        "header": _png_header(pngs["f0"]), "batch_ms": lat, "images": images,
+        "peak_bytes": torch.cuda.max_memory_allocated(), "counts": launch_counts(),
+        "stats": stats, "lora": engine.lora_source}
+
+
+def _serve_teacher(engine, family: str, guidance: float, seed_base: int) -> dict:
+    """A teacher engine (no adapter) on ``engine``'s weights and sampler at
+    ``guidance``: the backbone at batch 8 under CFG; steady batch latency."""
+    import dataclasses
+
+    from pcm_tpu_torch.data.tokenizer import resolve_tokenizers
+    from pcm_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pcm_tpu_torch.serving import InferenceEngine
+    from pcm_tpu_torch.serving.__main__ import FAMILIES
+
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    teacher = InferenceEngine(engine.bundle, DDIMSampler.create(make_ddpm_schedule(), 2),
-                              engine.frozen, None, {"input_ids": HashTokenizer(),
-                                                    "input_ids_2": HashTokenizer()},
-                              dataclasses.replace(engine.cfg, guidance_scale=7.5),
+    teacher = InferenceEngine(engine.bundle, engine.pipe.sampler, engine.frozen, None,
+                              resolve_tokenizers(None, FAMILIES[family][1]),
+                              dataclasses.replace(engine.cfg, guidance_scale=guidance),
                               torch.device("cuda"))
-    t_lat = []
+    lat = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        imgs_t = teacher.generate_batch([f"teacher prompt {j}" for j in range(4)],
-                                        [400 + j for j in range(4)])
-        t_lat.append((time.perf_counter() - t0) * 1000)
-    t_counts, t_peak = launch_counts(), torch.cuda.max_memory_allocated()
+        imgs = teacher.generate_batch([f"teacher prompt {j}" for j in range(4)],
+                                      [seed_base + j for j in range(4)])
+        lat.append((time.perf_counter() - t0) * 1000)
+    return {"batch_ms": lat, "peak_bytes": torch.cuda.max_memory_allocated(),
+            "counts": launch_counts(), "shape": imgs.shape}
 
+
+def _serve_readings(sv: dict, tv: dict) -> dict:
+    """The student's and the teacher's readings under the names the phases log."""
+    return {"sizes": sv["sizes"], "same_seed_identical": sv["same_seed_identical"],
+            "differ": sv["differ"], "header": sv["header"], "student_batch_ms": sv["batch_ms"],
+            "teacher_batch_ms": tv["batch_ms"], "student_peak_bytes": sv["peak_bytes"],
+            "teacher_peak_bytes": tv["peak_bytes"], "student_counts": sv["counts"],
+            "teacher_counts": tv["counts"], "stats": sv["stats"], "teacher_shape": tv["shape"],
+            "lora": sv["lora"],
+            "counts": {k: sv["counts"][k] + tv["counts"][k] for k in sv["counts"]}}
+
+
+def serve_sdxl(run_dir: str, seed: int, gen) -> dict:
+    """Phase 18: ``--family sdxl --lora <step-4 file>`` served (`_serve_family`);
+    a teacher engine on the same weights at guidance 7.5 (K5, the UNet at
+    batch 8); the UNet's batch-4 forward with cuDNN on and off."""
+    engine, sv = _serve_family("sdxl", os.path.join(run_dir, "pcm_lora_0000004.safetensors"),
+                               seed, 300)
+    out = _serve_readings(sv, _serve_teacher(engine, "sdxl", 7.5, 400))
     bundle, frozen = engine.bundle, engine.frozen
     x = torch.randn((4, XL_RES // 8, XL_RES // 8, 4), generator=gen, device="cuda")
     t = torch.full((4,), 999.0, device="cuda")
-    cond = engine._encode([p["prompt"] for p in full])
+    cond = engine._encode([f"a photo of subject {i}" for i in range(4)])
     unet_ms = {}
     with torch.inference_mode():
         for on in (True, False):
             with torch.backends.cudnn.flags(enabled=on):
                 unet_ms["cudnn_on" if on else "cudnn_off"] = cuda_ms(
                     lambda: bundle.student(frozen, engine.lora, x, t, cond), iters=5, warmup=1)
-    pngs = {k: base64.b64decode(r["image_b64"]) for k, r in res.items()}
-    return {"sizes": {k: r["batch_size"] for k, r in res.items()},
-            "same_seed_identical": pngs["f1"] == pngs["p0"], "differ": pngs["f0"] != pngs["f1"],
-            "header": _png_header(pngs["f0"]), "student_batch_ms": s_lat,
-            "teacher_batch_ms": t_lat, "student_peak_bytes": s_peak, "teacher_peak_bytes": t_peak,
-            "student_counts": s_counts, "teacher_counts": t_counts,
-            "counts": {k: s_counts[k] + t_counts[k] for k in s_counts}, "stats": stats,
-            "teacher_shape": imgs_t.shape, "unet_ms": unet_ms, "lora": engine.lora_source}
+    out["unet_ms"] = unet_ms
+    return out
 
 
 def sdxl_phases(seed: int, gen) -> list:
@@ -1658,6 +1732,245 @@ def sdxl_phases(seed: int, gen) -> list:
         raise AssertionError(f"SDXL serving: {sv}")
 
     return [xv["encode"], xv["decode"], xc, xp, sv]
+
+
+# ---------------------------------------------------------------------------
+# phases 19-23: SD3 at 1024 px
+# ---------------------------------------------------------------------------
+
+SD3_LATENT = (XL_RES // 8, XL_RES // 8, 16)
+
+
+def sd3_cond(n: int, gen) -> dict:
+    """Seeded SD3 conditioning on the card: (154, 4096) prompt embeds and 2048 pooled."""
+    return {"prompt_embeds": bf16_randn((n, 154, 4096), gen), "pooled": bf16_randn((n, 2048), gen)}
+
+
+def sd3_mmdit_vs_reference(bundle, frozen, gen) -> dict:
+    """Phase 19: one full-width MMDiT teacher forward at batch 2 (4250-token
+    joint attention through K1) against every plain version (``all``) beside
+    the input-nudge yardstick (``noise``), as phase 9; its CUDA-event ms and
+    K1 launches."""
+    from pcm_tpu_torch.ops import reference_ops
+
+    x = torch.randn((2, *SD3_LATENT), generator=gen, device="cuda")
+    t = torch.tensor([999.0, 421.0], device="cuda")
+    cond = sd3_cond(2, gen)
+    with torch.inference_mode():
+        out, counts, peak = _measured(lambda: bundle.teacher(frozen, x, t, cond))
+        ms = cuda_ms(lambda: bundle.teacher(frozen, x, t, cond), iters=5, warmup=1)
+        with reference_ops():
+            ref = bundle.teacher(frozen, x, t, cond)
+            nudged = bundle.teacher(frozen, x * (1 + 2 ** -8), t, cond)
+    return {"all": (rel_max(out, ref), rel_l2(out, ref)),
+            "noise": (rel_max(nudged, ref), rel_l2(nudged, ref)), "ms": ms, "counts": counts,
+            "peak_bytes": peak, "shape": tuple(out.shape),
+            "finite": bool(torch.isfinite(out).all())}
+
+
+def sd3_step(bundle, frozen, template, gen, steps: int = 4) -> dict:
+    """Phase 20: the SD3 consistency step on cached latents
+    (`build_flow_distill_step` on `SD3_CACHED_STEP`: 100 Euler solver steps,
+    4 phases, fixed w = 3, rank-32 LoRA, the flow schedule at shift 3, lr
+    5e-6) at the recipe's batch of 2, remat full; the batch drawn on the card
+    with zero uncond (`bench.py:308-320`)."""
+    from pcm_tpu_torch.configs.families import SD3_CACHED_STEP
+    from pcm_tpu_torch.core.schedule import make_flow_schedule
+    from pcm_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pcm_tpu_torch.train.distill import build_flow_distill_step, sample_draws
+    from pcm_tpu_torch.train.state import TrainState, make_optimizer
+
+    cfg, n = SD3_CACHED_STEP.distill, SD3_CACHED_STEP.batch_size
+    tx = make_optimizer(SD3_CACHED_STEP.lr)
+    step = build_flow_distill_step(bundle, make_flow_schedule(), cfg, tx)
+    state = TrainState.create(template, tx)
+    cond = sd3_cond(n, gen)
+    batch = {"latents": torch.randn((n, *SD3_LATENT), generator=gen, device="cuda"),
+             "prompt_embeds": cond["prompt_embeds"], "pooled_embeds": cond["pooled"],
+             "uncond_embeds": torch.zeros_like(cond["prompt_embeds"]),
+             "uncond_pooled": torch.zeros_like(cond["pooled"])}
+    losses, norms, times = [], [], []
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, frozen, batch, [sample_draws(cfg, gen, batch["latents"])])
+        losses.append(float(metrics["loss"]))  # a readback: the step has run
+        times.append((time.perf_counter() - t0) * 1000)
+        norms.append(float(metrics["grad_norm"]))
+    counts = launch_counts()
+    lora_b = max(float(v.abs().max()) for k, v in state.params.items() if k.endswith("lora_b"))
+    return {"losses": losses, "grad_norms": norms, "step_ms": times, "counts": counts,
+            "peak_bytes": torch.cuda.max_memory_allocated(), "lora_b_max": lora_b,
+            "factors": len(template)}
+
+
+def sd3_towers(bundle, gen) -> dict:
+    """Phase 21: CLIP-L (768 projection), CLIP-bigG and T5-XXL at full width,
+    `encode_prompts` of 4 hashed captions: shapes, finiteness, T5's range,
+    CUDA-event ms (no kernel of the port runs in the towers)."""
+    from pcm_tpu_torch.data.tokenizer import HashTokenizer
+
+    frozen, _ = bundle.init(gen, torch.device("cuda"), modules=("text", "text2", "t5"))
+    caps = [f"a photo of subject {i}, {['red', 'blue', 'green'][i % 3]} light" for i in range(4)]
+    ids = torch.from_numpy(HashTokenizer()(caps)).long().cuda()
+    ids3 = torch.from_numpy(HashTokenizer(vocab_size=32128)(caps)).long().cuda()
+    with torch.inference_mode():
+        cond = bundle.encode_prompts(frozen, ids, ids, ids3)
+        t5_out = frozen["t5"](ids3).float()
+        ms = cuda_ms(lambda: bundle.encode_prompts(frozen, ids, ids, ids3), iters=10)
+        t5_ms = cuda_ms(lambda: frozen["t5"](ids3), iters=10)
+    emb, pooled = cond["prompt_embeds"], cond["pooled"]
+    return {"shapes": (tuple(emb.shape), tuple(pooled.shape)), "ms": ms, "t5_ms": t5_ms,
+            "finite": bool(torch.isfinite(emb).all() and torch.isfinite(pooled).all()),
+            "t5_range": (float(t5_out.min()), float(t5_out.max())),
+            "t5_rms": float(t5_out.square().mean().sqrt()),
+            "params_m": {k: round(sum(p.numel() for p in m.parameters()) / 1e6, 1)
+                         for k, m in frozen.items()}}
+
+
+def sd3_vae_decode(bundle, gen) -> dict:
+    """Phase 22: the full-width SD3 VAE (16 latent channels, no quant convs,
+    shifted scaling) decoding one 1024-px sample, as serving decodes: every
+    kernel against every plain version beside the yardstick (phase 15's
+    rule), CUDA-event ms, peak above the weights, K4 / K1 launches."""
+    from pcm_tpu_torch.ops import reference_ops
+
+    frozen, _ = bundle.init(gen, torch.device("cuda"), modules=("vae",))
+    z = torch.randn((1, *SD3_LATENT), generator=gen, device="cuda")
+    with torch.inference_mode():
+        out, counts, peak = _measured(lambda: bundle.decode_latents(frozen, z, 1))
+        ms = cuda_ms(lambda: bundle.decode_latents(frozen, z, 1), iters=5, warmup=1)
+        with reference_ops():
+            ref = bundle.decode_latents(frozen, z, 1)
+            nudged = bundle.decode_latents(frozen, z * (1 + 2 ** -8), 1)
+    return {"all": (rel_max(out, ref), rel_l2(out, ref)),
+            "noise": (rel_max(nudged, ref), rel_l2(nudged, ref)), "ms": ms, "counts": counts,
+            "peak_bytes": peak, "shape": tuple(out.shape),
+            "finite": bool(torch.isfinite(out).all())}
+
+
+def write_sd3_lora(bundle, out_dir: str, seed: int) -> str:
+    """A seeded rank-32 adapter on `SD3_LORA_TARGETS` (b != 0) as a kohya
+    file under SD3's ``lora_transformer`` prefix (fp16)."""
+    from pcm_tpu_torch.lora.kohya import save_kohya_safetensors
+    from pcm_tpu_torch.lora.layers import lora_shapes
+
+    meta = bundle.build(torch.device("meta"), ("mmdit",))["mmdit"]
+    g = torch.Generator().manual_seed(seed)
+    adapter = {k: torch.randn(shape, generator=g) * 0.05
+               for k, shape in lora_shapes(meta, bundle.lora.rank).items()}
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "pcm_sd3.safetensors")
+    save_kohya_safetensors(path, adapter, bundle.lora.alpha, prefix=bundle.KOHYA_PREFIX)
+    return path
+
+
+def serve_sd3(lora_path: str, seed: int) -> dict:
+    """Phase 23: ``--family sd3 --lora <file>`` served (`_serve_family`:
+    PCM-FM on the 100-point grid); a teacher engine on the same weights at
+    guidance 3.0 (the MMDiT at batch 8); then ``--family sd3 --stochastic
+    --lora <file>`` served the same way, its sampler stochastic and its
+    images not the deterministic sampler's for the same prompts and seeds."""
+    engine, sv = _serve_family("sd3", lora_path, seed, 500)
+    out = _serve_readings(sv, _serve_teacher(engine, "sd3", 3.0, 600))
+    out["sigmas"] = [float(x) for x in engine.pipe.sampler.sigmas]
+    del engine
+    stoch, st = _serve_family("sd3", lora_path, seed, 500, "--stochastic")
+    out.update({"stochastic_sampler": stoch.pipe.sampler.stochastic,
+                "stochastic_sizes": st["sizes"],
+                "stochastic_same_seed_identical": st["same_seed_identical"],
+                "stochastic_differs": bool((st["images"] != sv["images"]).any(axis=(1, 2, 3)).all()),
+                "stochastic_batch_ms": st["batch_ms"], "stochastic_counts": st["counts"],
+                "stochastic_lora": st["lora"]})
+    del stoch
+    out["counts"] = {k: out["counts"][k] + st["counts"][k] for k in out["counts"]}
+    return out
+
+
+def sd3_phases(seed: int, gen) -> list:
+    """Phases 19-23, each checked; returns the runs whose launches count."""
+    from pcm_tpu_torch.configs.families import sd3_bundle
+
+    sd3 = sd3_bundle(remat=True)
+    t0 = time.perf_counter()
+    frozen, template = sd3.init(gen, torch.device("cuda"), modules=("mmdit",))
+    torch.cuda.synchronize()
+    log("sd3-init", seconds=f"{time.perf_counter() - t0:.2f}",
+        mmdit_params_m=round(sum(p.numel() for p in frozen["mmdit"].parameters()) / 1e6, 1),
+        lora_factors=len(template))
+
+    r = sd3_mmdit_vs_reference(sd3, frozen, gen)
+    log("sd3-mmdit", batch=2, shape=r["shape"], **{k: "%.3e/%.3e" % r[k] for k in ("all", "noise")},
+        bounds="max(2e-2,2*noise)", ms=f"{r['ms']:.3f}", peak_gib=f"{r['peak_bytes'] / 2**30:.3f}",
+        counts=json.dumps(r["counts"]))
+    caps = [max(2e-2, 2 * n) for n in r["noise"]]
+    if not (r["finite"] and all(e <= c for e, c in zip(r["all"], caps))
+            and r["counts"]["flash_attention_fwd"] == sd3.mmdit_cfg.num_layers):
+        raise AssertionError(f"full-width MMDiT, kernels vs plain: {r}")
+    x = torch.randn((2, *SD3_LATENT), generator=gen, device="cuda")
+    g = lora_grad_readings(sd3, frozen, template, gen, x, sd3_cond(2, gen))
+    log("sd3-grad", factors=g["factors"], bounds="cos>=0.99,norm<=5e-2",
+        **{k: f"{c:.6f}/{e:.3e}" for k, (c, e) in g["readings"].items()})
+    if g["bad"] or not all(c >= 0.99 and e <= 5e-2 for c, e in g["readings"].values()):
+        raise AssertionError(f"SD3 student gradients, kernels vs plain: {g}")
+
+    st = sd3_step(sd3, frozen, template, gen)
+    log("sd3-step", batch=2, losses=json.dumps([round(x, 6) for x in st["losses"]]),
+        grad_norms=json.dumps([round(x, 6) for x in st["grad_norms"]]),
+        step_ms=json.dumps([round(x, 1) for x in st["step_ms"]]),
+        peak_gib=f"{st['peak_bytes'] / 2**30:.3f}", lora_b_max=f"{st['lora_b_max']:.3e}",
+        factors=st["factors"], counts=json.dumps(st["counts"]))
+    missing = [k for k in ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                           "flash_attention_bwd_dq") if st["counts"][k] == 0]
+    if not (len(st["losses"]) >= 4 and all(math.isfinite(x) for x in st["losses"])
+            and st["lora_b_max"] > 0) or missing:
+        raise AssertionError(f"SD3 cached step: {st} (kernels not launched: {missing})")
+    del frozen, template
+
+    tw = sd3_towers(sd3, gen)
+    log("sd3-towers", batch=4, shapes=tw["shapes"], finite=tw["finite"], ms=f"{tw['ms']:.3f}",
+        t5_ms=f"{tw['t5_ms']:.3f}", t5_range="%.4f/%.4f" % tw["t5_range"],
+        t5_rms=f"{tw['t5_rms']:.4f}", params_m=json.dumps(tw["params_m"]))
+    if not (tw["finite"] and tw["shapes"] == ((4, 154, 4096), (4, 2048))):
+        raise AssertionError(f"SD3 text towers: {tw}")
+
+    vd = sd3_vae_decode(sd3, gen)
+    log("sd3-vae", op="decode", batch=1, shape=vd["shape"],
+        **{k: "%.3e/%.3e" % vd[k] for k in ("all", "noise")}, bounds="max(2e-2,2*noise)",
+        ms=f"{vd['ms']:.3f}", peak_gib=f"{vd['peak_bytes'] / 2**30:.3f}",
+        counts=json.dumps(vd["counts"]))
+    caps = [max(2e-2, 2 * n) for n in vd["noise"]]
+    if not (vd["finite"] and vd["shape"] == (1, XL_RES, XL_RES, 3)
+            and all(e <= c for e, c in zip(vd["all"], caps))
+            and vd["counts"]["flash_attention_fwd"] > 0 and vd["counts"]["group_norm_silu"] > 0):
+        raise AssertionError(f"full-width SD3 VAE decode, kernels vs plain: {vd}")
+
+    sv = serve_sd3(write_sd3_lora(sd3, "build/chip_smoke/sd3_lora", seed), seed)
+    log("sd3-serve", sizes=json.dumps(sv["sizes"]), same_seed_identical=sv["same_seed_identical"],
+        stochastic_same_seed_identical=sv["stochastic_same_seed_identical"],
+        stochastic_sampler=sv["stochastic_sampler"],
+        stochastic_differs=sv["stochastic_differs"], sigmas=json.dumps(sv["sigmas"]),
+        student_batch_ms=json.dumps([round(x, 1) for x in sv["student_batch_ms"]]),
+        teacher_batch_ms=json.dumps([round(x, 1) for x in sv["teacher_batch_ms"]]),
+        stochastic_batch_ms=json.dumps([round(x, 1) for x in sv["stochastic_batch_ms"]]),
+        student_peak_gib=f"{sv['student_peak_bytes'] / 2**30:.3f}",
+        teacher_peak_gib=f"{sv['teacher_peak_bytes'] / 2**30:.3f}", lora=repr(sv["lora"]),
+        student=json.dumps(sv["student_counts"]), teacher=json.dumps(sv["teacher_counts"]),
+        stochastic=json.dumps(sv["stochastic_counts"]))
+    if not (sv["sizes"] == {"f0": 4, "f1": 4, "f2": 4, "f3": 4, "p0": 2, "p1": 2}
+            and sv["same_seed_identical"] and sv["differ"] and sv["header"] == (1024, 1024, 8, 2)
+            and sv["stochastic_sampler"] and sv["stochastic_sizes"] == sv["sizes"]
+            and sv["stochastic_same_seed_identical"] and sv["stochastic_differs"]
+            and sv["teacher_shape"] == (4, 1024, 1024, 3)
+            and all(c[k] > 0 for c in (sv["student_counts"], sv["teacher_counts"],
+                                       sv["stochastic_counts"])
+                    for k in ("flash_attention_fwd", "group_norm_silu"))
+            and sv["lora"] == sv["stochastic_lora"] and sv["lora"].endswith("pcm_sd3.safetensors")):
+        raise AssertionError(f"SD3 serving: {sv}")
+    return [st, vd, sv]
 
 
 # ---------------------------------------------------------------------------
@@ -1826,6 +2139,7 @@ def main() -> int:
         raise AssertionError(f"serving the trained kohya files: {sl}")
 
     xl_runs = sdxl_phases(args.seed, gen)
+    sd3_runs = sd3_phases(args.seed, gen)
 
     kernels["int8_matmul"] = k6
     sources = {"flash_attention_fwd": ("pcm_tpu_torch/csrc/flash_attention.cu",
@@ -1839,17 +2153,18 @@ def main() -> int:
                "geglu": ("pcm_tpu_torch/csrc/geglu.cu", "pcm_tpu/ops/geglu.py:47"),
                "int8_matmul": ("pcm_tpu_torch/csrc/int8_matmul.cu",
                                "pcm_tpu/ops/int8_matmul.py:56")}
-    runs = (s, tr, ti, sx, *adv_runs, enc, px, sl, *xl_runs)
+    runs = (s, tr, ti, sx, *adv_runs, enc, px, sl, *xl_runs, *sd3_runs)
     launches = {k: sum(run["counts"][k] for run in runs) for k in sources}
     kernels["group_norm_silu"]["fp32_launches"] = sum(
         run["counts"]["group_norm_silu_fp32"] for run in runs)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # second headlines (K1, K2, K3, K5, K6), K1's VAE head and K5's bare product;
-    # the SDXL VAE's K1 and K4 rows at 1024 px
+    # the SDXL VAE's K1 and K4 rows at 1024 px; SD3's joint attention (K1-K3)
     extra = ("sdxl_ms", "sdxl_plain_ms", "sdxl_bound_ms", "sdxl_library_ms", "vae_ms",
              "vae_plain_ms", "vae_bound_ms", "vae_library_ms", "product_ms", "sdxl_product_ms",
              "act_none_library", "fp32_shape", "fp32_ms", "fp32_plain_ms", "fp32_bound_ms",
-             "fp32_library_ms", "fp32_max_abs_err", "fp32_launches", "vae_1024", "gn_1024")
+             "fp32_library_ms", "fp32_max_abs_err", "fp32_launches", "vae_1024", "gn_1024",
+             "sd3_ms", "sd3_plain_ms", "sd3_bound_ms", "sd3_library_ms", "sd3_4250")
     line = {"kernels": [{"name": k, "route": "cuda", "source": sources[k][0],
                          "replaces": sources[k][1], "launches": launches[k],
                          **{f: kernels[k][f] for f in keys},

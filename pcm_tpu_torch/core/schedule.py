@@ -1,9 +1,9 @@
-"""DDPM noise-schedule tables (counterpart of `pcm_tpu/core/schedule.py`).
+"""Noise-schedule tables of the DDPM (SD1.5, SDXL) and flow-matching (SD3)
+teachers (counterpart of `pcm_tpu/core/schedule.py`).
 
-Host-side fp32 tables. The sampler reads scalars from them; the training step
-gathers per-sample coefficients from a copy of each table on the device of
-its tensors (`DeviceTables`), made once per device. `FlowSchedule` (SD3) is
-not ported yet.
+Host-side fp32 tables. The samplers read scalars from them; the training
+steps gather per-sample coefficients from a copy of each table on the device
+of its tensors (`DeviceTables`), made once per device.
 """
 
 from __future__ import annotations
@@ -105,3 +105,29 @@ def make_ddpm_schedule(num_train_timesteps: int = 1000, beta_start: float = 0.00
         alphas_cumprod=np.cumprod(1.0 - betas).astype(np.float32),
         prediction_type=prediction_type,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class FlowSchedule(DeviceTables):
+    """Shifted rectified-flow sigmas, ascending in training timestep:
+    ``sigmas[t] = shift*s / (1 + (shift-1)*s)`` with ``s = (t+1)/T``
+    (`pcm_tpu/core/schedule.py:135-155`). Noising is ``x_t = sigma*eps +
+    (1-sigma)*x0``; the model predicts the velocity ``v ~ eps - x0``."""
+
+    num_train_timesteps: int
+    shift: float
+    sigmas: np.ndarray  # (T,) float32, ascending
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, sigma: torch.Tensor
+                  ) -> torch.Tensor:
+        """``sigma * noise + (1 - sigma) * x0`` with per-sample fp32 ``sigma`` (N,)."""
+        s = bcast(sigma, x0.ndim)
+        return s * noise + (1.0 - s) * x0
+
+
+def make_flow_schedule(num_train_timesteps: int = 1000, shift: float = 3.0) -> FlowSchedule:
+    """The default shift 3.0 is SD3's, which its trainers and samplers use."""
+    s = np.arange(1, num_train_timesteps + 1, dtype=np.float64) / num_train_timesteps
+    sigmas = shift * s / (1.0 + (shift - 1.0) * s)
+    return FlowSchedule(num_train_timesteps=num_train_timesteps, shift=shift,
+                        sigmas=sigmas.astype(np.float32))

@@ -1,12 +1,12 @@
-"""Phased DDIM solver of phased consistency distillation (counterpart of
-`pcm_tpu/core/solver.py:32-123`).
+"""Phased solvers of phased consistency distillation (counterpart of
+`pcm_tpu/core/solver.py`): DDIM in epsilon space (SD1.5, SDXL) and Euler in
+flow space (SD3).
 
 The student maps any point of the PF-ODE trajectory to the start of its
 phase, the largest boundary grid point at or below it. The solver holds the
 discrete grid (``num_solver_steps`` of the 1000 training steps) and, over a
-batch of per-sample grid indices, takes one DDIM step, the jump to the phase
-start, and the target network's boundary scalings. `PhasedEulerSolver`
-(SD3's flow-space solver) is not ported yet.
+batch of per-sample grid indices, takes one solver step, the jump to the
+phase start, and the target network's boundary scalings.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .schedule import DDPMSchedule, DeviceTables, bcast
+from .schedule import DDPMSchedule, DeviceTables, FlowSchedule, bcast
 
 
 def solver_grid(num_train_timesteps: int, num_solver_steps: int) -> np.ndarray:
@@ -92,3 +92,51 @@ class PhasedDDIMSolver(DeviceTables):
         b = last_boundary_at_or_below(index, boundaries)
         return (self._jump(pred_x0, pred_noise, b),
                 self.table("timesteps_prev", index.device)[b])
+
+
+@dataclasses.dataclass(frozen=True)
+class PhasedEulerSolver(DeviceTables):
+    """Flow-space phased solver (SD3, `pcm_tpu/core/solver.py:127-186`):
+    Euler steps ``x' = x + (sigma' - sigma) * v`` on the shifted sigma grid.
+    Tables as `PhasedDDIMSolver`'s, sigmas in place of alphas."""
+
+    timesteps: np.ndarray  # int64 (S,) indices into the training table
+    timesteps_prev: np.ndarray  # int64 (S,)
+    sigmas: np.ndarray  # float32 (S,)
+    sigmas_prev: np.ndarray  # float32 (S,)
+
+    @classmethod
+    def create(cls, schedule: FlowSchedule, num_solver_steps: int = 100) -> "PhasedEulerSolver":
+        grid = solver_grid(schedule.num_train_timesteps, num_solver_steps)
+        sig = np.asarray(schedule.sigmas, np.float32)
+        return cls(
+            timesteps=grid,
+            timesteps_prev=np.concatenate([[0], grid[:-1]]).astype(np.int64),
+            sigmas=sig[grid],
+            sigmas_prev=np.concatenate([sig[:1], sig[grid[:-1]]]).astype(np.float32),
+        )
+
+    @property
+    def num_steps(self) -> int:
+        return int(self.timesteps.shape[0])
+
+    def euler_step(self, sample: torch.Tensor, velocity: torch.Tensor,
+                   index: torch.Tensor) -> torch.Tensor:
+        """One Euler step from grid point ``index`` to the previous grid point."""
+        sigma = bcast(self.table("sigmas", sample.device)[index], sample.ndim)
+        sigma_prev = bcast(self.table("sigmas_prev", sample.device)[index], sample.ndim)
+        return sample + (sigma_prev - sigma) * velocity
+
+    def multiphase_pred(self, sample: torch.Tensor, velocity: torch.Tensor, index: torch.Tensor,
+                        multiphase: int, is_target: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Euler jump from grid point ``index`` to the start of its phase;
+        returns (x at the phase start, the phase start's grid index). With
+        ``is_target`` the sample sits at ``sigmas_prev[index]`` (the
+        stop-grad target's input, one solver step on) instead of ``sigmas[index]``."""
+        boundaries = torch.from_numpy(phase_boundaries(self.num_steps, multiphase)).to(index.device)
+        b = last_boundary_at_or_below(index, boundaries)
+        src = self.table("sigmas_prev" if is_target else "sigmas", sample.device)[index]
+        sigma = bcast(src, sample.ndim)
+        sigma_end = bcast(self.table("sigmas_prev", sample.device)[b], sample.ndim)
+        return sample + (sigma_end - sigma) * velocity, b

@@ -21,13 +21,13 @@ LoRA factors stay in the activations' dtype over their fp32 masters.
 from __future__ import annotations
 
 import dataclasses
-import re
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..models.convert import torch_segment
 from ..utils.quant import QuantizableWeight, int8_mode, quantized_conv, quantized_dot
 
 LoRA = Optional[Dict[str, torch.Tensor]]
@@ -35,9 +35,9 @@ LoRA = Optional[Dict[str, torch.Tensor]]
 
 def _dotted(target: str) -> str:
     """JAX-package target name -> diffusers module-path fragment
-    ("to_out_0" -> "to_out.0", "downsamplers_0/conv" -> "downsamplers.0.conv")."""
-    dotted = re.sub(r"_(\d+)", r".\1", target)
-    return re.sub(r"(\.\d+)_", r"\1.", dotted).replace("/", ".")
+    ("to_out_0" -> "to_out.0", "downsamplers_0/conv" -> "downsamplers.0.conv"),
+    segment by segment as the weight converter names them."""
+    return ".".join(torch_segment(s) for s in target.split("/"))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,9 @@
 """Weights across the two packages: JAX parameter trees -> port state dicts.
 
 The inverse of `pcm_tpu/models/convert.py:convert_unet_torch_state`,
-`convert_vae_torch_state` and `pcm_tpu/models/clip.py:convert_clip_torch_state`.
+`convert_vae_torch_state`, `convert_mmdit_torch_state`,
+`pcm_tpu/models/clip.py:convert_clip_torch_state` and
+`pcm_tpu/models/t5.py:convert_t5_torch_state`.
 Inputs are nested dicts of numpy arrays (a JAX tree after ``jax.tree.map(
 np.asarray, ...)``); outputs are flat dicts of CPU tensors with diffusers /
 transformers keys. Conventions:
@@ -36,7 +38,9 @@ import torch
 _KEEP = {"linear_1", "linear_2"}  # diffusers keeps these underscores
 
 
-def _segment(name: str) -> str:
+def torch_segment(name: str) -> str:
+    """One JAX path segment -> its diffusers module-path form ("to_out_0" ->
+    "to_out.0", "net_0_proj" -> "net.0.proj"; "linear_1" stays)."""
     if name in _KEEP:
         return name
     name = re.sub(r"^mid_(block_)?", "mid_block.", name)
@@ -83,7 +87,7 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "", leaf=_leaf) -> Dict[str,
     out = {}
     for k, v in tree.items():
         if isinstance(v, Mapping):
-            out.update(_flatten(v, prefix + _segment(k) + ".", leaf))
+            out.update(_flatten(v, prefix + torch_segment(k) + ".", leaf))
         else:
             out.update((prefix + name, t) for name, t in leaf(k, v))
     return out
@@ -188,3 +192,34 @@ def clip_tree_from_jax(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
 def clip_state_from_jax(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
     """JAX ``CLIPTextModel`` params -> transformers-named state dict."""
     return _flatten(clip_tree_from_jax(params, cfg))
+
+
+def mmdit_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``MMDiT`` params -> the port's ``MMDiT`` state dict. The port keeps
+    the JAX tree's names (``transformer_blocks_0/to_out_0`` ->
+    ``transformer_blocks.0.to_out.0``) and its (1, max, max, dim) position
+    table, so the rules above carry every leaf; its LoRA collection goes
+    through `lora_state_from_jax`."""
+    return _flatten(params)
+
+
+def t5_state_from_jax(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``T5Encoder`` params -> the transformers-named state dict of the
+    port's ``T5Encoder`` (the inverse of `convert_t5_torch_state`)."""
+    def t(a, transpose: bool = False) -> torch.Tensor:
+        a = np.asarray(a)
+        return torch.from_numpy(np.ascontiguousarray(a.T if transpose else a))
+
+    out = {"shared.weight": t(params["token_embedding"]),
+           "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight":
+               t(params["relative_attention_bias"]),
+           "encoder.final_layer_norm.weight": t(params["final_layer_norm"]["weight"])}
+    for i in range(cfg.num_layers):
+        p, bp = params[f"block_{i}"], f"encoder.block.{i}.layer."
+        out[bp + "0.layer_norm.weight"] = t(p["attn_layer_norm"]["weight"])
+        out[bp + "1.layer_norm.weight"] = t(p["ff_layer_norm"]["weight"])
+        for k in ("q", "k", "v", "o"):
+            out[f"{bp}0.SelfAttention.{k}.weight"] = t(p[k]["kernel"], transpose=True)
+        for k in ("wi_0", "wi_1", "wo"):
+            out[f"{bp}1.DenseReluDense.{k}.weight"] = t(p[k]["kernel"], transpose=True)
+    return out

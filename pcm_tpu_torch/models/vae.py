@@ -1,4 +1,4 @@
-"""AutoencoderKL for SD1.5 and SDXL (counterpart of `pcm_tpu/models/vae.py`), diffusers
+"""AutoencoderKL for SD1.5, SDXL and SD3 (counterpart of `pcm_tpu/models/vae.py`), diffusers
 names: the ``Encoder`` and ``quant_conv`` (training from pixels), and
 ``post_quant_conv`` and the ``Decoder`` (serving). NCHW in channels-last
 memory; GroupNorm (+SiLU) is K4 and the mid-block's single-head attention
@@ -32,6 +32,9 @@ class VAEConfig:
 
 SD15_VAE_CONFIG = VAEConfig()
 SDXL_VAE_CONFIG = VAEConfig(scaling_factor=0.13025)  # the same module, its own scale
+# SD3's: 16 latent channels, no quant convs, a shifted scaling (`pcm_tpu/models/vae.py:37`)
+SD3_VAE_CONFIG = VAEConfig(latent_channels=16, use_quant_conv=False, scaling_factor=1.5305,
+                           shift_factor=0.0609)
 TINY_VAE_CONFIG = VAEConfig(block_out_channels=(32, 64), layers_per_block=1)
 
 

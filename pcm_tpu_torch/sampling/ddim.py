@@ -42,8 +42,10 @@ class DDIMSampler:
     def num_steps(self) -> int:
         return len(self.timesteps)
 
-    def step(self, model_output: torch.Tensor, i: int, sample: torch.Tensor) -> torch.Tensor:
-        """One DDIM step at position ``i`` of the descending schedule, in fp32."""
+    def step(self, model_output: torch.Tensor, i: int, sample: torch.Tensor,
+             rng=None) -> torch.Tensor:
+        """One DDIM step at position ``i`` of the descending schedule, in fp32.
+        DDIM draws nothing; ``rng`` is the samplers' common signature."""
         sqrt = lambda a: float(np.sqrt(np.float32(a)))  # noqa: E731  (fp32, as the JAX tables)
         a_t, a_prev = self.alphas[i], self.alphas_prev[i]
         x = sample.float()

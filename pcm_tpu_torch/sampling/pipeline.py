@@ -1,16 +1,18 @@
 """Few-step text-to-image pipeline (counterpart of `pcm_tpu/sampling/pipeline.py`).
 
-Text encode, k UNet forwards with optional classifier-free guidance (cond
-and uncond batched into one forward, every leaf of the cond tree: SDXL's
-``added_cond`` too), sampler steps, VAE decode. Runs under
+Text encode, k backbone forwards (UNet or MMDiT) with optional
+classifier-free guidance (cond and uncond batched into one forward, every
+leaf of the cond tree: SDXL's ``added_cond`` and SD3's ``pooled`` too),
+sampler steps (trailing DDIM, or PCM-FM for SD3, whose stochastic variant
+takes its fresh noise from the caller), VAE decode. Runs under
 ``torch.inference_mode()``. On a CUDA device every GroupNorm, attention and
-(teacher) GEGLU goes through the port's kernels.
+(teacher UNet) GEGLU goes through the port's kernels.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
@@ -20,18 +22,20 @@ from ..train.distill import _merge_cond
 
 @dataclasses.dataclass(frozen=True)
 class TextToImagePipeline:
-    bundle: Any  # SD15Bundle | SDXLBundle
-    sampler: Any  # DDIMSampler
+    bundle: Any  # SD15Bundle | SDXLBundle | SD3Bundle
+    sampler: Any  # DDIMSampler | PCMFMSampler
 
     @torch.inference_mode()
     def generate(self, frozen: Dict[str, Any], lora: LoRA, cond: Dict[str, Any],
                  uncond: Optional[Dict[str, Any]], init_latents: torch.Tensor,
-                 guidance_scale: float = 1.0, decode_chunk: Optional[int] = None
-                 ) -> torch.Tensor:
+                 guidance_scale: float = 1.0, decode_chunk: Optional[int] = None,
+                 renoise: Optional[Sequence[torch.Generator]] = None) -> torch.Tensor:
         """cond/uncond from ``bundle.encode_prompts``, starting noise
         ``init_latents`` (N, h, w, C); returns (N, H, W, 3) images in [-1, 1],
         decoded ``decode_chunk`` samples at a time (None: the batch). The
-        caller draws the noise (the engine: one generator per request seed)."""
+        caller draws the noise (the engine: one generator per request seed),
+        and a stochastic sampler's fresh noise of each step from ``renoise``:
+        one generator per row, so a row's draws do not depend on the batch."""
         bundle, sampler = self.bundle, self.sampler
         device = cond["prompt_embeds"].device
         latents = init_latents.float()
@@ -58,5 +62,5 @@ class TextToImagePipeline:
                 model_output = u_out + guidance_scale * (c_out - u_out)
             else:
                 model_output = model_fn(latents, t)
-            latents = sampler.step(model_output, i, latents)
+            latents = sampler.step(model_output, i, latents, renoise)
         return bundle.decode_latents(frozen, latents, decode_chunk)

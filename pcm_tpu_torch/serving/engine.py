@@ -2,9 +2,10 @@
 
 Every device batch has ``batch_size`` rows: a partial batch is padded by
 repeating its last request, so each batch runs the same shapes. Each request
-carries its own seed, and its starting noise comes from a generator seeded
-with it on the device, so a request's image does not depend on which batch
-it rode in. Adapters (LoRA factor dicts) are arguments of every forward, so
+carries its own seed, and its starting noise (and, with the stochastic
+PCM-FM sampler, each step's fresh noise) comes from a generator seeded with
+it on the device, so a request's image does not depend on which batch it
+rode in. Adapters (LoRA factor dicts) are arguments of every forward, so
 a swap replaces a dict and rebuilds nothing. An adapter comes as a dict or
 as a kohya ``.safetensors`` file (`lora/kohya.py`), read into the template's
 keys, shapes and dtypes.
@@ -38,10 +39,11 @@ class EngineConfig:
 def make_prompt_encoder(bundle, toks: Mapping[str, Callable], frozen, device,
                         resolution: int = 512) -> Callable:
     """``encode(prompts) -> cond`` over the bundle's text towers
-    (`pcm_tpu/serving/engine.py:make_prompt_encoder`): SD1.5's CLIP-L, or
-    SDXL's two towers with ``time_ids`` [res, res, 0, 0, res, res]."""
+    (`pcm_tpu/serving/engine.py:make_prompt_encoder`): SD1.5's CLIP-L,
+    SDXL's two towers with ``time_ids`` [res, res, 0, 0, res, res], or SD3's
+    CLIP-L, CLIP-bigG and T5."""
     family = type(bundle).__name__
-    if family not in ("SD15Bundle", "SDXLBundle"):
+    if family not in ("SD15Bundle", "SDXLBundle", "SD3Bundle"):
         raise NotImplementedError(f"{family} serving is not yet ported")
 
     def ids(key: str, prompts: Sequence[str]) -> torch.Tensor:
@@ -51,6 +53,9 @@ def make_prompt_encoder(bundle, toks: Mapping[str, Callable], frozen, device,
         with torch.inference_mode():
             if family == "SD15Bundle":
                 return bundle.encode_prompts(frozen, ids("input_ids", prompts))
+            if family == "SD3Bundle":
+                return bundle.encode_prompts(frozen, *(ids(k, prompts) for k in
+                                                       ("input_ids", "input_ids_2", "input_ids_3")))
             time_ids = torch.tensor([[resolution, resolution, 0, 0, resolution, resolution]],
                                     dtype=torch.float32, device=device).repeat(len(prompts), 1)
             return bundle.encode_prompts(frozen, ids("input_ids", prompts),
@@ -85,7 +90,8 @@ class InferenceEngine:
 
     def _load_tree(self, source: Union[str, os.PathLike, Mapping[str, torch.Tensor]]) -> Adapter:
         """An adapter dict shaped exactly like the engine's own, on its device.
-        A kohya file's factors are cast to the template's dtypes; a file whose
+        A kohya file is read under the family's prefix (``lora_unet``; SD3's
+        ``lora_transformer``), its factors cast to the template's dtypes; a file whose
         alpha differs from the bundle's `LoRASpec` is loaded with a warning
         (the spec's scale applies)."""
         if self.lora is None:
@@ -96,7 +102,8 @@ class InferenceEngine:
 
             spec = self.bundle.lora
             try:
-                tree, file_alpha = load_kohya_safetensors(str(source), self.lora, spec.rank)
+                tree, file_alpha = load_kohya_safetensors(str(source), self.lora, spec.rank,
+                                                          self.bundle.KOHYA_PREFIX)
             except KeyError as e:
                 raise ValueError(f"{source}: kohya file lacks {e} of the engine's adapter") from e
             alpha = spec.alpha if spec.alpha is not None else spec.rank
@@ -142,12 +149,14 @@ class InferenceEngine:
     def adapter_names(self) -> List[str]:
         return sorted(self.adapters)
 
-    def _init_noise(self, seeds: Sequence[int]) -> torch.Tensor:
-        rows = []
-        for s in seeds:
-            g = torch.Generator(self.device).manual_seed(int(s))
-            rows.append(torch.randn(self._latent_shape, generator=g, device=self.device))
-        return torch.stack(rows)
+    def _generators(self, seeds: Sequence[int]) -> List[torch.Generator]:
+        """One generator a request, seeded with its seed on the device."""
+        return [torch.Generator(self.device).manual_seed(int(s)) for s in seeds]
+
+    def _init_noise(self, gens: Sequence[torch.Generator]) -> torch.Tensor:
+        """Each request's starting noise, the first draws of its generator."""
+        return torch.stack([torch.randn(self._latent_shape, generator=g, device=self.device)
+                            for g in gens])
 
     def generate_batch(self, prompts: Sequence[str], seeds: Sequence[int],
                        adapter: Optional[str] = None) -> np.ndarray:
@@ -163,9 +172,10 @@ class InferenceEngine:
             if adapter is not None and adapter not in self.adapters:
                 raise KeyError(f"unknown adapter {adapter!r}; registered: {self.adapter_names}")
             lora = self.adapters[adapter] if adapter is not None else self.lora
+            gens = self._generators(seeds)
             imgs = self.pipe.generate(self.frozen, lora, self._encode(prompts), self._uncond,
-                                      self._init_noise(seeds), self.cfg.guidance_scale,
-                                      self.cfg.decode_chunk)[:n].float()
+                                      self._init_noise(gens), self.cfg.guidance_scale,
+                                      self.cfg.decode_chunk, renoise=gens)[:n].float()
             if not torch.isfinite(imgs).all():
                 raise FloatingPointError("non-finite pixels in the generated batch")
             out = ((imgs + 1) * 127.5).clamp(0, 255).to(torch.uint8).cpu().numpy()

@@ -141,6 +141,11 @@ def main(argv=None):
     if args.recipe not in RECIPES:
         ap.error(f"unknown recipe {args.recipe!r} (one of {sorted(RECIPES)})")
     recipe = RECIPES[args.recipe]
+    if recipe.family == "sd3":
+        ap.error(f"recipe {args.recipe} is {NOT_PORTED}: the SD3 recipes are adversarial, and "
+                 "the SD3 adversarial steps, the MMDiT's feature taps and SD3 from pixels come "
+                 "with slice 4b (ROADMAP Queue 1 item 4); the SD3 consistency step runs through "
+                 "train.distill.build_flow_distill_step on SD3_CACHED_STEP")
     if recipe.family not in ("sd15", "sdxl"):
         ap.error(f"recipe {args.recipe} ({recipe.family}) is {NOT_PORTED}: the sd15 recipes "
                  "and sdxl_4phase_adv are")

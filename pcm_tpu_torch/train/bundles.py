@@ -1,7 +1,7 @@
-"""Model bundles for SD1.5 and SDXL (counterpart of `pcm_tpu/train/bundles.py`).
+"""Model bundles for SD1.5, SDXL and SD3 (counterpart of `pcm_tpu/train/bundles.py`).
 
 ``frozen`` is a dict of the bundle's modules (``unet``, ``vae``, ``text``,
-and SDXL's ``text2``);
+and SDXL's ``text2``; SD3's ``mmdit``, ``vae``, ``text``, ``text2`` and ``t5``);
 adapters are dicts of LoRA factors (`lora/layers.py`). The bundle-level API
 keeps the JAX package's layout: latents and images are ``(N, H, W, C)``.
 """
@@ -16,6 +16,8 @@ import torch.nn as nn
 
 from ..lora.layers import LoRA, LoRASpec, attach_lora, init_lora
 from ..models.clip import CLIPTextConfig, CLIPTextModel
+from ..models.mmdit import MMDiT, MMDiTConfig
+from ..models.t5 import T5Config, T5Encoder
 from ..models.unet import UNet2DCondition, UNetConfig
 from ..models.vae import AutoencoderKL, VAEConfig
 
@@ -70,7 +72,10 @@ def _own_stream(generator: torch.Generator, tag: int) -> torch.Generator:
 _ENCODER_STREAM = 0x5D15E  # the VAE encoder's weights (`SD15Bundle.init`)
 # SDXL's modules besides the UNet, each from a stream of its own (`SDXLBundle.init`)
 _SDXL_STREAMS = {"vae": 0x5D1C1, "text": 0x5D1C2, "text2": 0x5D1C3}
-TEXT_TOWERS = ("text", "text2")
+# SD3's modules besides the MMDiT (`SD3Bundle.init`)
+_SD3_STREAMS = {"vae": 0x5D3C1, "text": 0x5D3C2, "text2": 0x5D3C3, "t5": 0x5D3C4}
+TEXT_TOWERS = ("text", "text2", "t5")
+BACKBONES = ("unet", "mmdit")  # the modules that carry LoRA
 
 
 def _owner(root: nn.Module, param_name: str) -> nn.Module:
@@ -81,16 +86,20 @@ def _build(make: Callable[[], Frozen], lora: LoRASpec, dtype: torch.dtype,
            device: torch.device) -> Frozen:
     """The modules ``make()`` builds, with uninitialized weights on ``device``
     (``torch.device("meta")`` builds the structure only); LoRA marked on the
-    UNet, every module but the text towers in channels-last memory."""
+    backbone (UNet or MMDiT), every module but the text towers in
+    channels-last memory."""
     with torch.device("meta"):
         frozen = make()
-    if "unet" in frozen:
-        attach_lora(frozen["unet"], lora)
+    for k in BACKBONES:
+        if k in frozen:
+            attach_lora(frozen[k], lora)
     if torch.device(device).type == "meta":
         return frozen
     out = {}
     for k, m in frozen.items():
-        m = m.to_empty(device=device).to(dtype).eval().requires_grad_(False)
+        # cast on the meta device first: storage is allocated once, in ``dtype``
+        # (materialized in fp32 first, T5-XXL alone would take 19 GB before its cast)
+        m = m.to(dtype).to_empty(device=device).eval().requires_grad_(False)
         if k not in TEXT_TOWERS:
             m = m.to(memory_format=torch.channels_last)
         out[k] = m
@@ -128,6 +137,8 @@ class SD15Bundle:
     dtype: torch.dtype = torch.bfloat16
     remat: bool = False  # checkpoint each UNet block while grad is on (training)
     vae_encode_chunk: Optional[int] = None  # samples a VAE encode call (None: the batch)
+
+    KOHYA_PREFIX = "lora_unet"  # the key prefix of the family's kohya LoRA files
 
     def build(self, device: torch.device) -> Frozen:
         """The bundle's modules with uninitialized weights on ``device``
@@ -262,6 +273,7 @@ class SDXLBundle:
     vae_encode_chunk: Optional[int] = None  # samples a VAE encode call (None: the batch)
 
     MODULES = ("unet", "vae", "text", "text2")
+    KOHYA_PREFIX = "lora_unet"
 
     def build(self, device: torch.device, modules: Tuple[str, ...] = MODULES) -> Frozen:
         """``modules`` of the bundle with uninitialized weights on ``device``."""
@@ -342,6 +354,115 @@ class SDXLBundle:
     teacher_features = SD15Bundle.teacher_features
     latent_channels = SD15Bundle.latent_channels
     vae_scale = SD15Bundle.vae_scale
+
+
+@dataclasses.dataclass(frozen=True)
+class SD3Bundle:
+    """SD3 (`pcm_tpu/train/bundles.py:335-448`): the MMDiT; CLIP-L (with its
+    768 projection) and CLIP-bigG, whose penultimate hidden states are
+    concatenated, zero-padded to the T5 width and followed along the
+    sequence by T5-XXL's output, and whose projected pooled outputs are
+    concatenated; the 16-channel VAE. A cached batch holds ``latents``,
+    ``prompt_embeds`` (N, 154, 4096), ``pooled_embeds`` (N, 2048) and the
+    uncond branch's ``uncond_embeds`` / ``uncond_pooled``; embeddings may
+    come as the three towers' ``input_ids``, ``input_ids_2`` and
+    ``input_ids_3`` instead."""
+
+    mmdit_cfg: MMDiTConfig
+    vae_cfg: VAEConfig
+    text_cfg: CLIPTextConfig  # CLIP-L with its projection
+    text2_cfg: CLIPTextConfig  # CLIP-bigG with its projection
+    t5_cfg: T5Config
+    lora: LoRASpec
+    dtype: torch.dtype = torch.bfloat16
+    remat: bool = False  # checkpoint each joint block while grad is on (training)
+
+    MODULES = ("mmdit", "vae", "text", "text2", "t5")
+    # the SD3 trainers' kohya prefix (`scripts/train.py:378`, `scripts/generate.py:79`)
+    KOHYA_PREFIX = "lora_transformer"
+
+    def build(self, device: torch.device, modules: Tuple[str, ...] = MODULES) -> Frozen:
+        """``modules`` of the bundle with uninitialized weights on ``device``."""
+        make = {"mmdit": lambda: MMDiT(self.mmdit_cfg, remat=self.remat),
+                "vae": lambda: AutoencoderKL(self.vae_cfg),
+                "text": lambda: CLIPTextModel(self.text_cfg),
+                "text2": lambda: CLIPTextModel(self.text2_cfg),
+                "t5": lambda: T5Encoder(self.t5_cfg)}
+        return _build(lambda: {k: make[k]() for k in modules}, self.lora, self.dtype, device)
+
+    def init(self, generator: torch.Generator, device: torch.device,
+             modules: Tuple[str, ...] = MODULES) -> Tuple[Frozen, Dict[str, torch.Tensor]]:
+        """Random weights of ``modules`` and the zero-effect adapter template
+        (empty without the MMDiT): the MMDiT and the template take
+        ``generator``'s draws, the VAE and each text tower a stream of their
+        own (`_own_stream`), so any subset of the modules gets the weights
+        the whole bundle gets."""
+        frozen = self.build(device, modules)
+        template = {}
+        if "mmdit" in frozen:
+            _fill_fan_in(frozen["mmdit"], generator)
+            template = init_lora(frozen["mmdit"], self.lora.rank, generator, device)
+        for k, tag in _SD3_STREAMS.items():
+            if k in frozen:
+                _fill_fan_in(frozen[k], _own_stream(generator, tag))
+        return frozen, template
+
+    def from_states(self, states: Mapping[str, Mapping[str, torch.Tensor]],
+                    device: torch.device) -> Frozen:
+        """The modules ``states`` names (of `MODULES`) loaded from their state
+        dicts; the step on cached latents needs the MMDiT alone."""
+        return _from_states(self.build(device, tuple(k for k in self.MODULES if k in states)),
+                            states)
+
+    # -- encoding / decoding ---------------------------------------------
+    def encode_prompts(self, frozen: Frozen, input_ids: torch.Tensor, input_ids_2: torch.Tensor,
+                       input_ids_3: torch.Tensor) -> Cond:
+        """``prompt_embeds`` (N, 2 * 77, joint width) and ``pooled`` (N, 768 +
+        1280) of the three towers (`pcm_tpu/train/bundles.py:388-401`)."""
+        hidden1, _, pooled1 = frozen["text"](input_ids)
+        hidden2, _, pooled2 = frozen["text2"](input_ids_2)
+        clip_seq = torch.cat([hidden1[-2], hidden2[-2]], dim=-1)
+        clip_seq = torch.nn.functional.pad(
+            clip_seq, (0, self.mmdit_cfg.joint_attention_dim - clip_seq.shape[-1]))
+        t5_seq = frozen["t5"](input_ids_3).to(clip_seq.dtype)
+        return {"prompt_embeds": torch.cat([clip_seq, t5_seq], dim=1),
+                "pooled": torch.cat([pooled1, pooled2], dim=-1)}
+
+    def encode(self, frozen: Frozen, batch: Mapping[str, torch.Tensor],
+               vae_noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Cond, Cond]:
+        """(latents, cond, uncond) of a cached batch (`pcm_tpu/train/bundles.py:406-431`):
+        cached embeddings or the captions' ids through the towers, the
+        batch's ``uncond_embeds`` / ``uncond_pooled``. Latents must be cached:
+        SD3 from pixels is not ported."""
+        if "latents" not in batch:
+            raise NotImplementedError("SD3 from pixels is not ported yet: pass cached latents")
+        if "prompt_embeds" in batch:
+            prompt_embeds, pooled = batch["prompt_embeds"], batch["pooled_embeds"]
+        else:
+            with torch.no_grad():
+                c = self.encode_prompts(frozen, batch["input_ids"], batch["input_ids_2"],
+                                        batch["input_ids_3"])
+            prompt_embeds, pooled = c["prompt_embeds"], c["pooled"]
+        return (batch["latents"], {"prompt_embeds": prompt_embeds, "pooled": pooled},
+                {"prompt_embeds": batch["uncond_embeds"], "pooled": batch["uncond_pooled"]})
+
+    decode_latents = SD15Bundle.decode_latents
+    latents_like = SD15Bundle.latents_like
+    vae_scale = SD15Bundle.vae_scale
+
+    # -- forwards ----------------------------------------------------------
+    def student(self, frozen: Frozen, lora: LoRA, x: torch.Tensor, t: torch.Tensor,
+                cond: Cond) -> torch.Tensor:
+        """The velocity (N, h, w, C) at latents ``x`` (N, h, w, C), timesteps ``t``."""
+        return frozen["mmdit"](x, t, cond["prompt_embeds"], cond["pooled"], lora)
+
+    def teacher(self, frozen: Frozen, x: torch.Tensor, t: torch.Tensor,
+                cond: Cond) -> torch.Tensor:
+        return self.student(frozen, None, x, t, cond)
+
+    @property
+    def latent_channels(self) -> int:
+        return self.mmdit_cfg.in_channels
 
 
 def adapter_like(template: Mapping[str, torch.Tensor], generator: torch.Generator,

@@ -1,5 +1,6 @@
-"""The phased-consistency distillation step for the epsilon / DDIM family
-(counterpart of `pcm_tpu/train/distill.py:38-221`, SD1.5 and SDXL).
+"""The phased-consistency distillation steps: the epsilon / DDIM family
+(SD1.5, SDXL) and the flow-matching family (SD3), the counterpart of
+`pcm_tpu/train/distill.py`.
 
 One step: the CFG teacher forward (cond and uncond batched into one pass)
 and the stop-grad target forward under ``torch.no_grad``, the phased solver
@@ -16,8 +17,9 @@ phase end to give the renoising timestep) and the renoising noises
 `ddim_prepare` and adversarial steps draw, so both packages run the same
 step. With ``int8_no_grad_fwd`` (the CLI's ``--int8-matmul scoped``) the
 teacher and target forwards run under ``int8_matmul("dense")`` and the
-differentiated student keeps the dequantized weights. The flow-matching
-(SD3) steps are not ported yet.
+differentiated student keeps the dequantized weights. The flow step
+(`build_flow_distill_step`) takes the same draws: its index picks a point of
+the Euler solver's sigma grid, and ``w`` is the recipe's fixed guidance.
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..core.losses import cfg_combine, consistency_loss
-from ..core.schedule import DDPMSchedule
-from ..core.solver import PhasedDDIMSolver, boundary_scalings, phase_boundaries
+from ..core.schedule import DDPMSchedule, FlowSchedule
+from ..core.solver import PhasedDDIMSolver, PhasedEulerSolver, boundary_scalings, phase_boundaries
 from ..utils.quant import int8_matmul
 from .state import TrainState, apply_updates, global_norm
 
@@ -198,6 +200,75 @@ def build_ddim_distill_step(bundle, schedule: DDPMSchedule, cfg: DistillConfig, 
             lora = {k: p.detach().requires_grad_(True) for k, p in state.params.items()}
             with torch.enable_grad():
                 model_pred = ddim_model_pred(bundle, schedule, solver, cfg, frozen, lora, parts)
+                loss = consistency_loss(model_pred, parts["target"], cfg.loss_type, cfg.huber_c)
+                grads = torch.autograd.grad(loss, list(lora.values()))
+            return loss.detach(), dict(zip(lora, grads))
+
+        loss, grads = accumulate_grads(grad_fn, batch, draws, grad_accum_steps)
+        new_state = apply_updates(state, grads, tx)
+        return new_state, {"loss": loss, "grad_norm": global_norm(grads)}
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# flow-matching family (SD3), `pcm_tpu/train/distill.py:229-305`
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def flow_prepare(bundle, schedule: FlowSchedule, solver: PhasedEulerSolver, cfg: DistillConfig,
+                 frozen, lora, batch, draws: Draws) -> Dict[str, Any]:
+    """Everything up to the stop-grad target: noising at the grid point's
+    sigma, the CFG teacher's Euler step and the target network's jump from
+    the step's end (``is_target``). ``lora`` is the student's current adapter."""
+    latents, cond, uncond = bundle.encode(frozen, batch, draws.get("vae_noise"))
+    noise, index, w = draws["noise"], draws["index"].long(), draws["w"]
+    sigmas = solver.table("sigmas", latents.device)[index]
+    sigmas_prev = solver.table("sigmas_prev", latents.device)[index]
+    timesteps = sigmas * schedule.num_train_timesteps
+    timesteps_prev = sigmas_prev * schedule.num_train_timesteps
+    noisy = schedule.add_noise(latents, noise, sigmas)
+
+    with _no_grad_fwd_ctx(cfg):
+        if cfg.not_apply_cfg_solver:
+            cond_out = uncond_out = bundle.teacher(frozen, noisy, timesteps, cond)
+        else:
+            both = bundle.teacher(frozen, torch.cat([noisy, noisy]),
+                                  torch.cat([timesteps, timesteps]), _merge_cond(cond, uncond))
+            cond_out, uncond_out = both.chunk(2)
+    teacher_v = cfg_combine(cond_out, uncond_out, w)
+    x_prev = solver.euler_step(noisy, teacher_v, index)
+
+    with _no_grad_fwd_ctx(cfg):
+        target_out = bundle.student(frozen, lora, x_prev, timesteps_prev, cond)
+    target, end_index = solver.multiphase_pred(x_prev, target_out, index, cfg.multiphase,
+                                               is_target=True)
+    return dict(latents=latents, noise=noise, index=index, timesteps=timesteps,
+                timesteps_prev=timesteps_prev, noisy=noisy, w=w, cond=cond, uncond=uncond,
+                x_prev=x_prev, target=target, end_index=end_index)
+
+
+def flow_model_pred(bundle, schedule, solver, cfg, frozen, lora, parts) -> torch.Tensor:
+    """The online student's jump to its phase start, differentiable w.r.t. ``lora``."""
+    v_pred = bundle.student(frozen, lora, parts["noisy"], parts["timesteps"], parts["cond"])
+    model_pred, _ = solver.multiphase_pred(parts["noisy"], v_pred, parts["index"], cfg.multiphase)
+    return model_pred
+
+
+def build_flow_distill_step(bundle, schedule: FlowSchedule, cfg: DistillConfig, tx,
+                            grad_accum_steps: int = 1) -> Callable:
+    """The flow-matching (SD3) consistency step, called as the DDIM one
+    (`build_ddim_distill_step`)."""
+    solver = PhasedEulerSolver.create(schedule, cfg.num_solver_steps)
+
+    def step(state: TrainState, frozen, batch, draws: Sequence[Draws]
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        def grad_fn(mb, dr):
+            parts = flow_prepare(bundle, schedule, solver, cfg, frozen, state.params, mb, dr)
+            lora = {k: p.detach().requires_grad_(True) for k, p in state.params.items()}
+            with torch.enable_grad():
+                model_pred = flow_model_pred(bundle, schedule, solver, cfg, frozen, lora, parts)
                 loss = consistency_loss(model_pred, parts["target"], cfg.loss_type, cfg.huber_c)
                 grads = torch.autograd.grad(loss, list(lora.values()))
             return loss.detach(), dict(zip(lora, grads))

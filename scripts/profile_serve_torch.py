@@ -1,13 +1,14 @@
 #!/usr/bin/env python
 """Where the device time of the port's served batch goes (CUDA only).
 
-  python scripts/profile_serve_torch.py [--family sd15|sdxl] [--batch-size 4] [--steps 2]
-      [--seed 0]
+  python scripts/profile_serve_torch.py [--family sd15|sdxl|sd3] [--batch-size 4]
+      [--steps 2] [--seed 0]
 
-Builds the full-width bundle with random weights (SD1.5 at 512 px, SDXL at
-1024 px with the serving CLI's decode chunk), warms up one student
-batch (seeded adapter, guidance 1.0) and one teacher batch (guidance 7.5),
-then traces one more of each with ``torch.profiler``. For each it prints
+Builds the full-width bundle with random weights (SD1.5 at 512 px, SDXL and
+SD3 at 1024 px with the serving CLI's decode chunk; SD3 samples with PCM-FM
+on the serving CLI's 100-point grid), warms up one student batch (seeded
+adapter, guidance 1.0) and one teacher batch (guidance 7.5; SD3's recipes'
+3.0), then traces one more of each with ``torch.profiler``. For each it prints
 the host wall time, the summed kernel time by category (the port's three
 kernels, GEMMs, convolutions, the rest), the device idle share
 (1 - kernel time / wall), and the top kernels by device time.
@@ -68,7 +69,7 @@ def trace(fn, label: str):
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--family", default="sd15", choices=["sd15", "sdxl"])
+    ap.add_argument("--family", default="sd15", choices=["sd15", "sdxl", "sd3"])
     ap.add_argument("--batch-size", type=int, default=4)
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
@@ -76,25 +77,31 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
 
-    from pcm_tpu_torch.configs.families import sd15_bundle, sdxl_bundle
-    from pcm_tpu_torch.core.schedule import make_ddpm_schedule
-    from pcm_tpu_torch.data.tokenizer import HashTokenizer
+    from pcm_tpu_torch.configs.families import (sd3_bundle, sd15_bundle,
+                                                sdxl_bundle)
+    from pcm_tpu_torch.core.schedule import make_ddpm_schedule, make_flow_schedule
+    from pcm_tpu_torch.data.tokenizer import resolve_tokenizers
     from pcm_tpu_torch.sampling.ddim import DDIMSampler
+    from pcm_tpu_torch.sampling.pcm_fm import PCMFMSampler
     from pcm_tpu_torch.serving import EngineConfig, InferenceEngine
-    from pcm_tpu_torch.serving.__main__ import FAMILIES, decode_chunk
+    from pcm_tpu_torch.serving.__main__ import FAMILIES, SD3_PCM_TIMESTEPS, decode_chunk
     from pcm_tpu_torch.train.bundles import adapter_like
 
     dev = torch.device("cuda")
-    bundle = sd15_bundle() if args.family == "sd15" else sdxl_bundle()
+    bundle = {"sd15": sd15_bundle, "sdxl": sdxl_bundle, "sd3": sd3_bundle}[args.family]()
     res, tok_keys = FAMILIES[args.family]
     gen = torch.Generator(dev).manual_seed(args.seed)
     frozen, template = bundle.init(gen, dev)
-    sampler = DDIMSampler.create(make_ddpm_schedule(), args.steps)
-    toks = {k: HashTokenizer() for k in tok_keys}
+    if args.family == "sd3":
+        sampler = PCMFMSampler.create(make_flow_schedule(), args.steps,
+                                      SD3_PCM_TIMESTEPS)
+    else:
+        sampler = DDIMSampler.create(make_ddpm_schedule(), args.steps)
+    toks = resolve_tokenizers(None, tok_keys)
     prompts = [f"a photo of subject {i}" for i in range(args.batch_size)]
     seeds = list(range(args.batch_size))
     for label, lora, cfg in (("student", adapter_like(template, gen), 1.0),
-                             ("teacher", None, 7.5)):
+                             ("teacher", None, 3.0 if args.family == "sd3" else 7.5)):
         eng = InferenceEngine(bundle, sampler, frozen, lora, toks,
                               EngineConfig(batch_size=args.batch_size,
                                            latent_hw=res // bundle.vae_scale, resolution=res,

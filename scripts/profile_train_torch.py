@@ -1,14 +1,16 @@
 #!/usr/bin/env python
 """Where the device time of the port's distillation step goes (CUDA only).
 
-  python scripts/profile_train_torch.py [--family sd15|sdxl] [--batch-size 4]
+  python scripts/profile_train_torch.py [--family sd15|sdxl|sd3] [--batch-size 4]
       [--remat full] [--steps 6] [--use-8bit-adam] [--frozen-weights bf16|int8]
       [--int8-matmul scoped|dense|fused] [--adv fresh|fused] [--pixels] [--seed 0]
 
 Builds the full-width bundle with random weights and its consistency step
 (AdamW): SD1.5 with the `sd15_4phase` recipe at 512 px, or the SDXL-1024
 cached step (40 solver steps, 4 phases, w in [6, 7), as `bench.py` runs it
-for ``--family sdxl``). With ``--frozen-weights int8`` the frozen weights are
+for ``--family sdxl``), or the SD3 cached step (`SD3_CACHED_STEP`: 100 Euler
+solver steps, 4 phases, fixed w = 3, rank-32 LoRA, zero uncond; its recipes'
+batch is 2). With ``--frozen-weights int8`` the frozen weights are
 int8 and ``--int8-matmul`` picks the int8 path, as in `python -m
 pcm_tpu_torch.train`. With ``--adv`` it takes the adversarial recipe's
 updates instead (``sd15_2phase_adv`` or ``sdxl_4phase_adv``, the heads
@@ -142,7 +144,7 @@ def gn_backward_scope():
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--family", default="sd15", choices=["sd15", "sdxl"])
+    ap.add_argument("--family", default="sd15", choices=["sd15", "sdxl", "sd3"])
     ap.add_argument("--batch-size", type=int, default=4)
     ap.add_argument("--remat", default="full", choices=["full", "none"])
     ap.add_argument("--steps", type=int, default=6)
@@ -158,16 +160,20 @@ def main() -> None:
     args = ap.parse_args()
     if args.pixels and args.family == "sdxl" and not args.adv:
         raise SystemExit("--pixels with --family sdxl needs --adv (sdxl_4phase_adv)")
+    if args.family == "sd3" and (args.pixels or args.adv or args.frozen_weights == "int8"):
+        raise SystemExit("--family sd3 profiles the bf16 consistency step on cached latents")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     if args.int8_matmul and args.frozen_weights != "int8":
         raise SystemExit("--int8-matmul needs --frozen-weights int8")
 
-    from pcm_tpu_torch.configs.families import (RECIPES, SDXL_CACHED_STEP, disc_config,
+    from pcm_tpu_torch.configs.families import (RECIPES, SD3_CACHED_STEP,
+                                                SDXL_CACHED_STEP, disc_config, sd3_bundle,
                                                 sd15_bundle, sdxl_bundle)
-    from pcm_tpu_torch.core.schedule import make_ddpm_schedule
+    from pcm_tpu_torch.core.schedule import make_ddpm_schedule, make_flow_schedule
     from pcm_tpu_torch.train import adv
-    from pcm_tpu_torch.train.distill import build_ddim_distill_step, sample_draws
+    from pcm_tpu_torch.train.distill import (build_ddim_distill_step, build_flow_distill_step,
+                                             sample_draws)
     from pcm_tpu_torch.train.state import TrainState, make_optimizer
     from pcm_tpu_torch.utils.quant import int8_matmul, quantize_frozen
 
@@ -192,6 +198,16 @@ def main() -> None:
                      "input_ids": torch.from_numpy(ids).long().to(dev),
                      "uncond_embeds": batch["uncond_embeds"]}
             label += " from pixels (VAE encode + CLIP-L)"
+    elif args.family == "sd3":
+        bundle = sd3_bundle(remat=remat)
+        cfg, lr = SD3_CACHED_STEP.distill, SD3_CACHED_STEP.lr
+        embeds = torch.randn((b, 154, 4096), generator=gen, device=dev).bfloat16()
+        pooled = torch.randn((b, 2048), generator=gen, device=dev).bfloat16()
+        batch = {"latents": torch.randn((b, 128, 128, 16), generator=gen, device=dev),
+                 "prompt_embeds": embeds, "pooled_embeds": pooled,
+                 "uncond_embeds": torch.zeros_like(embeds),
+                 "uncond_pooled": torch.zeros_like(pooled)}
+        label = f"SD3-1024 cached step, batch {b}"
     else:
         bundle = sdxl_bundle(64, remat=remat)
         cfg, lr = SDXL_CACHED_STEP.distill, SDXL_CACHED_STEP.lr
@@ -211,15 +227,19 @@ def main() -> None:
                      "input_ids": ids.long().to(dev), "input_ids_2": ids.long().to(dev),
                      "time_ids": batch["time_ids"]}
             label = f"SDXL-1024 from pixels (VAE encode + CLIP-L + bigG), batch {b}"
-    # SDXL on caches needs the UNet alone (the other modules draw their own streams)
-    frozen, lora = (bundle.init(gen, dev, modules=("unet",))
-                    if args.family == "sdxl" and not args.pixels else bundle.init(gen, dev))
+    # SDXL and SD3 on caches need the backbone alone (the other modules draw
+    # their own streams)
+    backbone = {"sdxl": ("unet",), "sd3": ("mmdit",)}.get(args.family)
+    frozen, lora = (bundle.init(gen, dev, modules=backbone) if backbone and not args.pixels
+                    else bundle.init(gen, dev))
     if args.frozen_weights == "int8":
         quantize_frozen(frozen)
     if args.int8_matmul == "scoped":
         cfg = dataclasses.replace(cfg, int8_no_grad_fwd=True)
     tx = make_optimizer(lr, use_8bit=args.use_8bit_adam)
-    step = build_ddim_distill_step(bundle, make_ddpm_schedule(), cfg, tx)
+    step = (build_flow_distill_step(bundle, make_flow_schedule(), cfg, tx)
+            if args.family == "sd3" else build_ddim_distill_step(bundle, make_ddpm_schedule(),
+                                                                 cfg, tx))
     box = {"state": TrainState.create(lora, tx)}
     run_ctx = (int8_matmul(args.int8_matmul) if args.int8_matmul in ("dense", "fused")
                else contextlib.nullcontext())

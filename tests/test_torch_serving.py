@@ -242,8 +242,8 @@ def test_serve_entry_point_tiny_cpu():
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--family", "sd3"], "not yet ported"),
-    (["--stochastic"], "not yet ported"),
+    (["--family", "sd3", "--weights", "int8"], "not yet ported"),  # SD3 serves in bf16
+    (["--data-parallel", "2"], "not yet ported"),
     (["--lora", "x.safetensors"], "no such file"),  # --lora is ported: tests/test_torch_kohya.py
 ])
 def test_serve_entry_point_rejects_unported(argv, msg, capsys):
