@@ -7,8 +7,10 @@ from images through to serving the kohya LoRA it writes, and SDXL-1024 from
 text and from pixels: its VAE and text towers, its latent cache, adversarial
 training from images and SDXL serving of the LoRA that training writes; and
 SD3 at 1024 px: the MMDiT, T5-XXL and the two CLIP towers, the 16-channel
-VAE, the flow consistency step on cached latents and ``--family sd3``
-serving, deterministic and stochastic.
+VAE, the flow consistency step on cached latents, SD3 adversarial
+distillation (the teacher's taps, ``sd3_4phase_adv`` on caches and from
+pixels, ``cache_latents --family sd3``) and ``--family sd3`` serving of the
+LoRA it trains, deterministic and stochastic.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -29,7 +31,8 @@ Phases, one printed line each:
      SD1.5 and SDXL headline shapes; the GroupNorm Function's gradients; the fused
      int8 matmul (K6) at the SD1.5 and SDXL shapes of the int8 paths; K4 on
      fp32 at the discriminator heads' shapes (``fp32_*`` fields, beside
-     ``F.group_norm`` on the same tensor, bit-identical reruns); K1 at SD3's
+     ``F.group_norm`` on the same tensor, bit-identical reruns; the SD3
+     heads' (2 / 4, 4096, 1536) as rows of ``fp32_sd3``); K1 at SD3's
      joint sequence (b, 4250, 4250, 24, 64), ragged in q and k, at the served
      student's b = 4 (``sd3_*`` fields) and the CFG teacher's 8 (rows of
      ``sd3_4250``), and K2 / K3 at the cached step's (2, 4250, 4250, 24, 64)
@@ -126,20 +129,42 @@ Phases, one printed line each:
      versions and against K2 alone and K3 alone plain (as phase 6);
  20. sd3-step: the SD3 cached consistency step (`sd3_bundle` +
      `build_flow_distill_step` on `SD3_CACHED_STEP`: 100 Euler solver steps,
-     4 phases, fixed w = 3, lr 5e-6) at batch 2 for 4 steps, zero uncond:
+     4 phases, fixed w = 3, lr 5e-6) at batch 2 for 3 steps, zero uncond:
      finite losses, step ms, peak memory, K1-K3 launched;
+ 20a. sd3-adv-grad: the same MMDiT on the adversarial LoRA list (rank 32,
+     seeded b != 0), the SD3 heads from ``--seed + 1``: the teacher's 24 taps
+     of a renoised latent at batch 2, kernels against all plain versions
+     within phase 9's rule; the G loss's LoRA gradients (the student, its
+     Euler jump, the flow renoising, the taps, the heads, the hinge loss)
+     against all plain versions and against K2 alone and K3 alone plain (cos
+     >= 0.99, norm <= 5e-2); K1-K3 and K4 on fp32 launched;
  21. sd3-towers: CLIP-L (768 projection), CLIP-bigG and T5-XXL
      ``encode_prompts`` at batch 4: (4, 154, 4096) and (4, 2048), finite,
      ms, T5's range;
  22. sd3-vae: the SD3 VAE decoding one 1024-px sample (as serving decodes),
      kernels against plain within phase 15's rule, ms, K4 / K1 launches;
+ 22a. train-sd3-adv: ``python -m pcm_tpu_torch.train --recipe sd3_4phase_adv``
+     as child processes at full width, batch 2, on a seeded SD3 cache under
+     build/ (128x128x16 latents, (154, 4096) embeds, 2048 pooled): ``fused``
+     for 4 global steps, checkpoints every 2 (lr 1e-2, so that phase 23's
+     image moves), and ``fresh`` for 4; finite ``loss`` and ``d_loss``, the
+     LoRA and the heads moved, kohya files under ``lora_transformer`` holding
+     the adversarial list's layers, K1-K3 and K4 on fp32 launched; step ms,
+     peak, host counters;
+ 22b. sd3-pixels: ``python -m pcm_tpu_torch.data.cache_latents --family sd3``'s
+     ``main`` over phase 17's 1024-px PNGs (the three arrays' shapes), then
+     ``sd3_4phase_adv --train-data-dir`` as a child process, ``fused``, batch
+     2, 2 global steps (the VAE encode and the three towers each step), as
+     phase 22a checks it and K4 in bf16 launched;
  23. sd3-serve: the engine of ``python -m pcm_tpu_torch.serving --family sd3
-     --lora <kohya file under lora_transformer>`` behind the HTTP server, 2
-     PCM-FM steps on the 100-point grid, batch 4, 1024 px: a full batch and
-     a partial one, the shared request's image equal bit for bit; a teacher
-     engine at guidance 3.0 (the MMDiT at batch 8); a ``--stochastic``
-     engine whose request image is also equal in a full and a partial batch
-     and differs from the deterministic one; batch latencies and peaks.
+     --lora <phase 22a's fused step-4 file>`` behind the HTTP server (the
+     adversarial template that the file selects), 2 PCM-FM steps on the
+     100-point grid, batch 4, 1024 px: a full batch and a partial one, the
+     shared request's image equal bit for bit and unlike the image of the
+     file's base-list subset; a teacher engine at guidance 3.0 (the MMDiT at
+     batch 8); a ``--stochastic`` engine whose request image is also equal in
+     a full and a partial batch and differs from the deterministic one; batch
+     latencies and peaks.
 Each main path runs with the launch counts set to 0 just before it and read
 just after. Then a JSON line of the kernels, the nvidia-smi line, and a last
 JSON line ``{"ok": true, ...}``.
@@ -270,10 +295,14 @@ GN_SHAPES = [
     ((4, 32, 32, 1280), 1e-6, None),
     *VAE_XL_GN,
 ]
+# (N, S, C) of the SD3 heads' fp32 GroupNorm: a 64x64 grid of 1536 channels
+# (48 a group) at the G step's B = 2 and the D step's 2B = 4 (each a row of
+# K4's ``fp32_sd3`` field)
+GN_FP32_SD3 = [(2, 4096, 1536), (4, 4096, 1536)]
 # (N, S, C) of the discriminator heads' fp32 GroupNorm at the D step's 2B = 4:
 # SDXL's 64x64 tap (also SD1.5's up_3) and its 32x32 taps at 1280, SD1.5's
-# up_2; the first is the fp32 headline
-GN_FP32_SHAPES = [(4, 4096, 320), (4, 1024, 1280), (4, 4096, 640)]
+# up_2; the first is the fp32 headline; then ``GN_FP32_SD3``
+GN_FP32_SHAPES = [(4, 4096, 320), (4, 1024, 1280), (4, 4096, 640), *GN_FP32_SD3]
 # (M = b*s, K, F): the SD1.5 feed-forward in-projections (teacher; CFG doubles
 # M), then SDXL's at batch 4 under CFG
 GEGLU_SHAPES = [(16384, 320, 1280), (32768, 320, 1280), (4096, 640, 2560),
@@ -428,6 +457,10 @@ def check_kernels(gen) -> dict:
         if shp == GN_FP32_SHAPES[0]:
             r.update(fp32_shape=shp, fp32_ms=ms, fp32_plain_ms=plain, fp32_library_ms=lib,
                      fp32_bound_ms=b["bound_ms"])
+        if shp in GN_FP32_SD3:
+            r.setdefault("fp32_sd3", []).append(
+                {"shape": shp, "rel_max": err, "ms": ms, "plain_ms": plain,
+                 "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": lib})
         del x, out, ref
 
     for shp in GEGLU_SHAPES:
@@ -976,6 +1009,9 @@ def sdxl_step(bundle, frozen, template, gen, batch_size: int = 4, steps: int = 3
 # the kernels (launch counters) every adversarial path must launch
 ADV_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
                "group_norm_silu", "geglu", "group_norm_silu_fp32")
+# SD3's: the MMDiT has no GroupNorm and no GEGLU (bf16 K4 runs in its VAE, from pixels)
+SD3_ADV_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+                   "group_norm_silu_fp32")
 
 
 @contextlib.contextmanager
@@ -1512,42 +1548,58 @@ def loader_time_ids(img_dir: str, seed: int, batch: int, batches: int) -> list:
         it.close()
 
 
-def train_xl_pixels(img_dir: str, out_dir: str, seed: int) -> dict:
-    """Phase 17b: ``python -m pcm_tpu_torch.train --recipe sdxl_4phase_adv
-    --train-data-dir`` as a child process at full width, batch 2, ``fused``,
-    4 global steps, checkpoints every 2. Checks the exit code, finite
-    ``loss`` and ``d_loss``, kohya files at 2 and 4, that the LoRA and the
-    heads moved (the step-4 checkpoint against the seed's heads and zero
-    ``lora_b``) and that the adversarial kernels were launched."""
+def _adv_child(argv, out_dir: str, seed: int, family: str, saves=(2, 4)) -> dict:
+    """``python -m pcm_tpu_torch.train`` on an adversarial recipe of
+    ``family`` as a child process (`_train_process`), ``out_dir`` emptied
+    first and checkpoints at ``saves``. Checks its exit code; returns its
+    rows, its launches, whether the kohya files of ``saves`` exist and the
+    layers of the last one, the (G, D) updates, and how far the LoRA and the
+    heads moved (the last checkpoint against zero ``lora_b`` and the heads
+    the seed draws)."""
     from pcm_tpu_torch.configs.families import disc_config
+    from pcm_tpu_torch.lora.kohya import kohya_layers
+    from pcm_tpu_torch.models.mmdit import SD3_MEDIUM_CONFIG
     from pcm_tpu_torch.models.unet import SDXL_CONFIG
     from pcm_tpu_torch.train.adv import init_discriminator
+    from pcm_tpu_torch.utils.safetensors import read_header
 
     shutil.rmtree(out_dir, ignore_errors=True)
-    argv = ["--recipe", "sdxl_4phase_adv", "--train-data-dir", img_dir, "--output-dir", out_dir,
-            "--batch-size", "2", "--max-train-steps", "4", "--checkpointing-steps", "2",
-            "--log-every", "1", "--seed", str(seed), "--allow-hash-tokenizer",
-            "--adv-pairing", "fused", "--dataloader-workers", "4"]
-    run = _train_process(argv)
+    gc.collect()
+    torch.cuda.empty_cache()  # the child's memory is the card's, less this process's
+    run = _train_process([*argv, "--output-dir", out_dir])
     if run["rc"] != 0:
-        raise AssertionError(f"sdxl-pixels: exit {run['rc']}:\n" + "\n".join(run["lines"][-30:]))
+        raise AssertionError(f"{family} adversarial child: exit {run['rc']}:\n"
+                             + "\n".join(run["lines"][-30:]))
     with open(os.path.join(out_dir, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     with open(os.path.join(out_dir, "launches.jsonl")) as f:
         counts = json.loads(f.readline())["launches"]
-    ck = torch.load(os.path.join(out_dir, "checkpoints", "step_0000004.pt"), map_location="cpu",
-                    weights_only=True)
-    _, init = init_discriminator(disc_config("sdxl"), SDXL_CONFIG.tap_channels(),
+    ck = torch.load(os.path.join(out_dir, "checkpoints", f"step_{saves[-1]:07d}.pt"),
+                    map_location="cpu", weights_only=True)
+    taps = {"sdxl": SDXL_CONFIG, "sd3": SD3_MEDIUM_CONFIG}[family].tap_channels()
+    _, init = init_discriminator(disc_config(family), taps,
                                  torch.Generator("cuda").manual_seed(seed + 1),
                                  torch.device("cuda"))
     heads_moved = max(float((ck["d_params"][k] - v.cpu()).abs().max()) for k, v in init.items())
     lora_b = max(float(v.abs().max()) for k, v in ck["lora"].items() if k.endswith("lora_b"))
-    kohya = [os.path.join(out_dir, f"pcm_lora_{s:07d}.safetensors") for s in (2, 4)]
+    kohya = [os.path.join(out_dir, f"pcm_lora_{s:07d}.safetensors") for s in saves]
     decoder = [ln for ln in run["lines"] if " decoder" in ln and ln.startswith("# ")]
     return {"rows": rows, "counts": counts, "heads_moved": heads_moved, "lora_b_max": lora_b,
-            "kohya": all(os.path.exists(p) for p in kohya), "updates": (ck["lora_step"],
-                                                                        ck["d_step"]),
+            "kohya": all(os.path.exists(p) for p in kohya), "kohya_path": kohya[-1],
+            "kohya_layers": set(kohya_layers(read_header(kohya[-1]))),
+            "updates": (ck["lora_step"], ck["d_step"]),
             "decoder": decoder[0][2:] if decoder else "not printed"}
+
+
+def train_xl_pixels(img_dir: str, out_dir: str, seed: int) -> dict:
+    """Phase 17b: ``python -m pcm_tpu_torch.train --recipe sdxl_4phase_adv
+    --train-data-dir`` as a child process (`_adv_child`) at full width, batch
+    2, ``fused``, 4 global steps, checkpoints every 2."""
+    return _adv_child(["--recipe", "sdxl_4phase_adv", "--train-data-dir", img_dir,
+                       "--batch-size", "2", "--max-train-steps", "4", "--checkpointing-steps",
+                       "2", "--log-every", "1", "--seed", str(seed), "--allow-hash-tokenizer",
+                       "--adv-pairing", "fused", "--dataloader-workers", "4"],
+                      out_dir, seed, "sdxl")
 
 
 def _serve_family(family: str, lora_path: str, seed: int, seed_base: int, *flags: str):
@@ -1768,7 +1820,7 @@ def sd3_mmdit_vs_reference(bundle, frozen, gen) -> dict:
             "finite": bool(torch.isfinite(out).all())}
 
 
-def sd3_step(bundle, frozen, template, gen, steps: int = 4) -> dict:
+def sd3_step(bundle, frozen, template, gen, steps: int = 3) -> dict:
     """Phase 20: the SD3 consistency step on cached latents
     (`build_flow_distill_step` on `SD3_CACHED_STEP`: 100 Euler solver steps,
     4 phases, fixed w = 3, rank-32 LoRA, the flow schedule at shift 3, lr
@@ -1805,6 +1857,180 @@ def sd3_step(bundle, frozen, template, gen, steps: int = 4) -> dict:
     return {"losses": losses, "grad_norms": norms, "step_ms": times, "counts": counts,
             "peak_bytes": torch.cuda.max_memory_allocated(), "lora_b_max": lora_b,
             "factors": len(template)}
+
+
+def sd3_adv_grad(bundle, frozen, gen, seed: int) -> dict:
+    """Phase 20a: the SD3 adversarial G loss through the full-width teacher
+    at batch 2, on ``bundle``'s adversarial LoRA list (rank 32, seeded b !=
+    0) and the SD3 heads drawn from ``seed + 1``: the 24 taps
+    (`SD3Bundle.teacher_features`) of a renoised latent with every kernel
+    against every plain version beside the input-nudge yardstick (phase
+    9's rule, the largest over the taps); then the LoRA gradients of the G
+    loss (the student's velocity, its Euler jump, the flow renoising, the
+    taps, the heads, `hinge_g_loss`) against every plain version and against
+    K2 alone and K3 alone plain, (cosine, relative norm error) each; the
+    launches of the kernel run."""
+    from pcm_tpu_torch.configs.families import disc_config
+    from pcm_tpu_torch.core.losses import hinge_g_loss
+    from pcm_tpu_torch.lora.layers import lora_shapes
+    from pcm_tpu_torch.ops import launch_counts, reference_ops, reset_launch_counts
+    from pcm_tpu_torch.train.adv import _flow_renoise, heads_precision, init_discriminator
+
+    heads_precision()  # as the training CLI's steps set it
+    dev = torch.device("cuda")
+    disc, heads = init_discriminator(disc_config("sd3"), bundle.tap_channels(),
+                                     torch.Generator("cuda").manual_seed(seed + 1), dev)
+    adapter = {k: torch.randn(shape, generator=gen, device=dev) * 0.05
+               for k, shape in lora_shapes(frozen["mmdit"], bundle.lora.rank).items()}
+    x = torch.randn((2, *SD3_LATENT), generator=gen, device=dev)
+    eps = torch.randn((2, *SD3_LATENT), generator=gen, device=dev)
+    cond = sd3_cond(2, gen)
+    t = torch.tensor([900.0, 750.0], device=dev)  # sigma 0.9 / 0.75 on the grid's scale
+    t_adv = torch.tensor([812.5, 633.0], device=dev)
+    sig, sig_end = (t / 1000).view(2, 1, 1, 1), torch.tensor([0.75, 0.5], device=dev).view(2, 1, 1, 1)
+    sig_adv = (t_adv / 1000).view(2, 1, 1, 1)
+
+    def taps(x_):
+        return bundle.teacher_features(frozen, x_, t_adv, cond)
+
+    def worst(out, ref):
+        return tuple(max(f(out[k], ref[k]) for k in ref) for f in (rel_max, rel_l2))
+
+    fake = _flow_renoise(x, eps, sig_end, sig_adv)
+    with torch.inference_mode():
+        got = taps(fake)
+        with reference_ops():
+            ref, nudged = taps(fake), taps(fake * (1 + 2 ** -8))
+    tap_readings = {"all": worst(got, ref), "noise": worst(nudged, ref),
+                    "finite": all(bool(torch.isfinite(f).all()) for f in got.values()),
+                    "shapes": sorted({tuple(f.shape) for f in got.values()}), "taps": len(got)}
+    del got, ref, nudged
+
+    def g_grads():
+        lora = {k: v.clone().requires_grad_(True) for k, v in adapter.items()}
+        v = bundle.student(frozen, lora, x, t, cond)
+        jumped = x + (sig_end - sig) * v  # the online student's Euler jump to its phase start
+        feats = bundle.teacher_features(frozen, _flow_renoise(jumped, eps, sig_end, sig_adv),
+                                        t_adv, cond)
+        g = hinge_g_loss(disc.logits(heads, feats))
+        return torch.autograd.grad(g, list(lora.values())), float(g.detach())
+
+    def compare(ref):
+        flat_ref = torch.cat([g.flatten() for g in ref])
+        return (float(torch.nn.functional.cosine_similarity(flat, flat_ref, dim=0)),
+                float((flat.norm() - flat_ref.norm()).abs() / flat_ref.norm()))
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    got, loss = g_grads()
+    torch.cuda.synchronize()
+    counts, peak = launch_counts(), torch.cuda.max_memory_allocated()
+    bad = [k for k, g in zip(adapter, got) if not torch.isfinite(g).all()]
+    flat = torch.cat([g.flatten() for g in got])
+    readings = {}
+    for label, names in (("all", ()), *((n, (n,)) for n in BWD_SWAPS)):
+        with reference_ops(*names):
+            readings[label] = compare(g_grads()[0])
+    return {"taps": tap_readings, "readings": readings, "bad": bad, "loss": loss,
+            "factors": len(adapter), "counts": counts, "peak_bytes": peak,
+            "pos_embed": "pos_embed.proj.lora_a" in adapter}
+
+
+def write_sd3_cache(out_dir: str, seed: int, n: int = 8) -> str:
+    """One shard of seeded SD3-1024 cached samples: 128x128x16 latents,
+    (154, 4096) prompt embeds and 2048 pooled embeds (fp16)."""
+    import numpy as np
+
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    np.savez(os.path.join(out_dir, "shard_00000.npz"),
+             latents=rng.standard_normal((n, *SD3_LATENT)).astype(np.float16),
+             prompt_embeds=rng.standard_normal((n, 154, 4096)).astype(np.float16),
+             pooled_embeds=rng.standard_normal((n, 2048)).astype(np.float16))
+    return out_dir
+
+
+def sd3_adv_layers(stochastic: bool = False) -> set:
+    """The kohya layer keys of the full-width MMDiT's adversarial LoRA list."""
+    from pcm_tpu_torch.configs.families import sd3_bundle
+    from pcm_tpu_torch.lora.kohya import kohya_key
+    from pcm_tpu_torch.lora.layers import lora_shapes
+
+    bundle = sd3_bundle(adv_targets=True, stochastic=stochastic)
+    meta = bundle.build(torch.device("meta"), ("mmdit",))["mmdit"]
+    return {kohya_key(k[:-len(".lora_a")], bundle.KOHYA_PREFIX)
+            for k in lora_shapes(meta, bundle.lora.rank) if k.endswith(".lora_a")}
+
+
+# the rate of phase 22a's fused run, whose step-4 file phase 23 serves: the
+# recipe's 5e-6 moves a fresh adapter too little in 2 updates to change a
+# served image, and phase 23 compares the file with its base-list subset
+SD3_SERVED_LR = "1e-2"
+
+
+def train_sd3_adv(cache_dir: str, seed: int) -> dict:
+    """Phase 22a: ``python -m pcm_tpu_torch.train --recipe sd3_4phase_adv``
+    on ``cache_dir`` as child processes (`_adv_child`) at full width, batch
+    2: ``fused`` for 4 global steps (checkpoints every 2, lr
+    `SD3_SERVED_LR`) and ``fresh`` for 4 (the recipe's lr)."""
+    common = ["--recipe", "sd3_4phase_adv", "--cached-latents-dir", cache_dir, "--batch-size",
+              "2", "--max-train-steps", "4", "--log-every", "1", "--seed", str(seed)]
+    return {"fused": _adv_child(common + ["--adv-pairing", "fused", "--checkpointing-steps", "2",
+                                          "--learning-rate", SD3_SERVED_LR],
+                                "build/chip_smoke/sd3_adv_fused", seed, "sd3"),
+            "fresh": _adv_child(common + ["--adv-pairing", "fresh", "--checkpointing-steps", "4"],
+                                "build/chip_smoke/sd3_adv_fresh", seed, "sd3", saves=(4,))}
+
+
+def sd3_pixels(img_dir: str, seed: int) -> dict:
+    """Phase 22b: ``python -m pcm_tpu_torch.data.cache_latents --family sd3``'s
+    ``main`` over the 1024-px PNGs of ``img_dir`` (batch 4: the arrays'
+    shapes, launches), then ``python -m pcm_tpu_torch.train --recipe
+    sd3_4phase_adv --train-data-dir`` as a child process (`_adv_child`) at
+    full width, batch 2, ``fused``, 2 global steps: each encodes its batch
+    with the VAE (K1 at d = 512, K4 bf16) and the three towers."""
+    import numpy as np
+
+    from pcm_tpu_torch.data import cache_latents
+    from pcm_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    out_dir = "build/chip_smoke/cache_sd3_pixels"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cache_latents.main(["--family", "sd3", "--train-data-dir", img_dir, "--output-dir",
+                             out_dir, "--batch", "4", "--seed", str(seed)])
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    shard = np.load(os.path.join(out_dir, "shard_00000.npz"))
+    cache = {"rc": rc, "seconds": seconds, "counts": counts,
+             "shapes": {k: shard[k].shape for k in shard.files},
+             "finite": all(bool(np.isfinite(shard[k]).all()) for k in shard.files)}
+    run = _adv_child(["--recipe", "sd3_4phase_adv", "--train-data-dir", img_dir, "--batch-size",
+                      "2", "--max-train-steps", "2", "--checkpointing-steps", "2", "--log-every",
+                      "1", "--seed", str(seed), "--allow-hash-tokenizer", "--adv-pairing",
+                      "fused", "--dataloader-workers", "4"],
+                     "build/chip_smoke/train_sd3_pixels", seed, "sd3", saves=(2,))
+    return {"cache": cache, "run": run}
+
+
+def check_sd3_run(tag: str, r: dict, steps: int, layers: set, kernels) -> None:
+    """Finite ``loss`` and ``d_loss`` to the last step, both players updated
+    and moved, kohya files holding ``layers``, ``kernels`` launched."""
+    rows = r["rows"]
+    losses = [x[k] for x in rows for k in ("loss", "d_loss") if k in x]
+    missing = [k for k in kernels if r["counts"][k] == 0]
+    if not (rows and rows[-1]["step"] == steps and all(math.isfinite(x) for x in losses)
+            and any("loss" in x for x in rows) and any("d_loss" in x for x in rows)
+            and r["kohya"] and r["kohya_layers"] == layers and not missing
+            and r["lora_b_max"] > 0 and r["heads_moved"] > 0
+            and r["updates"] == (steps // 2, steps // 2)):
+        raise AssertionError(f"{tag}: {({k: v for k, v in r.items() if k != 'kohya_layers'})} "
+                             f"(kernels not launched: {missing}; layers match: "
+                             f"{r['kohya_layers'] == layers})")
 
 
 def sd3_towers(bundle, gen) -> dict:
@@ -1852,31 +2078,28 @@ def sd3_vae_decode(bundle, gen) -> dict:
             "finite": bool(torch.isfinite(out).all())}
 
 
-def write_sd3_lora(bundle, out_dir: str, seed: int) -> str:
-    """A seeded rank-32 adapter on `SD3_LORA_TARGETS` (b != 0) as a kohya
-    file under SD3's ``lora_transformer`` prefix (fp16)."""
-    from pcm_tpu_torch.lora.kohya import save_kohya_safetensors
-    from pcm_tpu_torch.lora.layers import lora_shapes
-
-    meta = bundle.build(torch.device("meta"), ("mmdit",))["mmdit"]
-    g = torch.Generator().manual_seed(seed)
-    adapter = {k: torch.randn(shape, generator=g) * 0.05
-               for k, shape in lora_shapes(meta, bundle.lora.rank).items()}
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "pcm_sd3.safetensors")
-    save_kohya_safetensors(path, adapter, bundle.lora.alpha, prefix=bundle.KOHYA_PREFIX)
-    return path
-
-
 def serve_sd3(lora_path: str, seed: int) -> dict:
     """Phase 23: ``--family sd3 --lora <file>`` served (`_serve_family`:
-    PCM-FM on the 100-point grid); a teacher engine on the same weights at
-    guidance 3.0 (the MMDiT at batch 8); then ``--family sd3 --stochastic
+    PCM-FM on the 100-point grid, the template of the file's target list);
+    the same requests with the file's base-list subset (the other layers'
+    factors zero, which adds nothing); a teacher engine on the same weights
+    at guidance 3.0 (the MMDiT at batch 8); then ``--family sd3 --stochastic
     --lora <file>`` served the same way, its sampler stochastic and its
     images not the deterministic sampler's for the same prompts and seeds."""
+    from pcm_tpu_torch.configs.families import sd3_bundle
+
     engine, sv = _serve_family("sd3", lora_path, seed, 500)
     out = _serve_readings(sv, _serve_teacher(engine, "sd3", 3.0, 600))
     out["sigmas"] = [float(x) for x in engine.pipe.sampler.sigmas]
+    base = sd3_bundle().lora
+    out["template"] = {"factors": len(engine.lora),
+                       "base_factors": sum(base.matches(k.rsplit(".", 1)[0]) for k in engine.lora),
+                       "pos_embed": "pos_embed.proj.lora_a" in engine.lora}
+    engine.load_lora({k: v if base.matches(k.rsplit(".", 1)[0]) else torch.zeros_like(v)
+                      for k, v in engine.lora.items()})
+    prompts = [f"a photo of subject {i}" for i in range(4)]
+    base_images = engine.generate_batch(prompts, [500 + i for i in range(4)])
+    out["base_subset_differs"] = bool((base_images != sv["images"]).any(axis=(1, 2, 3)).all())
     del engine
     stoch, st = _serve_family("sd3", lora_path, seed, 500, "--stochastic")
     out.update({"stochastic_sampler": stoch.pipe.sampler.stochastic,
@@ -1891,8 +2114,11 @@ def serve_sd3(lora_path: str, seed: int) -> dict:
 
 
 def sd3_phases(seed: int, gen) -> list:
-    """Phases 19-23, each checked; returns the runs whose launches count."""
+    """Phases 19-23, each checked; returns the runs whose launches count.
+    Phase 22b trains on the 1024-px PNGs of phase 17 (written here when
+    they are not there)."""
     from pcm_tpu_torch.configs.families import sd3_bundle
+    from pcm_tpu_torch.lora.layers import attach_lora
 
     sd3 = sd3_bundle(remat=True)
     t0 = time.perf_counter()
@@ -1925,9 +2151,28 @@ def sd3_phases(seed: int, gen) -> list:
         factors=st["factors"], counts=json.dumps(st["counts"]))
     missing = [k for k in ("flash_attention_fwd", "flash_attention_bwd_dkv",
                            "flash_attention_bwd_dq") if st["counts"][k] == 0]
-    if not (len(st["losses"]) >= 4 and all(math.isfinite(x) for x in st["losses"])
+    if not (len(st["losses"]) >= 3 and all(math.isfinite(x) for x in st["losses"])
             and st["lora_b_max"] > 0) or missing:
         raise AssertionError(f"SD3 cached step: {st} (kernels not launched: {missing})")
+
+    adv = sd3_bundle(remat=True, adv_targets=True)
+    attach_lora(frozen["mmdit"], adv.lora)  # the same MMDiT on the adversarial list
+    ag = sd3_adv_grad(adv, frozen, gen, seed)
+    tr = ag["taps"]
+    log("sd3-adv-grad", batch=2, taps=tr["taps"], tap_shapes=tr["shapes"],
+        **{f"taps_{k}": "%.3e/%.3e" % tr[k] for k in ("all", "noise")},
+        tap_bounds="max(2e-2,2*noise)", factors=ag["factors"], loss=f"{ag['loss']:.6f}",
+        bounds="cos>=0.99,norm<=5e-2", peak_gib=f"{ag['peak_bytes'] / 2**30:.3f}",
+        **{k: f"{c:.6f}/{e:.3e}" for k, (c, e) in ag["readings"].items()},
+        counts=json.dumps(ag["counts"]))
+    caps = [max(2e-2, 2 * n) for n in tr["noise"]]
+    missing = [k for k in SD3_ADV_KERNELS if ag["counts"][k] == 0]
+    if not (tr["finite"] and tr["taps"] == 24 and tr["shapes"] == [(2, 4096, 1536)]
+            and all(e <= c for e, c in zip(tr["all"], caps)) and not ag["bad"]
+            and ag["pos_embed"] and not missing
+            and all(c >= 0.99 and e <= 5e-2 for c, e in ag["readings"].values())):
+        raise AssertionError(f"SD3 adversarial gradients, kernels vs plain: {ag} (kernels not "
+                             f"launched: {missing})")
     del frozen, template
 
     tw = sd3_towers(sd3, gen)
@@ -1948,8 +2193,45 @@ def sd3_phases(seed: int, gen) -> list:
             and vd["counts"]["flash_attention_fwd"] > 0 and vd["counts"]["group_norm_silu"] > 0):
         raise AssertionError(f"full-width SD3 VAE decode, kernels vs plain: {vd}")
 
-    sv = serve_sd3(write_sd3_lora(sd3, "build/chip_smoke/sd3_lora", seed), seed)
+    layers = sd3_adv_layers()
+    tr = train_sd3_adv(write_sd3_cache("build/chip_smoke/cache_sd3", seed), seed)
+    for pairing, r in tr.items():
+        rows = r["rows"]
+        log("train-sd3-adv", pairing=pairing, batch=2, steps=[x["step"] for x in rows],
+            losses=json.dumps([x.get("loss") for x in rows]),
+            d_losses=json.dumps([x.get("d_loss") for x in rows]),
+            step_ms=json.dumps([round(x["step_ms"], 1) for x in rows]),
+            peak_gib=f"{max(x['peak_gib'] for x in rows):.3f}",
+            lora_b_max=f"{r['lora_b_max']:.3e}", heads_moved=f"{r['heads_moved']:.3e}",
+            updates=r["updates"], kohya_layers=len(r["kohya_layers"]),
+            **{k: json.dumps([round(x[k], 4) for x in rows]) for k in HOST_COUNTERS},
+            counts=json.dumps(r["counts"]))
+        check_sd3_run(f"train-sd3-adv {pairing}", r, 4, layers, SD3_ADV_KERNELS)
+
+    img_dir = "build/chip_smoke/images_xl"
+    if not os.path.isdir(img_dir):
+        write_xl_images(img_dir, seed)
+    px = sd3_pixels(img_dir, seed)
+    c, r = px["cache"], px["run"]
+    log("sd3-pixels", cache_shapes=json.dumps(c["shapes"]), seconds=f"{c['seconds']:.1f}",
+        cache_counts=json.dumps(c["counts"]), decoder=repr(r["decoder"]),
+        steps=[x["step"] for x in r["rows"]], losses=json.dumps([x.get("loss") for x in r["rows"]]),
+        d_losses=json.dumps([x.get("d_loss") for x in r["rows"]]),
+        step_ms=json.dumps([round(x["step_ms"], 1) for x in r["rows"]]),
+        peak_gib=f"{max(x['peak_gib'] for x in r['rows']):.3f}",
+        lora_b_max=f"{r['lora_b_max']:.3e}", heads_moved=f"{r['heads_moved']:.3e}",
+        **{k: json.dumps([round(x[k], 4) for x in r["rows"]]) for k in HOST_COUNTERS},
+        counts=json.dumps(r["counts"]))
+    if not (c["rc"] == 0 and c["finite"] and c["shapes"] == {
+            "latents": (8, *SD3_LATENT), "prompt_embeds": (8, 154, 4096),
+            "pooled_embeds": (8, 2048)}
+            and c["counts"]["flash_attention_fwd"] > 0 and c["counts"]["group_norm_silu"] > 0):
+        raise AssertionError(f"SD3 latent cache: {c}")
+    check_sd3_run("sd3-pixels", r, 2, layers, (*SD3_ADV_KERNELS, "group_norm_silu"))
+
+    sv = serve_sd3(tr["fused"]["kohya_path"], seed)
     log("sd3-serve", sizes=json.dumps(sv["sizes"]), same_seed_identical=sv["same_seed_identical"],
+        template=json.dumps(sv["template"]), base_subset_differs=sv["base_subset_differs"],
         stochastic_same_seed_identical=sv["stochastic_same_seed_identical"],
         stochastic_sampler=sv["stochastic_sampler"],
         stochastic_differs=sv["stochastic_differs"], sigmas=json.dumps(sv["sigmas"]),
@@ -1962,15 +2244,17 @@ def sd3_phases(seed: int, gen) -> list:
         stochastic=json.dumps(sv["stochastic_counts"]))
     if not (sv["sizes"] == {"f0": 4, "f1": 4, "f2": 4, "f3": 4, "p0": 2, "p1": 2}
             and sv["same_seed_identical"] and sv["differ"] and sv["header"] == (1024, 1024, 8, 2)
+            and sv["template"]["factors"] == 2 * len(layers) and sv["template"]["pos_embed"]
+            and sv["base_subset_differs"]
             and sv["stochastic_sampler"] and sv["stochastic_sizes"] == sv["sizes"]
             and sv["stochastic_same_seed_identical"] and sv["stochastic_differs"]
             and sv["teacher_shape"] == (4, 1024, 1024, 3)
             and all(c[k] > 0 for c in (sv["student_counts"], sv["teacher_counts"],
                                        sv["stochastic_counts"])
                     for k in ("flash_attention_fwd", "group_norm_silu"))
-            and sv["lora"] == sv["stochastic_lora"] and sv["lora"].endswith("pcm_sd3.safetensors")):
+            and sv["lora"] == sv["stochastic_lora"] == tr["fused"]["kohya_path"]):
         raise AssertionError(f"SD3 serving: {sv}")
-    return [st, vd, sv]
+    return [st, ag, vd, tr["fused"], tr["fresh"], c, r, sv]
 
 
 # ---------------------------------------------------------------------------
@@ -2164,7 +2448,7 @@ def main() -> int:
              "vae_plain_ms", "vae_bound_ms", "vae_library_ms", "product_ms", "sdxl_product_ms",
              "act_none_library", "fp32_shape", "fp32_ms", "fp32_plain_ms", "fp32_bound_ms",
              "fp32_library_ms", "fp32_max_abs_err", "fp32_launches", "vae_1024", "gn_1024",
-             "sd3_ms", "sd3_plain_ms", "sd3_bound_ms", "sd3_library_ms", "sd3_4250")
+             "sd3_ms", "sd3_plain_ms", "sd3_bound_ms", "sd3_library_ms", "sd3_4250", "fp32_sd3")
     line = {"kernels": [{"name": k, "route": "cuda", "source": sources[k][0],
                          "replaces": sources[k][1], "launches": launches[k],
                          **{f: kernels[k][f] for f in keys},

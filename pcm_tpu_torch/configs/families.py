@@ -11,11 +11,12 @@ import torch
 
 from ..lora.layers import LoRASpec
 from ..models.clip import CLIP_BIG_G_CONFIG, CLIP_L_CONFIG, CLIPTextConfig
-from ..models.mmdit import SD3_LORA_TARGETS, SD3_MEDIUM_CONFIG, TINY_MMDIT_CONFIG
+from ..models.mmdit import (SD3_ADV_LORA_TARGETS, SD3_ADV_STOCHASTIC_LORA_TARGETS,
+                            SD3_LORA_TARGETS, SD3_MEDIUM_CONFIG, TINY_MMDIT_CONFIG)
 from ..models.t5 import T5_XXL_CONFIG, T5Config
 from ..models.unet import SD15_CONFIG, SDXL_CONFIG, TINY_SDXL_CONFIG, TINY_UNET_CONFIG
 from ..models.vae import SD3_VAE_CONFIG, SD15_VAE_CONFIG, SDXL_VAE_CONFIG, TINY_VAE_CONFIG
-from ..train.adv import SD15_DISC_CONFIG, SDXL_DISC_CONFIG, DiscriminatorConfig
+from ..train.adv import SD3_DISC_CONFIG, SD15_DISC_CONFIG, SDXL_DISC_CONFIG, DiscriminatorConfig
 from ..train.bundles import SD3Bundle, SD15Bundle, SDXLBundle, SD_UNET_LORA_TARGETS
 from ..train.distill import DistillConfig
 
@@ -60,26 +61,35 @@ def sdxl_bundle(lora_rank: int = 64, dtype: torch.dtype = torch.bfloat16,
 
 
 def sd3_bundle(lora_rank: int = 32, dtype: torch.dtype = torch.bfloat16, tiny: bool = False,
-               remat: bool = False) -> SD3Bundle:
-    """LoRA on the consistency recipes' `SD3_LORA_TARGETS` (the adversarial
-    lists come with the SD3 adversarial steps)."""
+               remat: bool = False, adv_targets: bool = False,
+               stochastic: bool = False) -> SD3Bundle:
+    """LoRA on `SD3_LORA_TARGETS`; with ``adv_targets`` on the adversarial
+    recipes' list, without ``pos_embed.proj`` when ``stochastic``
+    (`pcm_tpu/configs/families.py:92-117`)."""
+    if adv_targets:
+        targets = SD3_ADV_STOCHASTIC_LORA_TARGETS if stochastic else SD3_ADV_LORA_TARGETS
+    else:
+        targets = SD3_LORA_TARGETS
     return SD3Bundle(
         mmdit_cfg=TINY_MMDIT_CONFIG if tiny else SD3_MEDIUM_CONFIG,
         vae_cfg=TINY_VAE_CONFIG if tiny else SD3_VAE_CONFIG,
         text_cfg=_TINY_CLIP_SD3 if tiny else dataclasses.replace(CLIP_L_CONFIG, projection_dim=768),
         text2_cfg=_TINY_CLIP_SD3 if tiny else CLIP_BIG_G_CONFIG,
         t5_cfg=_TINY_T5 if tiny else T5_XXL_CONFIG,
-        lora=LoRASpec(rank=lora_rank, alpha=8.0, targets=SD3_LORA_TARGETS),
+        lora=LoRASpec(rank=lora_rank, alpha=8.0, targets=targets),
         dtype=dtype,
         remat=remat,
     )
 
 
 # Each family's discriminator (`pcm_tpu/train/adv.py:63-80`), and with ``tiny``
-# the taps of the 2-level TINY UNets (`scripts/train.py:255-268`).
+# the taps of the 2-level TINY UNets and the 2-block TINY MMDiT
+# (`scripts/train.py:255-268`).
 _DISC_CONFIGS = {
     ("sd15", False): SD15_DISC_CONFIG,
     ("sdxl", False): SDXL_DISC_CONFIG,
+    ("sd3", False): SD3_DISC_CONFIG,
+    ("sd3", True): DiscriminatorConfig(taps=("block_0", "block_1")),
     ("sd15", True): DiscriminatorConfig(taps=("down_0", "down_1", "mid", "up_0", "up_1"),
                                         num_h_per_head=4, kernel=3),
     ("sdxl", True): DiscriminatorConfig(taps=("down_0", "down_1", "mid")),
@@ -91,9 +101,7 @@ def disc_config(family: str, tiny: bool = False) -> DiscriminatorConfig:
 
 
 # ---------------------------------------------------------------------------
-# The reference recipes, field for field as `pcm_tpu/configs/families.py:125-192`
-# (the port trains the sd15 recipes and sdxl_4phase_adv; the SD3 recipes are
-# adversarial and wait for the SD3 adversarial steps).
+# The reference recipes, field for field as `pcm_tpu/configs/families.py:125-192`.
 # ---------------------------------------------------------------------------
 
 

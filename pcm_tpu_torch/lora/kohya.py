@@ -49,12 +49,23 @@ def to_kohya_state_dict(adapter: Mapping[str, object], alpha: float,
     return out
 
 
+_SUFFIXES = (".lora_down.weight", ".lora_up.weight", ".alpha")
+
+
+def kohya_layers(state: Mapping[str, object]):
+    """The layer keys of a kohya state dict (or of a file's key list):
+    ``lora_unet_mid_block_attentions_0_proj_in`` and the like, sorted."""
+    return sorted({k[: -len(sfx)] for k in state for sfx in _SUFFIXES if k.endswith(sfx)})
+
+
 def from_kohya_state_dict(state: Mapping[str, np.ndarray], template: Mapping[str, torch.Tensor],
                           rank: int, prefix: str = "lora_unet"
                           ) -> Tuple[Dict[str, torch.Tensor], float]:
     """A kohya state dict -> an adapter dict keyed like ``template`` (float32
     CPU tensors), and the file's alpha (``rank`` when it has none). Raises
-    KeyError for a layer of the template that the file lacks."""
+    KeyError for a layer of the template that the file lacks, and
+    ValueError for a file that holds layers outside the template (it names
+    up to three): serving it on the template would drop part of its adapter."""
     out, alpha = {}, float(rank)
     for path in _layers(template):
         key = kohya_key(path, prefix)
@@ -62,6 +73,11 @@ def from_kohya_state_dict(state: Mapping[str, np.ndarray], template: Mapping[str
         out[path + _B] = torch.from_numpy(np.asarray(state[f"{key}.lora_up.weight"], np.float32))
         if f"{key}.alpha" in state:
             alpha = float(np.asarray(state[f"{key}.alpha"], np.float32))
+    ours = {kohya_key(path, prefix) for path in _layers(template)}
+    extra = [k for k in kohya_layers(state) if k not in ours]
+    if extra:
+        raise ValueError(f"kohya file holds {len(extra)} layers outside the adapter's "
+                         f"template under {prefix!r}, e.g. {extra[:3]}")
     return out, alpha
 
 

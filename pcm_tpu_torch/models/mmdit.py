@@ -18,7 +18,7 @@ enabled, as the UNet does its blocks.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -48,6 +48,11 @@ class MMDiTConfig:
     @property
     def inner_dim(self) -> int:
         return self.num_heads * self.head_dim
+
+    def tap_channels(self) -> Dict[str, int]:
+        """The channels of each feature tap of `MMDiT.features`: the image
+        stream after every joint block."""
+        return {f"block_{i}": self.inner_dim for i in range(self.num_layers)}
 
 
 SD3_MEDIUM_CONFIG = MMDiTConfig()
@@ -199,6 +204,21 @@ class MMDiT(nn.Module):
                                                      context_fn=_remat_contexts)
         return block(x, context, temb, lora)
 
+    def _streams(self, sample, timesteps, encoder_hidden_states, pooled_projections, lora,
+                 taps: Optional[Dict[str, torch.Tensor]] = None):
+        """The image stream after the last joint block and ``temb``; with
+        ``taps`` each block's image stream is put there as ``block_{i}``."""
+        dtype = self.pos_embed.pos_embed.dtype  # never quantized
+        x = self.pos_embed(sample.to(dtype), lora)
+        temb = self.timestep_embedder(sinusoidal_embedding(timesteps, 256).to(dtype), lora)
+        temb = temb + self.text_embedder(pooled_projections.to(dtype), lora)
+        context = self.context_embedder(encoder_hidden_states.to(dtype), lora)
+        for i, block in enumerate(self.transformer_blocks):
+            x, context = self._block(block, x, context, temb, lora)
+            if taps is not None:
+                taps[f"block_{i}"] = x
+        return x, temb
+
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor, pooled_projections: torch.Tensor,
                 lora: LoRA = None) -> torch.Tensor:
@@ -206,18 +226,24 @@ class MMDiT(nn.Module):
         encoder_hidden_states (N, S, joint_attention_dim), pooled_projections
         (N, pooled_projection_dim); returns the velocity (N, H, W, C)."""
         cfg = self.cfg
-        dtype = self.pos_embed.pos_embed.dtype  # never quantized
         n, h, w, _ = sample.shape
         p = cfg.patch_size
-        x = self.pos_embed(sample.to(dtype), lora)
-        temb = self.timestep_embedder(sinusoidal_embedding(timesteps, 256).to(dtype), lora)
-        temb = temb + self.text_embedder(pooled_projections.to(dtype), lora)
-        context = self.context_embedder(encoder_hidden_states.to(dtype), lora)
-        for block in self.transformer_blocks:
-            x, context = self._block(block, x, context, temb, lora)
+        x, temb = self._streams(sample, timesteps, encoder_hidden_states, pooled_projections,
+                                lora)
         x = self.proj_out(self.norm_out(x, temb), lora)
         x = x.view(n, h // p, w // p, p, p, cfg.out_channels).permute(0, 1, 3, 2, 4, 5)
         return x.reshape(n, h, w, cfg.out_channels)
+
+    def features(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                 encoder_hidden_states: torch.Tensor, pooled_projections: torch.Tensor,
+                 lora: LoRA = None) -> Dict[str, torch.Tensor]:
+        """The feature taps of a forward (arguments as `forward`): the image
+        stream (N, S, inner_dim) after each joint block, ``block_{i}``, as the
+        JAX model sows them (`pcm_tpu/models/mmdit.py:218-226`). It stops
+        after the last block: ``norm_out`` and ``proj_out`` feed no tap."""
+        taps: Dict[str, torch.Tensor] = {}
+        self._streams(sample, timesteps, encoder_hidden_states, pooled_projections, lora, taps)
+        return taps
 
 
 # LoRA target lists of the reference SD3 trainers (`pcm_tpu/models/mmdit.py:252-283`):

@@ -17,7 +17,11 @@ and T5-XXL (three tokenizers).
 ``--lora <file>`` serves a kohya ``.safetensors`` LoRA (the trainer's
 ``pcm_lora_<step>.safetensors``; SD3's keys under ``lora_transformer``) as
 the default adapter; with it, or with ``--enable-lora-swap`` (a no-op
-adapter), ``POST /lora`` swaps adapters live.
+adapter), ``POST /lora`` swaps adapters live. An SD3 engine takes its
+adapter's layers from the file: the base list of the SD3 recipes, the
+adversarial one or the stochastic-adversarial one (`sd3_lora_targets`); a
+file of any other layers is refused, as is any file holding layers outside
+the engine's adapter (every layer of a file is served, or none).
 ``--weights int8`` stores the UNet and text weights as per-channel int8 and
 dequantizes each at its use (weight-only: the products stay bf16); not yet
 with SD3. Without ``--teacher-checkpoint`` (``torch.save``d state dicts of
@@ -56,6 +60,29 @@ def decode_chunk(resolution: int) -> Optional[int]:
     the batch, so one sample a call keeps a request's image the same in any
     batch (and holds less memory than 2)."""
     return 1 if resolution >= 1024 else None
+
+
+def sd3_lora_targets(path: str, tiny: bool = False) -> dict:
+    """The `sd3_bundle` keywords of the LoRA target list whose layers the
+    kohya file at ``path`` holds, each layer of it and no other: the base
+    list ``{}``, the adversarial one (with ``pos_embed.proj``) or the
+    stochastic-adversarial one (without it). Raises ValueError for a file
+    that matches none of the three."""
+    from ..configs.families import sd3_bundle
+    from ..lora.kohya import kohya_key, kohya_layers
+    from ..lora.layers import lora_shapes
+    from ..utils.safetensors import read_header
+
+    held = set(kohya_layers(read_header(path)))
+    for kw in ({}, {"adv_targets": True}, {"adv_targets": True, "stochastic": True}):
+        bundle = sd3_bundle(tiny=tiny, **kw)
+        meta = bundle.build(torch.device("meta"), ("mmdit",))["mmdit"]
+        layers = {kohya_key(k[:-len(".lora_a")], bundle.KOHYA_PREFIX)
+                  for k in lora_shapes(meta, bundle.lora.rank) if k.endswith(".lora_a")}
+        if layers == held:
+            return kw
+    raise ValueError(f"--lora {path}: its {len(held)} layers are none of the SD3 target lists "
+                     "(base, adversarial, stochastic-adversarial) under 'lora_transformer'")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -97,6 +124,11 @@ def check_args(ap: argparse.ArgumentParser, args: argparse.Namespace) -> None:
         ap.error("--weights int8 with --family sd3 is not yet ported (bf16)")
     if args.data_parallel != 1:
         ap.error("--data-parallel is not yet ported")
+    if args.family == "sd3" and args.lora:
+        try:
+            sd3_lora_targets(args.lora, args.tiny)
+        except ValueError as e:
+            ap.error(str(e))
 
 
 def build_engine(args: argparse.Namespace):
@@ -113,7 +145,8 @@ def build_engine(args: argparse.Namespace):
     dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
     default_res, tok_keys = FAMILIES[args.family]
     make_bundle = {"sd15": sd15_bundle, "sdxl": sdxl_bundle, "sd3": sd3_bundle}[args.family]
-    bundle = make_bundle(dtype=dtype, tiny=args.tiny)
+    targets = sd3_lora_targets(args.lora, args.tiny) if args.family == "sd3" and args.lora else {}
+    bundle = make_bundle(dtype=dtype, tiny=args.tiny, **targets)
     gen = torch.Generator(device).manual_seed(args.seed)
     frozen, template = bundle.init(gen, device)
     if args.teacher_checkpoint:

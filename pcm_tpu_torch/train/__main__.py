@@ -1,4 +1,4 @@
-"""Distill an SD1.5 or SDXL teacher into a PCM LoRA student on a CUDA card.
+"""Distill an SD1.5, SDXL or SD3 teacher into a PCM LoRA student on a CUDA card.
 
   python -m pcm_tpu_torch.train --recipe sd15_4phase --cached-latents-dir cache/ \\
       --output-dir runs/sd15_4phase
@@ -8,30 +8,37 @@
       --output-dir runs/sdxl_adv [--adv-pairing fresh|fused]
   python -m pcm_tpu_torch.train --recipe sdxl_4phase_adv --train-data-dir imgs/ \\
       --output-dir runs/sdxl_adv [--tokenizer-dir tok/ | --allow-hash-tokenizer]
+  python -m pcm_tpu_torch.train --recipe sd3_4phase_adv --cached-latents-dir sd3_cache/ \\
+      --output-dir runs/sd3_adv [--adv-pairing fresh|fused]
   python -m pcm_tpu_torch.train --recipe sd15_4phase --tiny --device cpu \\
       --cached-latents-dir tiny_cache/ --output-dir runs/tiny --max-train-steps 2
 
-The flags are those of `scripts/train.py` for this path: the sd15 recipes
+The flags are those of `scripts/train.py`: the sd15 recipes
 (consistency-only and ``sd15_2phase_adv``) on cached latents (``shard_*.npz``
-with ``latents`` and ``prompt_embeds``) and ``sdxl_4phase_adv`` on cached
-latents and embeddings (also ``pooled_embeds`` and ``time_ids``). Every one
-of them also trains from a folder of images with sidecar ``.txt`` captions
-(``--train-data-dir``): each step (each D and each G step of an adversarial
-recipe) encodes the batch's pixels with the VAE encoder (a posterior sample
-of its own, in chunks of ``--vae-encode-chunk``) and its captions with the
-text towers (CLIP-L; SDXL also CLIP-bigG), as the reference does; the
-images are cropped at ``--resolution`` (the recipe's by default), center
-for SD1.5, at random for SDXL (whose ``time_ids`` carry each image's size
-and crop), and loaded by ``--dataloader-workers`` workers
-(`data/dataset.py`). Captions
+with ``latents`` and ``prompt_embeds``), ``sdxl_4phase_adv`` on cached
+latents and embeddings (also ``pooled_embeds`` and ``time_ids``) and the
+four SD3 recipes (``sd3_1phase_adv``, ``sd3_2phase_adv``, ``sd3_4phase_adv``,
+``sd3_adv_stochastic``, all adversarial, on the flow schedule at shift 3)
+on cached latents, ``prompt_embeds`` (N, 154, 4096) and ``pooled_embeds``
+(N, 2048). Every one of them also trains from a folder of images with
+sidecar ``.txt`` captions (``--train-data-dir``): each step (each D and each
+G step of an adversarial recipe) encodes the batch's pixels with the VAE
+encoder (a posterior sample of its own, in chunks of ``--vae-encode-chunk``)
+and its captions with the text towers (CLIP-L; SDXL also CLIP-bigG; SD3
+CLIP-L, CLIP-bigG and T5-XXL), as the reference does; the images are cropped
+at ``--resolution`` (the recipe's by default), center for SD1.5 and SD3, at
+random for SDXL (whose ``time_ids`` carry each image's size and crop), and
+loaded by ``--dataloader-workers`` workers (`data/dataset.py`). Captions
 take the tokenizer of ``--tokenizer-dir``, or hashed ids with
 ``--allow-hash-tokenizer`` (or ``--tiny``); cached runs hash the empty
 uncond prompt unless ``--tokenizer-dir`` is given. Without
 ``--teacher-checkpoint`` the weights are drawn on the device from
 ``--seed``, the discriminator heads of the adversarial recipes from
-``--seed + 1``. The SD1.5 uncond embeddings are encoded once, from empty
-prompts; SDXL's are zeros inside the step. SDXL on caches draws the UNet
-alone, from pixels the VAE and both text towers too. ``--adv-pairing fresh`` (the
+``--seed + 1``. The SD1.5 and SD3 uncond embeddings are encoded once, from
+empty prompts; SDXL's are zeros inside the step. SDXL on caches draws the
+UNet alone; SD3 on caches draws the MMDiT and the three towers, encodes the
+uncond prompt and frees the towers; from pixels every module is kept.
+``--adv-pairing fresh`` (the
 default) alternates a D update (even global steps) and a G update (odd),
 each on its own batch; ``fused`` trains both on one batch and counts the
 pair as two global steps, so ``--max-train-steps``, ``--log-every`` and
@@ -39,9 +46,10 @@ pair as two global steps, so ``--max-train-steps``, ``--log-every`` and
 tiny configuration on the CPU through the kernels' plain versions (a smoke
 mode). A run resumes from the newest checkpoint in ``--output-dir`` unless
 ``--no-resume``. Each save writes a checkpoint and the LoRA as a kohya file,
-``<output-dir>/pcm_lora_<step>.safetensors``; SIGTERM or SIGINT ends the run
-after the step in flight with both, and a rerun resumes there. Each run
-appends the kernels' launch counts of its process to
+``<output-dir>/pcm_lora_<step>.safetensors`` (SD3's keys under
+``lora_transformer``, the others' under ``lora_unet``); SIGTERM or SIGINT
+ends the run after the step in flight with both, and a rerun resumes there.
+Each run appends the kernels' launch counts of its process to
 ``<output-dir>/launches.jsonl``.
 
 ``--frozen-weights int8`` stores the frozen UNet and text weights as int8
@@ -50,7 +58,8 @@ computes their products on an int8 path: ``scoped`` in the teacher and
 target forwards only, ``dense`` everywhere (whole-row activation scales),
 ``fused`` everywhere through the K6 kernel (pointwise convs included). With
 ``--tiny`` every Linear and conv weight is quantized (all but a few TINY
-weights are under the 65536-element threshold).
+weights are under the 65536-element threshold). It is not yet taken with an
+adversarial recipe, SD3's included.
 """
 
 from __future__ import annotations
@@ -70,7 +79,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--output-dir", required=True)
     ap.add_argument("--cached-latents-dir", default=None,
                     help="dir of shard_*.npz (latents, prompt_embeds; SDXL also "
-                         "pooled_embeds, time_ids)")
+                         "pooled_embeds, time_ids; SD3 also pooled_embeds)")
     ap.add_argument("--train-data-dir", default=None,
                     help="image folder with sidecar .txt captions")
     ap.add_argument("--resolution", type=int, default=None,
@@ -90,7 +99,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "batch, up to 32)")
     ap.add_argument("--teacher-checkpoint", default=None,
                     help="torch.save'd {'unet': sd, 'vae': sd, 'text': sd} state dicts "
-                         "(SDXL: also 'text2')")
+                         "(SDXL: also 'text2'; SD3: 'mmdit', 'vae', 'text', 'text2', 't5')")
     ap.add_argument("--max-train-steps", type=int, default=None)
     ap.add_argument("--batch-size", type=int, default=None, help="per-card batch")
     ap.add_argument("--seed", type=int, default=42)
@@ -108,8 +117,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="metrics cadence (each log reads the device back)")
     ap.add_argument("--no-resume", action="store_true")
     ap.add_argument("--remat", default="full",
-                    help="full = checkpoint every UNet block (least memory), none = keep "
-                         "all activations")
+                    help="full = checkpoint every UNet or MMDiT block (least memory), none = "
+                         "keep all activations")
     ap.add_argument("--frozen-weights", default="bf16", choices=["bf16", "int8"],
                     help="int8 = frozen UNet/text weights as per-channel int8 (the VAE "
                          "stays bf16)")
@@ -136,21 +145,15 @@ def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
 
-    from ..configs.families import RECIPES, disc_config, sd15_bundle, sdxl_bundle
+    from ..configs.families import RECIPES, disc_config, sd3_bundle, sd15_bundle, sdxl_bundle
 
     if args.recipe not in RECIPES:
         ap.error(f"unknown recipe {args.recipe!r} (one of {sorted(RECIPES)})")
     recipe = RECIPES[args.recipe]
-    if recipe.family == "sd3":
-        ap.error(f"recipe {args.recipe} is {NOT_PORTED}: the SD3 recipes are adversarial, and "
-                 "the SD3 adversarial steps, the MMDiT's feature taps and SD3 from pixels come "
-                 "with slice 4b (ROADMAP Queue 1 item 4); the SD3 consistency step runs through "
-                 "train.distill.build_flow_distill_step on SD3_CACHED_STEP")
-    if recipe.family not in ("sd15", "sdxl"):
-        ap.error(f"recipe {args.recipe} ({recipe.family}) is {NOT_PORTED}: the sd15 recipes "
-                 "and sdxl_4phase_adv are")
     if args.split_d:
         ap.error(f"--split-d is {NOT_PORTED} (the D step is one step here)")
+    if recipe.family == "sd3" and args.frozen_weights == "int8":
+        ap.error(f"--frozen-weights int8 with an SD3 recipe is {NOT_PORTED} (bf16)")
     if recipe.adversarial and args.frozen_weights == "int8":
         ap.error(f"--frozen-weights int8 with an adversarial recipe is {NOT_PORTED}")
     if args.optimizer == "prodigy":
@@ -175,20 +178,23 @@ def main(argv=None):
     import contextlib
     import dataclasses
 
-    from ..core.schedule import make_ddpm_schedule
+    from ..core.schedule import make_ddpm_schedule, make_flow_schedule
     from ..data.cached import CachedLatentsDataset, batches
     from ..data.tokenizer import resolve_tokenizers
     from ..ops import launch_counts, reset_launch_counts
     from ..utils.quant import int8_matmul, quantize_frozen
-    from .adv import AdvConfig, build_ddim_adv_train_step, init_discriminator
+    from .adv import AdvConfig, adv_offset_span, build_adv_train_step, init_discriminator
     from .distill import build_ddim_distill_step
     from .loop import LoopConfig, Trainer
     from .state import TrainState, make_optimizer
 
-    sdxl = recipe.family == "sdxl"
+    family = recipe.family
+    sdxl, sd3 = family == "sdxl", family == "sd3"
     if args.cached_latents_dir:
         ds = CachedLatentsDataset(args.cached_latents_dir)
-        needed = ("prompt_embeds", "pooled_embeds", "time_ids") if sdxl else ("prompt_embeds",)
+        needed = {"sd15": ("prompt_embeds",), "sdxl": ("prompt_embeds", "pooled_embeds",
+                                                       "time_ids"),
+                  "sd3": ("prompt_embeds", "pooled_embeds")}[family]
         missing = [k for k in needed if k not in ds.get(0)]
         if missing:
             ap.error(f"cached shards without {missing} (captions through the text towers) "
@@ -203,7 +209,10 @@ def main(argv=None):
                                         seed=args.seed, crop="random" if sdxl else "center")
         except (FileNotFoundError, ValueError) as e:
             ap.error(str(e))
-    tok_keys = ["input_ids", "input_ids_2"] if sdxl and args.train_data_dir else ["input_ids"]
+    # SD3 encodes the empty prompt through its three towers on caches too
+    tok_keys = (["input_ids", "input_ids_2", "input_ids_3"] if sd3
+                else ["input_ids", "input_ids_2"] if sdxl and args.train_data_dir
+                else ["input_ids"])
     try:
         toks = resolve_tokenizers(args.tokenizer_dir, tok_keys)
     except (FileNotFoundError, OSError) as e:
@@ -214,19 +223,31 @@ def main(argv=None):
     lr = args.learning_rate if args.learning_rate is not None else recipe.lr
 
     dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
-    make_bundle = sd15_bundle if recipe.family == "sd15" else sdxl_bundle
-    bundle = make_bundle(recipe.lora_rank, dtype=dtype, tiny=args.tiny,
-                         remat=args.remat == "full")
+    kw = dict(dtype=dtype, tiny=args.tiny, remat=args.remat == "full")
+    if sd3:  # the adversarial recipes' LoRA targets (`scripts/train.py:238-244`)
+        bundle = sd3_bundle(recipe.lora_rank, adv_targets=recipe.adversarial,
+                            stochastic=recipe.stochastic, **kw)
+    else:
+        bundle = (sd15_bundle if family == "sd15" else sdxl_bundle)(recipe.lora_rank, **kw)
     if args.train_data_dir:  # the reference's rule (`scripts/train.py:215-217`), else <= 32
         chunk = args.vae_encode_chunk or (1 if res >= 1024 and batch > 1 else 32)
         bundle = dataclasses.replace(bundle, vae_encode_chunk=chunk)
     gen = torch.Generator(device).manual_seed(args.seed)
-    # SDXL on cached embeddings and latents needs the UNet alone (its draws are
-    # the whole bundle's: the other modules draw from streams of their own)
-    frozen, lora = (bundle.init(gen, device, modules=("unet",)) if sdxl and args.cached_latents_dir
-                    else bundle.init(gen, device))
+    # on cached latents SDXL needs the UNet alone and SD3 the MMDiT and, for the
+    # uncond encode, its towers (each module draws the whole bundle's weights:
+    # the others draw from streams of their own)
+    cached_modules = {"sdxl": ("unet",), "sd3": ("mmdit", "text", "text2", "t5")}
+    if args.cached_latents_dir and family in cached_modules:
+        frozen, lora = bundle.init(gen, device, modules=cached_modules[family])
+    else:
+        frozen, lora = bundle.init(gen, device)
     if args.teacher_checkpoint:
-        frozen = bundle.from_states(torch.load(args.teacher_checkpoint, weights_only=True), device)
+        states = torch.load(args.teacher_checkpoint, weights_only=True)
+        lacking = [m for m in frozen if m not in states]
+        if lacking:
+            ap.error(f"--teacher-checkpoint {args.teacher_checkpoint} lacks {lacking}, which "
+                     "this run needs")
+        frozen = bundle.from_states(states, device)
     if args.frozen_weights == "int8":  # --tiny: quantize the small TINY weights too
         frozen = quantize_frozen(frozen, min_size=0 if args.tiny else 65536)
     distill_cfg = recipe.distill
@@ -240,29 +261,35 @@ def main(argv=None):
 
     proc_batch = batch * accum
     extra = {}
-    if recipe.family == "sd15":  # uncond embeds from empty prompts (scripts/train.py:348-352)
-        ids = torch.from_numpy(toks["input_ids"]([""] * proc_batch)).long().to(device)
+    if family != "sdxl":  # uncond embeds from empty prompts (scripts/train.py:348-361)
+        ids = [torch.from_numpy(toks[k]([""] * proc_batch)).long().to(device) for k in tok_keys]
         with torch.no_grad():
-            extra["uncond_embeds"] = bundle.encode_prompts(frozen, ids)["prompt_embeds"]
+            uncond = bundle.encode_prompts(frozen, *ids)
+        extra["uncond_embeds"] = uncond["prompt_embeds"]
+        if sd3:
+            extra["uncond_pooled"] = uncond["pooled"]
+            if args.cached_latents_dir:  # the towers' one use on caches (T5-XXL: 9.5 GB)
+                frozen = {"mmdit": frozen["mmdit"]}
+                if device.type == "cuda":
+                    torch.cuda.empty_cache()
 
     loop_cfg = LoopConfig(output_dir=args.output_dir, max_train_steps=max_steps,
                           checkpointing_steps=args.checkpointing_steps,
                           checkpoints_total_limit=args.checkpoints_total_limit,
                           log_every=args.log_every, seed=args.seed, resume=not args.no_resume,
                           lora_alpha=bundle.lora.alpha if bundle.lora.alpha is not None
-                          else bundle.lora.rank)
-    schedule = make_ddpm_schedule()
+                          else bundle.lora.rank, kohya_prefix=bundle.KOHYA_PREFIX)
+    schedule = make_flow_schedule(shift=3.0) if sd3 else make_ddpm_schedule()
     if recipe.adversarial:
         disc, d_params = init_discriminator(
-            disc_config(recipe.family, args.tiny), bundle.unet_cfg.tap_channels(),
+            disc_config(family, args.tiny), bundle.tap_channels(),
             torch.Generator(device).manual_seed(args.seed + 1), device)
         tx_d = make_optimizer(recipe.adv_lr, b1=0.0, max_grad_norm=1.0)  # scripts/train.py:399
-        step = build_ddim_adv_train_step(bundle, schedule, distill_cfg,
-                                         AdvConfig(recipe.adv_weight), disc, tx, tx_d,
-                                         args.adv_pairing, accum)
-        trainer = Trainer(loop_cfg, frozen, state, step, distill_cfg, schedule,
-                          bundle.latents_like, device, accum,
-                          d_state=TrainState.create(d_params, tx_d))
+        step = build_adv_train_step(bundle, schedule, distill_cfg, AdvConfig(recipe.adv_weight),
+                                    disc, tx, tx_d, args.adv_pairing, accum)
+        trainer = Trainer(loop_cfg, frozen, state, step, distill_cfg, bundle.latents_like,
+                          device, accum, d_state=TrainState.create(d_params, tx_d),
+                          adv_span=adv_offset_span(schedule, distill_cfg))
     else:
         distill_step = build_ddim_distill_step(bundle, schedule, distill_cfg, tx,
                                                grad_accum_steps=accum)
@@ -271,8 +298,8 @@ def main(argv=None):
             state, metrics = distill_step(state, frozen, batch, draws)
             return state, d_state, metrics, 1
 
-        trainer = Trainer(loop_cfg, frozen, state, step, distill_cfg, schedule,
-                          bundle.latents_like, device, accum)
+        trainer = Trainer(loop_cfg, frozen, state, step, distill_cfg, bundle.latents_like,
+                          device, accum)
     print(f"# {args.recipe}: batch {batch} x accum {accum}, {max_steps} steps on {device}, "
           f"{args.frozen_weights} frozen weights"
           + (f", {args.adv_pairing} adversarial pairing" if recipe.adversarial else "")

@@ -1,32 +1,41 @@
-"""Adversarial consistency training for the epsilon / DDIM family (SD1.5,
-SDXL): discriminator heads over the frozen teacher's features, hinge
-losses, the alternating D/G steps and the fused pair (counterpart of
-`pcm_tpu/train/adv.py:1-336`).
+"""Adversarial consistency training: discriminator heads over the frozen
+teacher's features, hinge losses, the alternating D/G steps and the fused
+pair, for the epsilon / DDIM family (SD1.5, SDXL) and the flow family (SD3)
+(counterpart of `pcm_tpu/train/adv.py`).
 
 The discriminator is the frozen teacher run for its feature taps
-(`models/unet.py`) plus small trainable conv heads, computed in fp32 (their
-convolutions in TF32 on the card: `heads_precision`): SD1.5 taps all nine
-levels with four 3x3 heads a tap, SDXL the down levels and the mid block
-with one 1x1 head each (so its teacher stops after the mid block). A head's
-GroupNorm runs K4 on fp32 tensors on the card.
+(`models/unet.py`, `models/mmdit.py`) plus small trainable conv heads,
+computed in fp32 (their convolutions in TF32 on the card: `heads_precision`):
+SD1.5 taps all nine levels with four 3x3 heads a tap, SDXL the down levels
+and the mid block with one 1x1 head each (so its teacher stops after the mid
+block), SD3 the image stream after each of its 24 joint blocks, as a 64x64
+grid at 1024 px, with one 1x1 head each. A head's GroupNorm runs K4 on fp32
+tensors on the card.
 
 Two pairings of the D and G updates, as the JAX package has them:
 
-- `build_ddim_adv_steps`: ``(g_step, d_step)``, each on its own batch; the
-  trainer's step alternates them by global-step parity (D on even steps).
-- `build_ddim_adv_fused_pair`: one batch feeds one D and one G update from
-  one prepare and one student forward; `build_ddim_adv_train_step` wraps
-  either pairing as the trainer's one step. No gradient crosses between the
-  players: the LoRA gradients are `torch.autograd.grad` of ``cm + w g``
-  with respect to the LoRA factors alone, with the heads' current
-  parameters taken as constants, and the heads' gradients come from the D
-  loss on detached fake features, as JAX's ``stop_gradient`` walls give.
+- `build_ddim_adv_steps` / `build_flow_adv_steps`: ``(g_step, d_step)``,
+  each on its own batch; the trainer's step alternates them by global-step
+  parity (D on even steps).
+- `build_ddim_adv_fused_pair` / `build_flow_adv_fused_pair`: one batch feeds
+  one D and one G update from one prepare and one student forward;
+  `build_adv_train_step` wraps either pairing of either family as the
+  trainer's one step. No gradient crosses between the players: the LoRA
+  gradients are `torch.autograd.grad` of ``cm + w g`` with respect to the
+  LoRA factors alone, with the heads' current parameters taken as
+  constants, and the heads' gradients come from the D loss on detached
+  fake features, as JAX's ``stop_gradient`` walls give.
 
+The two families differ only in the prepare and the online prediction
+(`distill.py`) and in the renoising: DDIM travels to the timestep
+``min(end_t + offset, T - 1)``; flow renoises on the Euler grid, at grid
+point ``end_index + offset`` and the float timestep ``1000 sigma`` there.
 The draws (``noise``, ``index``, ``w``, ``adv_offset``, ``eps_fake``,
-``eps_real``) come from outside, one dict a microbatch (`distill.sample_draws`).
-The heads' parameters are a flat dict named ``head_{i}_{j}.{conv1, norm1,
-conv2, norm2, conv_out}.{weight, bias}``; `Discriminator` is a module built
-on the meta device that takes them per call (`Discriminator.logits`).
+``eps_real``) come from outside, one dict a microbatch (`distill.sample_draws`,
+``adv_offset`` in [0, `adv_offset_span`)). The heads' parameters are a flat
+dict named ``head_{i}_{j}.{conv1, norm1, conv2, norm2, conv_out}.{weight,
+bias}``; `Discriminator` is a module built on the meta device that takes
+them per call (`Discriminator.logits`).
 """
 
 from __future__ import annotations
@@ -40,11 +49,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core.losses import consistency_loss, feature_matching_loss, hinge_d_loss, hinge_g_loss
-from ..core.schedule import DDPMSchedule
-from ..core.solver import PhasedDDIMSolver, phase_boundaries
+from ..core.schedule import DDPMSchedule, FlowSchedule, bcast
+from ..core.solver import PhasedDDIMSolver, PhasedEulerSolver, phase_boundaries
 from ..models.normalization import GroupNorm
 from .distill import (Draws, DistillConfig, _merge_cond, accumulate_grads, ddim_model_pred,
-                      ddim_prepare)
+                      ddim_prepare, flow_model_pred, flow_prepare)
 from .state import TrainState, apply_updates, global_norm
 
 Features = Dict[str, torch.Tensor]
@@ -81,6 +90,7 @@ SD15_DISC_CONFIG = DiscriminatorConfig(
     taps=("down_0", "down_1", "down_2", "down_3", "mid", "up_0", "up_1", "up_2", "up_3"),
     num_h_per_head=4, kernel=3)
 SDXL_DISC_CONFIG = DiscriminatorConfig(taps=("down_0", "down_1", "down_2", "mid"))
+SD3_DISC_CONFIG = DiscriminatorConfig(taps=tuple(f"block_{i}" for i in range(24)))
 
 
 def _to_grid(f: torch.Tensor) -> torch.Tensor:
@@ -174,18 +184,8 @@ def pair_features(bundle, frozen, fake: torch.Tensor, real: torch.Tensor,
     return ({k: f[:bsz] for k, f in feats.items()}, {k: f[bsz:] for k, f in feats.items()})
 
 
-def _adv_t(schedule: DDPMSchedule, parts, dr: Draws) -> torch.Tensor:
-    """The renoising timestep: min(end_t + offset, T - 1)."""
-    return torch.clamp(parts["end_t"] + dr["adv_offset"].long(),
-                       max=schedule.num_train_timesteps - 1)
-
-
 def _leaves(params: Params) -> Params:
     return {k: p.detach().requires_grad_(True) for k, p in params.items()}
-
-
-def _device(state: TrainState) -> torch.device:
-    return next(iter(state.params.values())).device
 
 
 def heads_precision() -> None:
@@ -199,33 +199,89 @@ def heads_precision() -> None:
     torch.backends.cudnn.allow_tf32 = True
 
 
-def _solver(schedule, cfg: DistillConfig):
-    return PhasedDDIMSolver.create(schedule, cfg.num_solver_steps), \
-        phase_boundaries(cfg.num_solver_steps, cfg.multiphase)
+def _flow_renoise(x, eps, sig_end, sig_adv):
+    """Flow-space renoising from sigma ``sig_end`` to ``sig_adv``
+    (`pcm_tpu/train/adv.py:405-407`)."""
+    return ((1.0 - sig_adv) * x + (sig_adv - sig_end) * eps) / (1.0 - sig_end)
 
 
-def build_ddim_adv_steps(bundle, schedule: DDPMSchedule, cfg: DistillConfig, adv: AdvConfig,
-                         disc: Discriminator, tx_g, tx_d, grad_accum_steps: int = 1
-                         ) -> Tuple[Callable, Callable]:
-    """``(g_step, d_step)``, each ``(g_state, d_state, frozen, batch, draws)``:
-    ``g_step`` returns the new LoRA state and {loss, loss_cm, g_loss,
-    grad_norm}, ``d_step`` the new heads' state and {d_loss, d_grad_norm}."""
+@dataclasses.dataclass(frozen=True)
+class _Family:
+    """What the adversarial steps take from a family: ``prepare(frozen,
+    lora, batch, draws) -> parts`` (no grad), ``model_pred(frozen, lora,
+    parts)`` (the online prediction, differentiable in ``lora``) and
+    ``renoise(parts, draws) -> (fn(x, eps), adv_t)``."""
+    prepare: Callable
+    model_pred: Callable
+    renoise: Callable
+
+
+def _ddim_family(bundle, schedule: DDPMSchedule, cfg: DistillConfig) -> _Family:
+    solver = PhasedDDIMSolver.create(schedule, cfg.num_solver_steps)
+    bounds = phase_boundaries(cfg.num_solver_steps, cfg.multiphase)
+
+    def prepare(frozen, lora, mb, dr):
+        boundaries = torch.from_numpy(bounds).to(dr["index"].device)
+        return ddim_prepare(bundle, schedule, solver, boundaries, cfg, frozen, lora, mb, dr)
+
+    def renoise(parts, dr):
+        end_t = parts["end_t"]
+        adv_t = torch.clamp(end_t + dr["adv_offset"].long(), max=schedule.num_train_timesteps - 1)
+        return (lambda x, eps: schedule.noise_travel(x, eps, end_t, adv_t)), adv_t
+
+    return _Family(prepare, lambda frozen, lora, parts: ddim_model_pred(
+        bundle, schedule, solver, cfg, frozen, lora, parts), renoise)
+
+
+def _flow_family(bundle, schedule: FlowSchedule, cfg: DistillConfig) -> _Family:
+    solver = PhasedEulerSolver.create(schedule, cfg.num_solver_steps)
+
+    def renoise(parts, dr):
+        end = parts["end_index"]
+        sig = solver.table("sigmas_prev", end.device)
+        adv_index = end + dr["adv_offset"].long()
+        ndim = parts["latents"].ndim
+        sig_end, sig_adv = bcast(sig[end], ndim), bcast(sig[adv_index], ndim)
+        return ((lambda x, eps: _flow_renoise(x, eps, sig_end, sig_adv)),
+                sig[adv_index] * schedule.num_train_timesteps)
+
+    return _Family(
+        lambda frozen, lora, mb, dr: flow_prepare(bundle, schedule, solver, cfg, frozen, lora,
+                                                  mb, dr),
+        lambda frozen, lora, parts: flow_model_pred(bundle, schedule, solver, cfg, frozen, lora,
+                                                    parts),
+        renoise)
+
+
+def adv_offset_span(schedule, cfg: DistillConfig) -> int:
+    """The renoising offset's range [0, span): timesteps on DDIM, ``T //
+    multiphase``; Euler grid points on flow, ``num_solver_steps //
+    multiphase`` (`pcm_tpu/train/adv.py:470-474`), so that ``end_index +
+    offset`` stays on the grid."""
+    if isinstance(schedule, FlowSchedule):
+        return cfg.num_solver_steps // cfg.multiphase
+    return schedule.num_train_timesteps // cfg.multiphase
+
+
+def _family(bundle, schedule, cfg: DistillConfig) -> _Family:
+    return (_flow_family if isinstance(schedule, FlowSchedule) else _ddim_family)(
+        bundle, schedule, cfg)
+
+
+def _adv_steps(bundle, fam: _Family, cfg: DistillConfig, adv: AdvConfig, disc: Discriminator,
+               tx_g, tx_d, grad_accum_steps: int) -> Tuple[Callable, Callable]:
     heads_precision()
-    solver, bounds = _solver(schedule, cfg)
     stop = disc.stop_after_mid
 
     def g_step(g_state: TrainState, d_state: TrainState, frozen, batch, draws: Sequence[Draws]):
-        boundaries = torch.from_numpy(bounds).to(_device(g_state))
-
         def grad_fn(mb, dr):
-            parts = ddim_prepare(bundle, schedule, solver, boundaries, cfg, frozen,
-                                 g_state.params, mb, dr)
-            adv_t = _adv_t(schedule, parts, dr)
+            parts = fam.prepare(frozen, g_state.params, mb, dr)
+            renoise, adv_t = fam.renoise(parts, dr)
             lora = _leaves(g_state.params)
             with torch.enable_grad():
-                model_pred = ddim_model_pred(bundle, schedule, solver, cfg, frozen, lora, parts)
+                model_pred = fam.model_pred(frozen, lora, parts)
                 cm = consistency_loss(model_pred, parts["target"], cfg.loss_type, cfg.huber_c)
-                fake = schedule.noise_travel(model_pred, dr["eps_fake"], parts["end_t"], adv_t)
+                fake = renoise(model_pred, dr["eps_fake"])
                 feats = bundle.teacher_features(frozen, fake, adv_t, parts["cond"], stop)
                 g = hinge_g_loss(disc.logits(d_state.params, feats))
                 loss = cm + adv.adv_weight * g
@@ -237,18 +293,13 @@ def build_ddim_adv_steps(bundle, schedule: DDPMSchedule, cfg: DistillConfig, adv
             "loss": loss, "loss_cm": cm, "g_loss": g, "grad_norm": global_norm(grads)}
 
     def d_step(g_state: TrainState, d_state: TrainState, frozen, batch, draws: Sequence[Draws]):
-        boundaries = torch.from_numpy(bounds).to(_device(g_state))
-
         def grad_fn(mb, dr):
-            parts = ddim_prepare(bundle, schedule, solver, boundaries, cfg, frozen,
-                                 g_state.params, mb, dr)
-            adv_t = _adv_t(schedule, parts, dr)
+            parts = fam.prepare(frozen, g_state.params, mb, dr)
+            renoise, adv_t = fam.renoise(parts, dr)
             with torch.no_grad():
-                model_pred = ddim_model_pred(bundle, schedule, solver, cfg, frozen,
-                                             g_state.params, parts)
-                fake = schedule.noise_travel(model_pred, dr["eps_fake"], parts["end_t"], adv_t)
-                real = schedule.noise_travel(parts["target"], dr["eps_real"], parts["end_t"],
-                                             adv_t)
+                model_pred = fam.model_pred(frozen, g_state.params, parts)
+                fake = renoise(model_pred, dr["eps_fake"])
+                real = renoise(parts["target"], dr["eps_real"])
                 fake_feats, real_feats = pair_features(bundle, frozen, fake, real, adv_t,
                                                        parts["cond"], stop)
             dp = _leaves(d_state.params)
@@ -264,33 +315,24 @@ def build_ddim_adv_steps(bundle, schedule: DDPMSchedule, cfg: DistillConfig, adv
     return g_step, d_step
 
 
-def build_ddim_adv_fused_pair(bundle, schedule: DDPMSchedule, cfg: DistillConfig,
-                              adv: AdvConfig, disc: Discriminator, tx_g, tx_d,
-                              grad_accum_steps: int = 1) -> Callable:
-    """``pair_step(g_state, d_state, frozen, batch, draws) -> (new_g, new_d,
-    metrics)``: one D and one G update from one batch, both from the
-    pre-update parameters (`pcm_tpu/train/adv.py:240-336`)."""
+def _adv_fused_pair(bundle, fam: _Family, cfg: DistillConfig, adv: AdvConfig,
+                    disc: Discriminator, tx_g, tx_d, grad_accum_steps: int) -> Callable:
     heads_precision()
-    solver, bounds = _solver(schedule, cfg)
     stop = disc.stop_after_mid
 
     def pair_step(g_state: TrainState, d_state: TrainState, frozen, batch,
                   draws: Sequence[Draws]):
-        boundaries = torch.from_numpy(bounds).to(_device(g_state))
-
         def grad_fn(mb, dr):
-            parts = ddim_prepare(bundle, schedule, solver, boundaries, cfg, frozen,
-                                 g_state.params, mb, dr)
-            adv_t = _adv_t(schedule, parts, dr)
+            parts = fam.prepare(frozen, g_state.params, mb, dr)
+            renoise, adv_t = fam.renoise(parts, dr)
             with torch.no_grad():  # the real branch carries no gradient for either player
-                real = schedule.noise_travel(parts["target"], dr["eps_real"], parts["end_t"],
-                                             adv_t)
+                real = renoise(parts["target"], dr["eps_real"])
                 real_feats = bundle.teacher_features(frozen, real, adv_t, parts["cond"], stop)
             lora, dp = _leaves(g_state.params), _leaves(d_state.params)
             with torch.enable_grad():
-                model_pred = ddim_model_pred(bundle, schedule, solver, cfg, frozen, lora, parts)
+                model_pred = fam.model_pred(frozen, lora, parts)
                 cm = consistency_loss(model_pred, parts["target"], cfg.loss_type, cfg.huber_c)
-                fake = schedule.noise_travel(model_pred, dr["eps_fake"], parts["end_t"], adv_t)
+                fake = renoise(model_pred, dr["eps_fake"])
                 fake_feats = bundle.teacher_features(frozen, fake, adv_t, parts["cond"], stop)
                 # the heads' parameters as constants: the G loss reaches the LoRA only
                 g = hinge_g_loss(disc.logits(d_state.params, fake_feats))
@@ -312,22 +354,62 @@ def build_ddim_adv_fused_pair(bundle, schedule: DDPMSchedule, cfg: DistillConfig
     return pair_step
 
 
-def build_ddim_adv_train_step(bundle, schedule: DDPMSchedule, cfg: DistillConfig,
-                              adv: AdvConfig, disc: Discriminator, tx_g, tx_d, pairing: str,
+def build_ddim_adv_steps(bundle, schedule: DDPMSchedule, cfg: DistillConfig, adv: AdvConfig,
+                         disc: Discriminator, tx_g, tx_d, grad_accum_steps: int = 1
+                         ) -> Tuple[Callable, Callable]:
+    """``(g_step, d_step)``, each ``(g_state, d_state, frozen, batch, draws)``:
+    ``g_step`` returns the new LoRA state and {loss, loss_cm, g_loss,
+    grad_norm}, ``d_step`` the new heads' state and {d_loss, d_grad_norm}."""
+    return _adv_steps(bundle, _ddim_family(bundle, schedule, cfg), cfg, adv, disc, tx_g, tx_d,
+                      grad_accum_steps)
+
+
+def build_ddim_adv_fused_pair(bundle, schedule: DDPMSchedule, cfg: DistillConfig,
+                              adv: AdvConfig, disc: Discriminator, tx_g, tx_d,
                               grad_accum_steps: int = 1) -> Callable:
-    """The trainer's step, ``step(g_state, d_state, frozen, batch, draws,
-    global_step) -> (g_state, d_state, metrics, global steps counted)``:
-    with ``fresh`` a D update on an even global step and a G update on an
-    odd one, each counting one; with ``fused`` a pair counting two
-    (`pcm_tpu/train/loop.py:359-372`)."""
-    parts = (bundle, schedule, cfg, adv, disc, tx_g, tx_d, grad_accum_steps)
+    """``pair_step(g_state, d_state, frozen, batch, draws) -> (new_g, new_d,
+    metrics)``: one D and one G update from one batch, both from the
+    pre-update parameters (`pcm_tpu/train/adv.py:240-336`)."""
+    return _adv_fused_pair(bundle, _ddim_family(bundle, schedule, cfg), cfg, adv, disc, tx_g,
+                           tx_d, grad_accum_steps)
+
+
+def build_flow_adv_steps(bundle, schedule: FlowSchedule, cfg: DistillConfig, adv: AdvConfig,
+                         disc: Discriminator, tx_g, tx_d, grad_accum_steps: int = 1
+                         ) -> Tuple[Callable, Callable]:
+    """The flow family's (SD3) ``(g_step, d_step)``, called as the DDIM
+    ones (`pcm_tpu/train/adv.py:459-537`)."""
+    return _adv_steps(bundle, _flow_family(bundle, schedule, cfg), cfg, adv, disc, tx_g, tx_d,
+                      grad_accum_steps)
+
+
+def build_flow_adv_fused_pair(bundle, schedule: FlowSchedule, cfg: DistillConfig,
+                              adv: AdvConfig, disc: Discriminator, tx_g, tx_d,
+                              grad_accum_steps: int = 1) -> Callable:
+    """The flow family's fused pair, called as the DDIM one
+    (`pcm_tpu/train/adv.py:540-607`)."""
+    return _adv_fused_pair(bundle, _flow_family(bundle, schedule, cfg), cfg, adv, disc, tx_g,
+                           tx_d, grad_accum_steps)
+
+
+def build_adv_train_step(bundle, schedule, cfg: DistillConfig, adv: AdvConfig,
+                         disc: Discriminator, tx_g, tx_d, pairing: str,
+                         grad_accum_steps: int = 1) -> Callable:
+    """The trainer's step for either family (by ``schedule``: a
+    `FlowSchedule` takes the flow steps), ``step(g_state, d_state, frozen,
+    batch, draws, global_step) -> (g_state, d_state, metrics, global steps
+    counted)``: with ``fresh`` a D update on an even global step and a G
+    update on an odd one, each counting one; with ``fused`` a pair counting
+    two (`pcm_tpu/train/loop.py:359-372`)."""
+    fam = _family(bundle, schedule, cfg)
+    parts = (bundle, fam, cfg, adv, disc, tx_g, tx_d, grad_accum_steps)
     if pairing == "fused":
-        pair_step = build_ddim_adv_fused_pair(*parts)
+        pair_step = _adv_fused_pair(*parts)
 
         def step(g_state, d_state, frozen, batch, draws, global_step):
             return (*pair_step(g_state, d_state, frozen, batch, draws), 2)
     elif pairing == "fresh":
-        g_step, d_step = build_ddim_adv_steps(*parts)
+        g_step, d_step = _adv_steps(*parts)
 
         def step(g_state, d_state, frozen, batch, draws, global_step):
             if global_step % 2 == 0:

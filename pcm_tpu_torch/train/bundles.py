@@ -248,6 +248,10 @@ class SD15Bundle:
     def latent_channels(self) -> int:
         return self.unet_cfg.in_channels
 
+    def tap_channels(self) -> Dict[str, int]:
+        """The channels of each feature tap of `teacher_features`."""
+        return self.unet_cfg.tap_channels()
+
     @property
     def vae_scale(self) -> int:
         return 2 ** (len(self.vae_cfg.block_out_channels) - 1)
@@ -352,6 +356,7 @@ class SDXLBundle:
     student = SD15Bundle.student
     teacher = SD15Bundle.teacher
     teacher_features = SD15Bundle.teacher_features
+    tap_channels = SD15Bundle.tap_channels
     latent_channels = SD15Bundle.latent_channels
     vae_scale = SD15Bundle.vae_scale
 
@@ -362,11 +367,11 @@ class SD3Bundle:
     768 projection) and CLIP-bigG, whose penultimate hidden states are
     concatenated, zero-padded to the T5 width and followed along the
     sequence by T5-XXL's output, and whose projected pooled outputs are
-    concatenated; the 16-channel VAE. A cached batch holds ``latents``,
-    ``prompt_embeds`` (N, 154, 4096), ``pooled_embeds`` (N, 2048) and the
-    uncond branch's ``uncond_embeds`` / ``uncond_pooled``; embeddings may
-    come as the three towers' ``input_ids``, ``input_ids_2`` and
-    ``input_ids_3`` instead."""
+    concatenated; the 16-channel VAE. A batch holds cached ``latents`` or
+    ``pixel_values``, cached ``prompt_embeds`` (N, 154, 4096) and
+    ``pooled_embeds`` (N, 2048) or the three towers' ``input_ids``,
+    ``input_ids_2`` and ``input_ids_3``, and the uncond branch's
+    ``uncond_embeds`` / ``uncond_pooled``."""
 
     mmdit_cfg: MMDiTConfig
     vae_cfg: VAEConfig
@@ -376,6 +381,7 @@ class SD3Bundle:
     lora: LoRASpec
     dtype: torch.dtype = torch.bfloat16
     remat: bool = False  # checkpoint each joint block while grad is on (training)
+    vae_encode_chunk: Optional[int] = None  # samples a VAE encode call (None: the batch)
 
     MODULES = ("mmdit", "vae", "text", "text2", "t5")
     # the SD3 trainers' kohya prefix (`scripts/train.py:378`, `scripts/generate.py:79`)
@@ -430,12 +436,13 @@ class SD3Bundle:
 
     def encode(self, frozen: Frozen, batch: Mapping[str, torch.Tensor],
                vae_noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Cond, Cond]:
-        """(latents, cond, uncond) of a cached batch (`pcm_tpu/train/bundles.py:406-431`):
-        cached embeddings or the captions' ids through the towers, the
-        batch's ``uncond_embeds`` / ``uncond_pooled``. Latents must be cached:
-        SD3 from pixels is not ported."""
-        if "latents" not in batch:
-            raise NotImplementedError("SD3 from pixels is not ported yet: pass cached latents")
+        """(latents, cond, uncond) of a training batch (`pcm_tpu/train/bundles.py:406-431`):
+        cached embeddings or the captions' ids through the towers; cached
+        ``latents`` or ``pixel_values`` through the VAE encoder with the
+        posterior noise ``vae_noise`` (`SD15Bundle.encode_pixels`), in the
+        bundle's dtype as the JAX bundle encodes (the reference keeps the
+        SD3 VAE in fp32, `train_pcm_lora_sd3.py:954`); the batch's
+        ``uncond_embeds`` / ``uncond_pooled``."""
         if "prompt_embeds" in batch:
             prompt_embeds, pooled = batch["prompt_embeds"], batch["pooled_embeds"]
         else:
@@ -443,9 +450,14 @@ class SD3Bundle:
                 c = self.encode_prompts(frozen, batch["input_ids"], batch["input_ids_2"],
                                         batch["input_ids_3"])
             prompt_embeds, pooled = c["prompt_embeds"], c["pooled"]
-        return (batch["latents"], {"prompt_embeds": prompt_embeds, "pooled": pooled},
+        if "latents" in batch:
+            latents = batch["latents"]
+        else:
+            latents = self.encode_pixels(frozen, batch["pixel_values"], vae_noise)
+        return (latents, {"prompt_embeds": prompt_embeds, "pooled": pooled},
                 {"prompt_embeds": batch["uncond_embeds"], "pooled": batch["uncond_pooled"]})
 
+    encode_pixels = SD15Bundle.encode_pixels
     decode_latents = SD15Bundle.decode_latents
     latents_like = SD15Bundle.latents_like
     vae_scale = SD15Bundle.vae_scale
@@ -459,6 +471,16 @@ class SD3Bundle:
     def teacher(self, frozen: Frozen, x: torch.Tensor, t: torch.Tensor,
                 cond: Cond) -> torch.Tensor:
         return self.student(frozen, None, x, t, cond)
+
+    def teacher_features(self, frozen: Frozen, x: torch.Tensor, t: torch.Tensor, cond: Cond,
+                         stop_after_mid: bool = False) -> Dict[str, torch.Tensor]:
+        """The teacher's taps ``block_{i}`` (N, S, C) (`pcm_tpu/train/bundles.py:443-448`);
+        differentiable in ``x``. ``stop_after_mid`` is taken and ignored, as
+        the JAX bundle does: an MMDiT has no mid block."""
+        return frozen["mmdit"].features(x, t, cond["prompt_embeds"], cond["pooled"])
+
+    def tap_channels(self) -> Dict[str, int]:
+        return self.mmdit_cfg.tap_channels()
 
     @property
     def latent_channels(self) -> int:

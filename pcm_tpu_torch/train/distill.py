@@ -11,7 +11,7 @@ microbatches' (loss, grads) before one update.
 The random draws come from outside: per microbatch ``{"noise", "index",
 "w"}`` (with ``vae_noise``, the VAE posterior's, on a batch of pixels), and
 for the adversarial steps (`train/adv.py`) also ``adv_offset`` (added to the
-phase end to give the renoising timestep) and the renoising noises
+phase end to give the renoising timestep or grid point) and the renoising noises
 ``eps_fake`` and ``eps_real``. `sample_draws` makes them from a
 ``torch.Generator`` for the trainer; tests feed in the values JAX's
 `ddim_prepare` and adversarial steps draw, so both packages run the same
@@ -55,16 +55,17 @@ class DistillConfig:
 
 
 def sample_draws(cfg: DistillConfig, generator: torch.Generator, latents: torch.Tensor,
-                 adv_schedule: Optional[DDPMSchedule] = None, posterior: bool = False) -> Draws:
+                 adv_span: Optional[int] = None, posterior: bool = False) -> Draws:
     """One microbatch's draws on the latents' device: Gaussian noise shaped
     like the latents, solver indices in [0, S) and guidance scales w in
-    [w_min, w_max) (or ``fixed_w``); with the schedule of an adversarial
-    step also offsets in [0, T // multiphase), T its
-    ``num_train_timesteps``, and two more Gaussian noises shaped like the
-    latents (`pcm_tpu/train/adv.py:167-172`); with ``posterior`` (a batch of
-    pixels) last the VAE posterior's noise ``vae_noise``, shaped like the
-    latents (`pcm_tpu/train/distill.py:143-144`). ``latents`` gives shape,
-    dtype and device only (`SD15Bundle.latents_like` for pixels)."""
+    [w_min, w_max) (or ``fixed_w``); for an adversarial step (``adv_span``)
+    also renoising offsets in [0, adv_span) (`train/adv.py:adv_offset_span`:
+    timesteps on DDIM, grid points on flow) and two more Gaussian noises
+    shaped like the latents (`pcm_tpu/train/adv.py:167-172`); with
+    ``posterior`` (a batch of pixels) last the VAE posterior's noise
+    ``vae_noise``, shaped like the latents (`pcm_tpu/train/distill.py:143-144`).
+    ``latents`` gives shape, dtype and device only (`SD15Bundle.latents_like`
+    for pixels)."""
     bsz, dev = latents.shape[0], latents.device
     noise = torch.randn(latents.shape, generator=generator, device=dev, dtype=latents.dtype)
     index = torch.randint(0, cfg.num_solver_steps, (bsz,), generator=generator, device=dev)
@@ -73,9 +74,8 @@ def sample_draws(cfg: DistillConfig, generator: torch.Generator, latents: torch.
     else:
         w = torch.rand((bsz,), generator=generator, device=dev) * (cfg.w_max - cfg.w_min) + cfg.w_min
     draws = {"noise": noise, "index": index, "w": w}
-    if adv_schedule is not None:
-        span = adv_schedule.num_train_timesteps // cfg.multiphase
-        draws["adv_offset"] = torch.randint(0, span, (bsz,), generator=generator, device=dev)
+    if adv_span is not None:
+        draws["adv_offset"] = torch.randint(0, adv_span, (bsz,), generator=generator, device=dev)
         for k in ("eps_fake", "eps_real"):
             draws[k] = torch.randn(latents.shape, generator=generator, device=dev,
                                    dtype=latents.dtype)

@@ -7,7 +7,7 @@ adversarial draws) from one ``torch.Generator`` on the training device,
 seeded from ``seed`` and saved with every checkpoint, so a resumed run
 continues the same stream. Adversarial training holds the student's state
 and the discriminator heads' (``d_state``) and counts global steps itself:
-its step (`train/adv.py:build_ddim_adv_train_step`) trains D on an even
+its step (`train/adv.py:build_adv_train_step`) trains D on an even
 global step and G on an odd one, each counting one, or both on one batch,
 counting two (`pcm_tpu/train/loop.py:359-372`). Metrics are read
 back (a device sync) only every ``log_every`` steps and go to
@@ -22,7 +22,8 @@ feeder waiting for the loader) and ``feed_put_s`` (the feeder's tensor
 conversion and pinning). Checkpoints are ``torch.save`` files of {global
 step, LoRA and its optimizer state, the heads and theirs, generator state}
 under ``<output_dir>/checkpoints/``; each save also exports the LoRA as
-``<output_dir>/pcm_lora_<step>.safetensors`` in kohya's format (fp16).
+``<output_dir>/pcm_lora_<step>.safetensors`` in kohya's format (fp16), its
+keys under ``kohya_prefix`` (``lora_unet``; SD3's ``lora_transformer``).
 
 Batches come from a feeder thread that reads the data iterator, turns each
 batch into host tensors (pinned for a CUDA run) and keeps `PREFETCH` of
@@ -48,7 +49,6 @@ from typing import Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
-from ..core.schedule import DDPMSchedule
 from ..lora.kohya import save_kohya_safetensors
 from ..utils.threads import prefetch_thread
 from .distill import DistillConfig, sample_draws, split_microbatches
@@ -67,6 +67,7 @@ class LoopConfig:
     seed: int = 42
     resume: bool = True
     lora_alpha: float = 8.0
+    kohya_prefix: str = "lora_unet"  # the family's (`SD15Bundle.KOHYA_PREFIX`)
 
 
 def _to(tree, device):
@@ -96,21 +97,22 @@ class Trainer:
     (state, d_state, metrics, global steps counted)`` to ``max_train_steps``
     global steps. ``d_state`` is the heads' state of an adversarial run,
     else None; the draws are `sample_draws`' for ``distill_cfg``, with the
-    adversarial ones over ``schedule`` when there are heads, and the VAE
-    posterior's on a batch of pixels, shaped like ``latents_like(batch)``
-    (the bundle's: a batch's cached latents, or what its pixels encode to)."""
+    adversarial ones over [0, ``adv_span``) when there are heads
+    (`train/adv.py:adv_offset_span`), and the VAE posterior's on a batch of
+    pixels, shaped like ``latents_like(batch)`` (the bundle's: a batch's
+    cached latents, or what its pixels encode to)."""
 
     def __init__(self, loop_cfg: LoopConfig, frozen, state: TrainState, step: Callable,
-                 distill_cfg: DistillConfig, schedule: DDPMSchedule, latents_like: Callable,
-                 device: torch.device, grad_accum_steps: int = 1,
-                 d_state: Optional[TrainState] = None):
+                 distill_cfg: DistillConfig, latents_like: Callable, device: torch.device,
+                 grad_accum_steps: int = 1, d_state: Optional[TrainState] = None,
+                 adv_span: Optional[int] = None):
         self.cfg = loop_cfg
         self.frozen = frozen
         self.state = state
         self.d_state = d_state
         self.step = step
         self.distill_cfg = distill_cfg
-        self.adv_schedule = schedule if d_state is not None else None
+        self.adv_span = adv_span
         self.device = torch.device(device)
         self.accum = grad_accum_steps
         self.latents_like = latents_like
@@ -148,7 +150,7 @@ class Trainer:
         os.replace(path + ".tmp", path)
         save_kohya_safetensors(
             os.path.join(self.cfg.output_dir, f"pcm_lora_{self.global_step:07d}.safetensors"),
-            payload["lora"], self.cfg.lora_alpha)
+            payload["lora"], self.cfg.lora_alpha, prefix=self.cfg.kohya_prefix)
         limit = self.cfg.checkpoints_total_limit
         if limit:
             for old in self.checkpoints()[:-limit]:
@@ -253,7 +255,7 @@ class Trainer:
             draws = []
             for mb in split_microbatches(batch, self.accum):
                 draws.append(sample_draws(self.distill_cfg, self.generator, self.latents_like(mb),
-                                          self.adv_schedule, posterior="pixel_values" in mb))
+                                          self.adv_span, posterior="pixel_values" in mb))
             self.state, self.d_state, metrics, counted = self.step(
                 self.state, self.d_state, self.frozen, batch, draws, self.global_step)
             self.global_step += counted

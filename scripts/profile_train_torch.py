@@ -13,10 +13,10 @@ solver steps, 4 phases, fixed w = 3, rank-32 LoRA, zero uncond; its recipes'
 batch is 2). With ``--frozen-weights int8`` the frozen weights are
 int8 and ``--int8-matmul`` picks the int8 path, as in `python -m
 pcm_tpu_torch.train`. With ``--adv`` it takes the adversarial recipe's
-updates instead (``sd15_2phase_adv`` or ``sdxl_4phase_adv``, the heads
-drawn from the seed): one "step" is then a pair, a D step and a G step on
-their own draws (``fresh``) or one fused pair (``fused``), two global steps
-of the trainer. It feeds the step a seeded batch of latents and text
+updates instead (``sd15_2phase_adv``, ``sdxl_4phase_adv`` or
+``sd3_4phase_adv`` on its adversarial LoRA list, the heads drawn from the
+seed): one "step" is then a pair, a D step and a G step on their own draws
+(``fresh``) or one fused pair (``fused``), two global steps of the trainer. It feeds the step a seeded batch of latents and text
 embeddings made on the card, or with ``--pixels`` a seeded batch of pixels
 and hashed caption ids (SD1.5 at 512 px; SDXL at 1024 px with ``--adv``, its
 only recipe, and uncropped ``time_ids``), which every step (each D and G
@@ -160,8 +160,8 @@ def main() -> None:
     args = ap.parse_args()
     if args.pixels and args.family == "sdxl" and not args.adv:
         raise SystemExit("--pixels with --family sdxl needs --adv (sdxl_4phase_adv)")
-    if args.family == "sd3" and (args.pixels or args.adv or args.frozen_weights == "int8"):
-        raise SystemExit("--family sd3 profiles the bf16 consistency step on cached latents")
+    if args.family == "sd3" and (args.pixels or args.frozen_weights == "int8"):
+        raise SystemExit("--family sd3 profiles bf16 steps on cached latents")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     if args.int8_matmul and args.frozen_weights != "int8":
@@ -199,7 +199,7 @@ def main() -> None:
                      "uncond_embeds": batch["uncond_embeds"]}
             label += " from pixels (VAE encode + CLIP-L)"
     elif args.family == "sd3":
-        bundle = sd3_bundle(remat=remat)
+        bundle = sd3_bundle(remat=remat, adv_targets=bool(args.adv))
         cfg, lr = SD3_CACHED_STEP.distill, SD3_CACHED_STEP.lr
         embeds = torch.randn((b, 154, 4096), generator=gen, device=dev).bfloat16()
         pooled = torch.randn((b, 2048), generator=gen, device=dev).bfloat16()
@@ -251,19 +251,22 @@ def main() -> None:
         float(metrics["loss"])
 
     if args.adv:  # the adversarial recipe's pair of updates (`python -m pcm_tpu_torch.train`)
-        recipe = RECIPES[{"sd15": "sd15_2phase_adv", "sdxl": "sdxl_4phase_adv"}[args.family]]
-        disc, heads = adv.init_discriminator(disc_config(args.family),
-                                             bundle.unet_cfg.tap_channels(), gen, dev)
+        recipe = RECIPES[{"sd15": "sd15_2phase_adv", "sdxl": "sdxl_4phase_adv",
+                          "sd3": "sd3_4phase_adv"}[args.family]]
+        disc, heads = adv.init_discriminator(disc_config(args.family), bundle.tap_channels(),
+                                             gen, dev)
         tx_d = make_optimizer(recipe.adv_lr, b1=0.0, max_grad_norm=1.0)
         box["d"] = TrainState.create(heads, tx_d)
-        schedule = make_ddpm_schedule()
+        flow = args.family == "sd3"
+        schedule = make_flow_schedule() if flow else make_ddpm_schedule()
         parts = (bundle, schedule, cfg, adv.AdvConfig(recipe.adv_weight), disc, tx, tx_d)
-        g_step, d_step = adv.build_ddim_adv_steps(*parts)
-        pair = adv.build_ddim_adv_fused_pair(*parts)
+        g_step, d_step = (adv.build_flow_adv_steps if flow else adv.build_ddim_adv_steps)(*parts)
+        pair = (adv.build_flow_adv_fused_pair if flow else adv.build_ddim_adv_fused_pair)(*parts)
+        span = adv.adv_offset_span(schedule, cfg)
 
         def one_step():  # noqa: F811
             def draws():
-                return [sample_draws(cfg, gen, bundle.latents_like(batch), adv_schedule=schedule,
+                return [sample_draws(cfg, gen, bundle.latents_like(batch), span,
                                      posterior=args.pixels)]
 
             if args.adv == "fused":

@@ -273,6 +273,8 @@ def test_function_backwards_skip_frozen_weights():
     (4, 1024, 1280, (1, 16, 64, 8, 8)),    # SDXL's mid tap: 320 threads, one row phase
     (4, 64, 1280, (1, 8, 8, 8, 4)),        # SD1.5's 8x8 taps: one unrolled sweep a chunk
     (4, 4096, 640, (1, 63, 66, 4, 4)),     # SD1.5's up_2 tap
+    (2, 4096, 1536, (1, 32, 128, 8, 8)),   # SD3's 64x64 taps at B: 384 threads, 12 warps
+    (4, 4096, 1536, (1, 63, 66, 8, 8)),    # and at the D step's 2B
 ])
 def test_gn_partition_fp32(n, s, c, part):
     """K4's grid on fp32 input: a 16-byte vector holds 4 channels, so a row
@@ -284,7 +286,8 @@ def test_gn_partition_fp32(n, s, c, part):
     assert (got.nchunk - 1) * got.rows_per_chunk < s <= got.nchunk * got.rows_per_chunk
 
 
-@pytest.mark.parametrize("shape", [(2, 7, 11, 320), (1, 4000, 640), (4, 8, 8, 1280)])
+@pytest.mark.parametrize("shape", [(2, 7, 11, 320), (1, 4000, 640), (4, 8, 8, 1280),
+                                   (2, 4096, 1536), (4, 4096, 1536)])
 def test_group_norm_chunked_stats_fp32(shape):
     """The kernel's merge order on fp32 input (its partition) against float64:
     the mean within 2.5e-7 of max |x|, rstd within 1e-5 relative."""
@@ -556,9 +559,8 @@ def test_train_cli_adversarial_resumes_heads(tmp_path, capsys):
 
 @pytest.mark.parametrize("extra,msg", [
     (["--recipe", "sdxl_4phase_adv", "--frozen-weights", "int8"], "not yet ported"),
-    (["--recipe", "sd15_2phase_adv", "--split-d"], "not yet ported"),
-    (["--recipe", "sd3_4phase_adv"], "not yet ported")],
-    ids=["int8_adversarial", "split_d", "sd3"])
+    (["--recipe", "sd15_2phase_adv", "--split-d"], "not yet ported")],
+    ids=["int8_adversarial", "split_d"])
 def test_train_cli_refuses_unported_adversarial(tmp_path, capsys, extra, msg):
     with pytest.raises(SystemExit) as exc:
         _train(*extra, "--tiny", "--device", "cpu", "--output-dir", str(tmp_path / "o"),

@@ -128,10 +128,12 @@ def test_group_norm_kernel(cuda, shape, groups, eps, act, offset):
 
 @pytest.mark.parametrize("shape,act", [
     ((4, 64, 64, 320), None), ((4, 32, 32, 1280), None), ((2, 8, 8, 1280), None),
-    ((4, 64, 64, 640), "silu"), ((2, 77, 96), None), ((1, 16, 16, 2048), None)])
+    ((4, 64, 64, 640), "silu"), ((2, 77, 96), None), ((1, 16, 16, 2048), None),
+    ((2, 4096, 1536), None), ((4, 4096, 1536), None)])
 def test_group_norm_kernel_fp32(cuda, shape, act):
     """K4 on fp32 x, gamma, beta and out (the discriminator heads' GroupNorm:
-    4 channels a 16-byte vector, cg = 3 straddles vectors at C = 96), against
+    4 channels a 16-byte vector, cg = 3 straddles vectors at C = 96; the SD3
+    heads' 64x64 grids of 1536 channels, cg = 48, at B and 2B), against
     the plain version in float64 at 1e-5, and bit-identical on a rerun."""
     rng = np.random.default_rng(12)
     c = shape[-1]

@@ -510,8 +510,7 @@ def _trainer(tmp_path, max_steps):
                               resume=False),
                    None, TrainState.create({"x.lora_a": torch.zeros(2, 3),
                                             "x.lora_b": torch.zeros(4, 2)}, tx),
-                   step, distill.DistillConfig(), make_ddpm_schedule(),
-                   lambda batch: batch["latents"], CPU)
+                   step, distill.DistillConfig(), lambda batch: batch["latents"], CPU)
 
 
 def test_trainer_feeder_errors_and_exhaustion(tmp_path):
@@ -636,7 +635,7 @@ def test_train_cli_pixels_sigterm_and_resume(tmp_path):
 
 
 @pytest.mark.parametrize("extra,msg", [
-    (["--recipe", "sd3_2phase_adv"], "not yet ported"),
+    (["--recipe", "sd3_2phase_adv", "--frozen-weights", "int8"], "int8 with an SD3 recipe"),
     (["--recipe", "sd15_2phase_adv", "--frozen-weights", "int8"], "not yet ported"),
     (["--recipe", "sd15_4phase", "--cached-latents-dir", "x"], "one of"),
     (["--recipe", "sd15_4phase", "--no-tiny-tokenizer"], "no tokenizer"),
@@ -683,6 +682,6 @@ def test_cache_writer_feeds_both_readers(tmp_path):
                           "--cached-latents-dir", str(tmp_path / "c1"), "--output-dir",
                           str(tmp_path / "run"), "--batch-size", "2", "--max-train-steps", "1"])
     assert trainer.global_step == 1
-    with pytest.raises(SystemExit):
-        cache_latents.main(["--family", "sd3", "--device", "cpu", "--train-data-dir", imgs,
+    with pytest.raises(SystemExit, match="no CUDA device"):  # these tests run without a card
+        cache_latents.main(["--family", "sd15", "--device", "cuda", "--train-data-dir", imgs,
                             "--output-dir", str(tmp_path / "c3")])

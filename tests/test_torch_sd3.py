@@ -431,13 +431,39 @@ def test_flow_distill_step_matches_jax(sd3):
     assert pstate.step == 2
 
 
-def test_sd3_encode_takes_cached_latents_only(sd3):
+def test_sd3_encode_cached_and_pixels(sd3):
+    """`SD3Bundle.encode` of a cached batch passes its tensors through; of
+    pixels and the three towers' ids, the latents with the posterior noise
+    JAX draws from its key fed to the port (rel-max 1e-4) and the cond of the
+    towers, whole and in chunks of one sample (`vae_encode_chunk`)."""
     batch = {k: t(v) for k, v in _batch(2, 12).items()}
     latents, cond, uncond = sd3["pb"].encode({}, batch)
     assert latents is batch["latents"] and cond["pooled"] is batch["pooled_embeds"]
     assert uncond["pooled"] is batch["uncond_pooled"]
-    with pytest.raises(NotImplementedError, match="from pixels"):
-        sd3["pb"].encode({}, {"pixel_values": torch.zeros(2, 16, 16, 3)})
+
+    rng = np.random.default_rng(14)
+    pixels = {"pixel_values": rng.uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32),
+              **_ids(["a red square", "a blue circle"]),
+              "uncond_embeds": batch["uncond_embeds"].numpy(),
+              "uncond_pooled": batch["uncond_pooled"].numpy()}
+    key = jax.random.PRNGKey(15)
+    with jax_reference_ops():
+        jl, jc, _ = jax.jit(sd3["jb"].encode)(sd3["jfrozen"], {k: jnp.asarray(v) for k, v in
+                                                                pixels.items()}, key)
+    noise = t(jax.random.normal(key, (2, 8, 8, 4), jnp.float32))
+    tb = {k: t(v).long() if k in TOKS else t(v) for k, v in pixels.items()}
+    for chunk in (None, 1):
+        pb = dataclasses.replace(sd3["pb"], vae_encode_chunk=chunk)
+        with torch.no_grad():
+            pl, pc, pu = pb.encode(sd3["pfrozen"], tb, noise)
+        assert pl.shape == (2, 8, 8, 4)
+        assert rel_max(pl, jl) < 1e-4, chunk
+        assert rel_max(pc["prompt_embeds"], jc["prompt_embeds"]) < 1e-4
+        assert rel_max(pc["pooled"], jc["pooled"]) < 1e-4
+        assert pu["pooled"] is tb["uncond_pooled"]
+    with torch.no_grad():
+        mean, _, _ = sd3["pb"].encode(sd3["pfrozen"], tb)
+    assert rel_max(pl, mean) > 1e-3  # the posterior sample is not the mean
 
 
 @pytest.mark.parametrize("with_lora", [True, False], ids=["student", "teacher"])
@@ -599,13 +625,3 @@ def test_serve_sd3_refusals(argv, msg, capsys):
     with pytest.raises(SystemExit) as e:
         main(argv + ["--device", "cpu"])
     assert e.value.code != 0 and msg in capsys.readouterr().err
-
-
-def test_train_refuses_sd3_recipes_naming_4b(tmp_path, capsys):
-    from pcm_tpu_torch.train.__main__ import main
-
-    with pytest.raises(SystemExit) as e:
-        main(["--recipe", "sd3_4phase_adv", "--tiny", "--device", "cpu", "--output-dir",
-              str(tmp_path / "o"), "--cached-latents-dir", str(tmp_path)])
-    err = capsys.readouterr().err
-    assert e.value.code != 0 and "not yet ported" in err and "slice 4b" in err

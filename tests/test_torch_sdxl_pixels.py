@@ -420,7 +420,8 @@ def test_fused_pair_from_pixels_equals_the_pair_on_its_latents():
               **{k: t(v) for k, v in _ids(["a red square", "a blue circle"]).items()},
               "time_ids": t(np.array([[16, 19, 0, 3, 16, 16], [16, 16, 0, 0, 16, 16]],
                                      np.float32))}
-    draws = distill.sample_draws(cfg, gen, bundle.latents_like(pixels), schedule, posterior=True)
+    draws = distill.sample_draws(cfg, gen, bundle.latents_like(pixels),
+                                 adv.adv_offset_span(schedule, cfg), posterior=True)
     with torch.no_grad():
         latents = bundle.encode_pixels(frozen, pixels["pixel_values"], draws["vae_noise"])
         c = bundle.encode_prompts(frozen, pixels["input_ids"], pixels["input_ids_2"],
