@@ -10,7 +10,9 @@ SD3 at 1024 px: the MMDiT, T5-XXL and the two CLIP towers, the 16-channel
 VAE, the flow consistency step on cached latents, SD3 adversarial
 distillation (the teacher's taps, ``sd3_4phase_adv`` on caches and from
 pixels, ``cache_latents --family sd3``) and ``--family sd3`` serving of the
-LoRA it trains, deterministic and stochastic.
+LoRA it trains, deterministic and stochastic; and SD1.5 teacher weights from
+a hub folder, Prodigy training with validation grids and asynchronous saves,
+and ``python -m pcm_tpu_torch.generate`` with TCD and DDIM.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -111,8 +113,8 @@ Phases, one printed line each:
      (the four arrays' shapes, crops in ``time_ids``), then ``python -m
      pcm_tpu_torch.train --recipe sdxl_4phase_adv --train-data-dir`` as a child
      process at full width, batch 2, ``--adv-pairing fused``, 4 global steps,
-     checkpoints every 2: finite ``loss`` and ``d_loss``, the LoRA and the
-     heads moved, kohya files at 2 and 4, K1-K5 and K4 on fp32 launched, and
+     a checkpoint at 4: finite ``loss`` and ``d_loss``, the LoRA and the
+     heads moved, the kohya file at 4, K1-K5 and K4 on fp32 launched, and
      the loader's ``time_ids`` (the same sample streams) not all the
      uncropped [1024, 1024, 0, 0, 1024, 1024]; step ms, peak, host counters;
  18. sdxl-serve: the engine of ``python -m pcm_tpu_torch.serving --family sdxl
@@ -146,7 +148,7 @@ Phases, one printed line each:
  22a. train-sd3-adv: ``python -m pcm_tpu_torch.train --recipe sd3_4phase_adv``
      as child processes at full width, batch 2, on a seeded SD3 cache under
      build/ (128x128x16 latents, (154, 4096) embeds, 2048 pooled): ``fused``
-     for 4 global steps, checkpoints every 2 (lr 1e-2, so that phase 23's
+     for 4 global steps, a checkpoint at 4 (lr 1e-2, so that phase 23's
      image moves), and ``fresh`` for 4; finite ``loss`` and ``d_loss``, the
      LoRA and the heads moved, kohya files under ``lora_transformer`` holding
      the adversarial list's layers, K1-K3 and K4 on fp32 launched; step ms,
@@ -165,6 +167,30 @@ Phases, one printed line each:
      batch 8); a ``--stochastic`` engine whose request image is also equal in
      a full and a partial batch and differs from the deterministic one; batch
      latencies and peaks.
+ 24. port-weights: the seeded full-width SD1.5 bundle written as a BF16
+     diffusers folder (CLIP's int64 ``position_ids`` beside), ``python -m
+     pcm_tpu_torch.port_weights --family sd15`` as a child process, its file
+     loaded as ``--teacher-checkpoint`` loads it: every state equal and a
+     UNet forward on the card bit-identical to the seeded bundle's;
+ 25. train-prodigy: ``python -m pcm_tpu_torch.train --recipe sd15_4phase`` on
+     phase 24's teacher and phase 7's cache as a child process, batch 4,
+     ``--optimizer prodigy --learning-rate 1.0``, validation grids (two
+     prompts) and a checkpoint every 2 steps, 4 steps, then a rerun that
+     resumes at 4 and is SIGTERM'd; grids' shapes, a finite ``prodigy_d``,
+     the resumed Prodigy state, the step after each save beside the steady
+     step, the validation calls' seconds and the peak;
+ 25b. save-order: a trainer holding phase 25's step-4 LoRA and Prodigy
+     state on the card saves with the card busy, so that the save's pinned
+     copies queue behind the work, and three Prodigy updates enqueued right
+     behind them; then one holding two 256-MiB tensors saves twice so, the
+     second while the first file is being written; each checkpoint must
+     equal, bit for bit, the state it was saved from;
+ 26. generate: ``python -m pcm_tpu_torch.generate``'s ``main`` on phase 24's
+     teacher, batch 4, 4 steps: phase 25's step-4 LoRA with ``--scheduler
+     tcd`` (twice: the same PNG bytes) and ``ddim``, and the teacher at
+     ``--cfg 7.5`` (K5); batch latencies, and the final latents with the
+     kernels against all plain versions within max(2e-2, 2 x the
+     input-nudge yardstick).
 Each main path runs with the launch counts set to 0 just before it and read
 just after. Then a JSON line of the kernels, the nvidia-smi line, and a last
 JSON line ``{"ok": true, ...}``.
@@ -1594,12 +1620,13 @@ def _adv_child(argv, out_dir: str, seed: int, family: str, saves=(2, 4)) -> dict
 def train_xl_pixels(img_dir: str, out_dir: str, seed: int) -> dict:
     """Phase 17b: ``python -m pcm_tpu_torch.train --recipe sdxl_4phase_adv
     --train-data-dir`` as a child process (`_adv_child`) at full width, batch
-    2, ``fused``, 4 global steps, checkpoints every 2."""
+    2, ``fused``, 4 global steps, a checkpoint at 4 (one: a SDXL checkpoint is
+    2.7 GB, and the smoke's disk writes are bounded)."""
     return _adv_child(["--recipe", "sdxl_4phase_adv", "--train-data-dir", img_dir,
                        "--batch-size", "2", "--max-train-steps", "4", "--checkpointing-steps",
-                       "2", "--log-every", "1", "--seed", str(seed), "--allow-hash-tokenizer",
+                       "4", "--log-every", "1", "--seed", str(seed), "--allow-hash-tokenizer",
                        "--adv-pairing", "fused", "--dataloader-workers", "4"],
-                      out_dir, seed, "sdxl")
+                      out_dir, seed, "sdxl", saves=(4,))
 
 
 def _serve_family(family: str, lora_path: str, seed: int, seed_base: int, *flags: str):
@@ -1655,10 +1682,10 @@ def _serve_teacher(engine, family: str, guidance: float, seed_base: int) -> dict
     ``guidance``: the backbone at batch 8 under CFG; steady batch latency."""
     import dataclasses
 
+    from pcm_tpu_torch.configs.families import FAMILIES
     from pcm_tpu_torch.data.tokenizer import resolve_tokenizers
     from pcm_tpu_torch.ops import launch_counts, reset_launch_counts
     from pcm_tpu_torch.serving import InferenceEngine
-    from pcm_tpu_torch.serving.__main__ import FAMILIES
 
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -1973,13 +2000,14 @@ SD3_SERVED_LR = "1e-2"
 def train_sd3_adv(cache_dir: str, seed: int) -> dict:
     """Phase 22a: ``python -m pcm_tpu_torch.train --recipe sd3_4phase_adv``
     on ``cache_dir`` as child processes (`_adv_child`) at full width, batch
-    2: ``fused`` for 4 global steps (checkpoints every 2, lr
-    `SD3_SERVED_LR`) and ``fresh`` for 4 (the recipe's lr)."""
+    2: ``fused`` for 4 global steps (a checkpoint at 4, lr `SD3_SERVED_LR`) and
+    ``fresh`` for 4 (the recipe's lr); one checkpoint each, as the smoke's disk
+    writes are bounded."""
     common = ["--recipe", "sd3_4phase_adv", "--cached-latents-dir", cache_dir, "--batch-size",
               "2", "--max-train-steps", "4", "--log-every", "1", "--seed", str(seed)]
-    return {"fused": _adv_child(common + ["--adv-pairing", "fused", "--checkpointing-steps", "2",
+    return {"fused": _adv_child(common + ["--adv-pairing", "fused", "--checkpointing-steps", "4",
                                           "--learning-rate", SD3_SERVED_LR],
-                                "build/chip_smoke/sd3_adv_fused", seed, "sd3"),
+                                "build/chip_smoke/sd3_adv_fused", seed, "sd3", saves=(4,)),
             "fresh": _adv_child(common + ["--adv-pairing", "fresh", "--checkpointing-steps", "4"],
                                 "build/chip_smoke/sd3_adv_fresh", seed, "sd3", saves=(4,))}
 
@@ -2260,6 +2288,373 @@ def sd3_phases(seed: int, gen) -> list:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phases 24-26: hub weights, Prodigy with validation, generate
+# ---------------------------------------------------------------------------
+
+# the hub's SD1.5 layout: module -> (folder, file) as diffusers ships it
+HUB_FILES = {"unet": ("unet", "diffusion_pytorch_model.safetensors"),
+             "vae": ("vae", "diffusion_pytorch_model.safetensors"),
+             "text": ("text_encoder", "model.safetensors")}
+VALIDATION_PROMPTS = ("a photo of subject 3, red light", "a photo of subject 7, blue light")
+GENERATE_PROMPTS = ("an astronaut riding a horse", "a red apple on a table",
+                    "a lighthouse at dusk", "a bowl of soup")
+
+
+def write_hub(frozen, out_dir: str) -> dict:
+    """The seeded SD1.5 modules as a diffusers folder in BF16 (their bits,
+    so the round trip is exact), CLIP's int64 ``position_ids`` beside;
+    returns port_weights' flags."""
+    import numpy as np
+
+    from pcm_tpu_torch.utils.safetensors import save_file
+
+    flags = []
+    for module, (sub, name) in HUB_FILES.items():
+        os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
+        bits = {k: v.contiguous().cpu().view(torch.int16).numpy().view(np.uint16)
+                for k, v in frozen[module].state_dict().items()}
+        tensors = dict(bits)
+        if module == "text":
+            tensors["text_model.embeddings.position_ids"] = np.arange(77, dtype=np.int64)[None]
+        save_file(tensors, os.path.join(out_dir, sub, name), bf16=tuple(bits))
+        flags += [f"--{module}", os.path.join(out_dir, sub, "*.safetensors")]
+    return flags
+
+
+def port_hub_weights(seed: int, out_dir: str) -> dict:
+    """Phase 24: the seeded full-width SD1.5 bundle written as a BF16 hub
+    folder, ``python -m pcm_tpu_torch.port_weights --family sd15`` as a child
+    process, the teacher file loaded as ``--teacher-checkpoint`` loads it: each
+    state equal bit for bit and a UNet forward on the card (batch 2, the
+    kernels) bit-identical to the seeded bundle's."""
+    from pcm_tpu_torch.configs.families import sd15_bundle
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    bundle = sd15_bundle()
+    gen = torch.Generator("cuda").manual_seed(seed)
+    frozen, _ = bundle.init(gen, torch.device("cuda"))
+    t0 = time.perf_counter()
+    flags = write_hub(frozen, os.path.join(out_dir, "hub"))
+    write_s = time.perf_counter() - t0
+    teacher = os.path.join(out_dir, "teacher.pt")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "pcm_tpu_torch.port_weights", "--family", "sd15",
+                          "--output", teacher, *flags], capture_output=True, text=True,
+                         timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    port_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"port_weights: exit {res.returncode}:\n{res.stderr[-3000:]}")
+    states = torch.load(teacher, weights_only=True)
+    equal = all(torch.equal(states[m][k], v.cpu()) for m in HUB_FILES
+                for k, v in frozen[m].state_dict().items())
+    loaded = bundle.from_states(states, torch.device("cuda"))
+    del states
+    x = torch.randn((2, 64, 64, 4), generator=gen, device="cuda")
+    cond = {"prompt_embeds": torch.randn((2, 77, 768), generator=gen, device="cuda").bfloat16()}
+    t = torch.tensor([999.0, 421.0], device="cuda")
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, deterministic=True):
+        out = bundle.teacher(frozen, x, t, cond)
+        ours = bundle.teacher(loaded, x, t, cond)
+    del frozen, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"teacher": teacher, "states_equal": equal, "unet_identical": torch.equal(out, ours),
+            "finite": bool(torch.isfinite(ours).all()), "write_s": write_s, "port_s": port_s,
+            "printed": res.stdout.strip().splitlines()[-1:],
+            "file_gib": os.path.getsize(teacher) / 2 ** 30}
+
+
+def _rows_of(out_dir: str) -> list:
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def train_prodigy(teacher: str, cache_dir: str, out_dir: str, seed: int) -> dict:
+    """Phase 25: ``python -m pcm_tpu_torch.train --recipe sd15_4phase`` on
+    phase 24's teacher and the phase-7 cache as a child process, batch 4,
+    ``--optimizer prodigy --learning-rate 1.0``, validation (two prompts)
+    and a checkpoint every 2 steps, 4 steps; then a rerun to 8 that resumes
+    at 4 and is SIGTERM'd after its step-5 row. Checks the grids' shapes,
+    ``prodigy_d``, the rerun's resume of Prodigy's state (its checkpoint's
+    ``p0`` equal to the step-4 one's bit for bit, its count the step it
+    stopped at) and the preempted row; returns the rows and the two
+    processes' launches."""
+    import numpy as np
+
+    from pcm_tpu_torch.data.native_image import decode_png
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = ["--recipe", "sd15_4phase", "--cached-latents-dir", cache_dir, "--output-dir",
+            out_dir, "--teacher-checkpoint", teacher, "--batch-size", "4", "--seed", str(seed),
+            "--log-every", "1", "--optimizer", "prodigy", "--learning-rate", "1.0",
+            "--validation-steps", "2", "--validation-prompts", *VALIDATION_PROMPTS,
+            "--checkpointing-steps", "2"]
+    first = _train_process(argv + ["--max-train-steps", "4"])
+    if first["rc"] != 0:
+        raise AssertionError(f"prodigy run: exit {first['rc']}:\n"
+                             + "\n".join(first["lines"][-30:]))
+    rows = _rows_of(out_dir)
+    grids = {}
+    for name in sorted(os.listdir(os.path.join(out_dir, "images", "validation"))):
+        with open(os.path.join(out_dir, "images", "validation", name), "rb") as f:
+            grids[name] = decode_png(f.read()).shape
+    second = _train_process(argv + ["--max-train-steps", "8"], stop_after_step=5)
+    rows2 = _rows_of(out_dir)[len(rows):]
+    stops = [r["step"] for r in rows2 if r.get("preempted")]
+    ck4 = torch.load(os.path.join(out_dir, "checkpoints", "step_0000004.pt"), map_location="cpu",
+                     weights_only=True)
+    stop = stops[0] if stops else None
+    resumed = None
+    if stop is not None:
+        ck = torch.load(os.path.join(out_dir, "checkpoints", f"step_{stop:07d}.pt"),
+                        map_location="cpu", weights_only=True)
+        resumed = {"count": ck["opt_state"]["count"],
+                   "p0_equal": all(torch.equal(ck["opt_state"]["p0"][k], v)
+                                   for k, v in ck4["opt_state"]["p0"].items()),
+                   "d": float(ck["opt_state"]["d"]), "d4": float(ck4["opt_state"]["d"])}
+    with open(os.path.join(out_dir, "launches.jsonl")) as f:
+        runs = [json.loads(line) for line in f]
+    counts = {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
+    steps = [r for r in rows if "loss" in r]
+    ms = {r["step"]: r["step_ms"] for r in steps}
+    after = [s + 1 for s in (2,) if s + 1 in ms]  # the step after each save within the run
+    steady = [ms[s] for s in ms if s > 1 and s not in after]
+    return {"rows": steps, "validation_s": [r["validation_s"] for r in rows
+                                           if "validation_s" in r],
+            "grids": grids, "prodigy_d": [r.get("prodigy_d") for r in steps],
+            "step_ms": ms, "after_save_ms": {s: ms[s] for s in after},
+            "steady_ms": statistics.median(steady) if steady else float("nan"),
+            **{k: [r[k] for r in steps] for k in ("save_s", "save_wait_s", "write_s")},
+            "peak_gib": max(r["peak_gib"] for r in rows if "peak_gib" in r),
+            "rerun_rc": second["rc"], "signalled": second["signalled"], "stop": stop,
+            "resumed": resumed, "resumed_line": any("resumed at step 4" in ln
+                                                    for ln in second["lines"]),
+            "counts": counts, "finite": all(np.isfinite(r["loss"]) for r in steps)}
+
+
+def _host(tree):
+    """A synchronous host copy of a nested dict of tensors and numbers."""
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    return tree
+
+
+def _same(a, b) -> bool:
+    """Equal trees: the same keys, and each leaf equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    return a == b
+
+
+def _saves_under_load(state, update, out_dir: str, saves: int) -> dict:
+    """A `Trainer` holding ``state`` on the card saves ``saves`` times through
+    its pinned twin and writer thread. Before each save about 0.3 s of
+    products keep the card busy, so that the save's non-blocking copies
+    queue behind them; right after it, three ``update(state, generator)``
+    steps are enqueued; a second save comes while the first file is being
+    written. The states saved are kept and read back at the end: each
+    checkpoint must equal its own bit for bit (a write that read the twin
+    before its copies landed, or while the next save's copies overwrote it,
+    would not)."""
+    from pcm_tpu_torch.train.loop import LoopConfig, Trainer
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    dev = torch.device("cuda")
+    tr = Trainer(LoopConfig(output_dir=out_dir, max_train_steps=0, resume=False,
+                            checkpoints_total_limit=None),
+                 None, state, None, None, None, dev)
+    tr._saved_state()  # the pinned twin, made as a run's first save makes it
+    a = torch.randn((8192, 8192), device=dev, dtype=torch.bfloat16)
+    b = torch.empty_like(a)
+    paths, held, save_s = [], [], []
+    for _ in range(saves):
+        tr.global_step += 1
+        held.append((tr.state, tr.generator.get_state()))
+        for _ in range(200):
+            torch.mm(a, a, out=b)
+        t0 = time.perf_counter()
+        paths.append(tr.save())
+        save_s.append(time.perf_counter() - t0)
+        for _ in range(3):
+            tr.state = update(tr.state, tr.generator)
+    tr.writer.wait()
+    saves = []
+    for i, (path, (st, gen_state)) in enumerate(zip(paths, held)):
+        got = torch.load(path, map_location="cpu", weights_only=True)
+        want = {"lora": _host(st.params), "opt_state": _host(st.opt_state),
+                "generator": gen_state, "lora_step": st.step}
+        saves.append({"save_s": save_s[i], "step": got["step"] == i + 1,
+                      "equal": {k: _same(got[k], v) for k, v in want.items()}})
+    res = {"saves": saves, "moved": not _same(_host(tr.state.params), _host(held[-1][0].params)),
+           "write_s": tr.writer.seconds}
+    del tr, held, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def save_order(ck_path: str, out_dir: str) -> dict:
+    """Phase 25b: `_saves_under_load` once on the LoRA and Prodigy state of
+    ``ck_path`` (phase 25's step 4, ~2800 tensors) with Prodigy updates on
+    gradients drawn from the trainer's generator, and twice on two 256-MiB
+    tensors: the stream's queue holds their copies whole, so the writer
+    starts while they still wait behind the products (~2800 copies fill
+    the queue, and the step thread waits for the card until they land).
+    One save of the Prodigy state keeps the smoke's disk writes low."""
+    from pcm_tpu_torch.train.state import TrainState, apply_updates, make_optimizer
+
+    dev = torch.device("cuda")
+    ck = torch.load(ck_path, map_location=dev, weights_only=True)
+    tx = make_optimizer(1.0, optimizer="prodigy")
+
+    def prodigy(st, gen):
+        return apply_updates(st, {k: 1e-3 * torch.randn(p.shape, generator=gen, device=dev)
+                                  for k, p in st.params.items()}, tx)
+
+    def shift(st, gen):
+        return TrainState(st.step + 1, {k: p + torch.randn(p.shape, generator=gen, device=dev)
+                                        for k, p in st.params.items()}, st.opt_state)
+
+    res = {"prodigy": _saves_under_load(
+               TrainState(int(ck["lora_step"]), ck["lora"], ck["opt_state"]), prodigy,
+               os.path.join(out_dir, "prodigy"), saves=1),
+           "tensors": len(ck["lora"]) + sum(len(v) if isinstance(v, dict) else 1
+                                            for v in ck["opt_state"].values())}
+    del ck
+    big = {"big.lora_a": torch.randn((64, 1 << 20), device=dev),
+           "big.lora_b": torch.randn((1 << 20, 64), device=dev)}
+    res["large"] = _saves_under_load(TrainState(0, big, {"count": 0}), shift,
+                                     os.path.join(out_dir, "large"), saves=2)
+    return res
+
+
+def generate_phase(teacher: str, lora: str, out_dir: str, seed: int) -> dict:
+    """Phase 26: ``python -m pcm_tpu_torch.generate``'s ``main`` on phase 24's
+    teacher, batch 4 (four prompts), 4 steps: the phase-25 step-4 LoRA with
+    ``--scheduler tcd`` (twice: the PNG bytes) and ``ddim``, and the teacher
+    at ``--cfg 7.5`` (K5); each one's steady batch latency (median of 3
+    synchronized calls after ``main``'s), and, launches aside, its final
+    latents with the kernels against all plain versions beside the
+    yardstick (the all-plain run from noise scaled by 1 + 2**-8)."""
+    from pcm_tpu_torch import generate
+    from pcm_tpu_torch.ops import launch_counts, reference_ops, reset_launch_counts
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    base = ["--family", "sd15", "--teacher-checkpoint", teacher, "--prompt", *GENERATE_PROMPTS,
+            "--steps", "4", "--seed", str(seed)]
+    configs = {"tcd": ["--lora", lora, "--scheduler", "tcd"],
+               "ddim": ["--lora", lora, "--scheduler", "ddim"], "teacher": ["--cfg", "7.5"]}
+    res = {"counts": {}, "configs": {}}
+
+    def add(counts):
+        for k, v in counts.items():
+            res["counts"][k] = res["counts"].get(k, 0) + v
+
+    for name, extra in configs.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        out = os.path.join(out_dir, name + ".png")
+        reset_launch_counts()
+        r = generate.main(base + extra + ["--out", out])
+        built, args = r["built"], r["args"]
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            generate.generate(built, args)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1000.0)
+        files = generate.output_paths(out, len(GENERATE_PROMPTS))
+        first = [open(p, "rb").read() for p in files]
+        same = None
+        if name == "tcd":
+            generate.main(base + extra + ["--out", out])
+            same = [open(p, "rb").read() for p in files] == first
+        counts = launch_counts()
+        add(counts)
+        with torch.inference_mode():
+            lat = generate.generate(built, args, decode=False)
+            init, gens = generate.noise(built, args)
+            with reference_ops():
+                ref = generate.generate(built, args, False, (init, gens))
+                init, gens = generate.noise(built, args)
+                nudged = generate.generate(built, args, False, (init * (1 + 2 ** -8), gens))
+        reset_launch_counts()
+        res["configs"][name] = {
+            "main_ms": r["ms"], "ms": ms, "same_bytes": same, "counts": counts,
+            "all": (rel_max(lat, ref), rel_l2(lat, ref)),
+            "noise": (rel_max(nudged, ref), rel_l2(nudged, ref)),
+            "finite": bool(torch.isfinite(lat).all()), "png_bytes": [len(b) for b in first]}
+        del built, r
+    return res
+
+
+def hub_phases(seed: int) -> list:
+    """Phases 24-26, each checked; returns the runs whose launches count."""
+    root = "build/chip_smoke"
+    pw = port_hub_weights(seed, os.path.join(root, "hub_sd15"))
+    log("port-weights", states_equal=pw["states_equal"], unet_identical=pw["unet_identical"],
+        write_s=f"{pw['write_s']:.2f}", port_s=f"{pw['port_s']:.2f}",
+        file_gib=f"{pw['file_gib']:.3f}", printed=repr(pw["printed"]))
+    if not (pw["states_equal"] and pw["unet_identical"] and pw["finite"]):
+        raise AssertionError(f"hub weights through port_weights: {pw}")
+
+    tp = train_prodigy(pw["teacher"], os.path.join(root, "cache"),
+                       os.path.join(root, "train_prodigy"), seed)
+    log("train-prodigy", losses=json.dumps([round(r["loss"], 6) for r in tp["rows"]]),
+        prodigy_d=json.dumps(tp["prodigy_d"]),
+        step_ms=json.dumps({k: round(v, 1) for k, v in tp["step_ms"].items()}),
+        after_save_ms=json.dumps({k: round(v, 1) for k, v in tp["after_save_ms"].items()}),
+        steady_ms=f"{tp['steady_ms']:.1f}",
+        **{k: json.dumps([round(x, 4) for x in tp[k]]) for k in ("save_s", "save_wait_s",
+                                                                 "write_s")},
+        validation_s=json.dumps([round(x, 3) for x in tp["validation_s"]]),
+        peak_gib=f"{tp['peak_gib']:.3f}", grids=json.dumps(tp["grids"]),
+        stop=tp["stop"], resumed=json.dumps(tp["resumed"]), counts=json.dumps(tp["counts"]))
+    grid = (2 * 512, 4 * 512, 3)
+    if not (tp["finite"] and tp["grids"] == {f"cfg{g}_{s:07d}.png": grid for g in ("1", "7.5")
+                                              for s in (2, 4)}
+            and all(d is not None and math.isfinite(d) for d in tp["prodigy_d"])
+            and len(tp["rows"]) == 4 and tp["rerun_rc"] == 0 and tp["signalled"]
+            and tp["resumed_line"] and tp["stop"] in (5, 6, 7) and tp["resumed"] is not None
+            and tp["resumed"]["p0_equal"] and tp["resumed"]["count"] == tp["stop"]
+            and tp["resumed"]["d"] >= tp["resumed"]["d4"]
+            and all(tp["counts"][k] > 0 for k in ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                                                  "flash_attention_bwd_dq", "group_norm_silu",
+                                                  "geglu"))):
+        raise AssertionError(f"Prodigy training with validation: {tp}")
+
+    so = save_order(os.path.join(root, "train_prodigy", "checkpoints", "step_0000004.pt"),
+                    os.path.join(root, "save_order"))
+    log("save-order", tensors=so["tensors"], **{k: json.dumps(so[k]) for k in ("prodigy", "large")})
+    if not all(r["moved"] and all(all(v["equal"].values()) and v["step"] for v in r["saves"])
+               for r in (so["prodigy"], so["large"])):
+        raise AssertionError(f"asynchronous save of the step's state: {so}")
+
+    lora = os.path.join(root, "train_prodigy", "pcm_lora_0000004.safetensors")
+    gp = generate_phase(pw["teacher"], lora, os.path.join(root, "generate"), seed)
+    for name, c in gp["configs"].items():
+        log("generate", config=name, batch=len(GENERATE_PROMPTS), steps=4,
+            batch_ms=json.dumps([round(x, 1) for x in c["ms"]]), main_ms=f"{c['main_ms']:.1f}",
+            **{k: "%.3e/%.3e" % c[k] for k in ("all", "noise")}, bounds="max(2e-2,2*noise)",
+            same_png_bytes=c["same_bytes"], counts=json.dumps(c["counts"]))
+        caps = [max(2e-2, 2 * n) for n in c["noise"]]
+        if not (c["finite"] and all(e <= cap for e, cap in zip(c["all"], caps))
+                and c["counts"]["flash_attention_fwd"] > 0 and c["counts"]["group_norm_silu"] > 0
+                and (name != "teacher" or c["counts"]["geglu"] > 0)
+                and (name != "tcd" or c["same_bytes"])):
+            raise AssertionError(f"generate {name}: {c}")
+    return [tp, gp]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
@@ -2424,6 +2819,11 @@ def main() -> int:
 
     xl_runs = sdxl_phases(args.seed, gen)
     sd3_runs = sd3_phases(args.seed, gen)
+    hub_runs = hub_phases(args.seed)
+
+    retained = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk("build/chip_smoke") for f in fs)
+    log("disk", build_chip_smoke_gib=f"{retained / 2**30:.2f}", limit="45 GiB written a call")
 
     kernels["int8_matmul"] = k6
     sources = {"flash_attention_fwd": ("pcm_tpu_torch/csrc/flash_attention.cu",
@@ -2437,7 +2837,7 @@ def main() -> int:
                "geglu": ("pcm_tpu_torch/csrc/geglu.cu", "pcm_tpu/ops/geglu.py:47"),
                "int8_matmul": ("pcm_tpu_torch/csrc/int8_matmul.cu",
                                "pcm_tpu/ops/int8_matmul.py:56")}
-    runs = (s, tr, ti, sx, *adv_runs, enc, px, sl, *xl_runs, *sd3_runs)
+    runs = (s, tr, ti, sx, *adv_runs, enc, px, sl, *xl_runs, *sd3_runs, *hub_runs)
     launches = {k: sum(run["counts"][k] for run in runs) for k in sources}
     kernels["group_norm_silu"]["fp32_launches"] = sum(
         run["counts"]["group_norm_silu_fp32"] for run in runs)

@@ -5,10 +5,13 @@ Two decoders, one contract: ``load_resized(path, res)`` returns an (H, W, 3)
 uint8 RGB array whose shortest side is ``res`` (the longer one
 ``max(res, round(side * res / shortest))``), unchanged when already there.
 
-- ``native``: the port's own ctypes binding of ``native/libimage_pipe.so``
-  (JPEG/PNG/WebP, the C call releases the GIL; built with ``make -C native
-  libimage_pipe.so`` at first use, which needs the libjpeg, libpng and libwebp
-  headers).
+- ``native``: the port's own ctypes binding of ``native/image_pipe.cpp``
+  (JPEG/PNG/WebP, the C call releases the GIL), built at first use with
+  ``g++`` into ``build/pcm_tpu_torch/native/<source hash>/libimage_pipe.so``
+  (`native_library`), which needs the libjpeg, libpng and libwebp headers.
+  The build runs under a lock file shared by every process and writes a
+  temporary name that it renames, so no process loads a half-written
+  library.
 - ``numpy``: a decoder of 8-bit PNGs (gray, gray+alpha, RGB, RGBA, palette;
   not interlaced) on the standard library's ``zlib``, whose Average and
   Paeth rows, sequential along a row, are undone a diagonal of the image
@@ -26,8 +29,11 @@ uint8 RGB array whose shortest side is ``res`` (the longer one
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
+import hashlib
 import os
 import struct
 import subprocess
@@ -37,14 +43,68 @@ from typing import Optional
 
 import numpy as np
 
-NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "native")
-_LIB_PATH = os.path.join(NATIVE_DIR, "libimage_pipe.so")
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+NATIVE_DIR = os.path.join(_REPO, "native")
+BUILD_DIR = os.path.join(_REPO, "build", "pcm_tpu_torch", "native")
+# the flags of `native/Makefile`'s libimage_pipe.so
+CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-shared")
+LIBS = ("-ljpeg", "-lpng", "-lwebp")
 NATIVE_EXTS = (".jpg", ".jpeg", ".png", ".webp")
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 
 _lock = threading.Lock()
 _lib = None
 _load_error: Optional[str] = None
+
+
+def native_library() -> str:
+    """The path of the library built from the checkout's ``image_pipe.cpp``:
+    a directory a source and flags hash, so an edit builds anew."""
+    source = os.path.join(NATIVE_DIR, "image_pipe.cpp")
+    h = hashlib.sha256(" ".join(CXX_FLAGS + LIBS).encode())
+    with open(source, "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, h.hexdigest()[:16], "libimage_pipe.so")
+
+
+@contextlib.contextmanager
+def _build_lock(path: str):
+    """An exclusive lock on ``<dir of path>/lock``, across processes."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(os.path.join(os.path.dirname(path), "lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def build_native(path: str) -> None:
+    """Compile ``image_pipe.cpp`` to ``path`` unless it exists: ``g++`` to a
+    temporary name, then a rename, under the lock."""
+    with _build_lock(path):
+        if os.path.exists(path):
+            return
+        tmp = f"{path}.{os.getpid()}.tmp"
+        try:
+            subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, os.path.join(NATIVE_DIR,
+                                                                      "image_pipe.cpp"), *LIBS],
+                           check=True, capture_output=True, text=True)
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+
+
+def _load(path: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(path)
+    lib.ip_load_resized.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.POINTER(ctypes.POINTER(ctypes.c_ubyte)),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.ip_load_resized.restype = ctypes.c_int
+    lib.ip_free.argtypes = [ctypes.POINTER(ctypes.c_ubyte)]
+    lib.ip_free.restype = None
+    return lib
 
 
 def _get_lib():
@@ -54,22 +114,18 @@ def _get_lib():
     with _lock:
         if _lib is not None or _load_error is not None:
             return _lib
+        path = native_library()
         try:
-            if not os.path.exists(_LIB_PATH):
-                subprocess.run(["make", "-C", NATIVE_DIR, "libimage_pipe.so"], check=True,
-                               capture_output=True, text=True)
-            lib = ctypes.CDLL(_LIB_PATH)
-            lib.ip_load_resized.argtypes = [
-                ctypes.c_char_p, ctypes.c_int, ctypes.POINTER(ctypes.POINTER(ctypes.c_ubyte)),
-                ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
-            lib.ip_load_resized.restype = ctypes.c_int
-            lib.ip_free.argtypes = [ctypes.POINTER(ctypes.c_ubyte)]
-            lib.ip_free.restype = None
-            _lib = lib
+            build_native(path)
+            try:
+                _lib = _load(path)
+            except OSError:  # once more, with no build of another process under way
+                with _build_lock(path):
+                    _lib = _load(path)
         except subprocess.CalledProcessError as e:
-            _load_error = f"make libimage_pipe.so failed: {(e.stderr or '').strip()[-300:]}"
+            _load_error = f"g++ libimage_pipe.so failed: {(e.stderr or '').strip()[-300:]}"
         except OSError as e:
-            _load_error = f"libimage_pipe.so did not load: {e}"
+            _load_error = f"libimage_pipe.so did not build or load: {e}"
     return _lib
 
 

@@ -83,8 +83,10 @@ def from_kohya_state_dict(state: Mapping[str, np.ndarray], template: Mapping[str
 
 def save_kohya_safetensors(path: str, adapter: Mapping[str, object], alpha: float,
                            dtype=np.float16, prefix: str = "lora_unet") -> None:
+    """Write ``adapter`` as a kohya file of ``dtype`` factors (cast by torch)."""
+    to = torch.from_numpy(np.empty(0, dtype)).dtype
     sd = to_kohya_state_dict(adapter, alpha, prefix)
-    safetensors.save_file({k: v.astype(dtype) for k, v in sd.items()}, path)
+    safetensors.save_file({k: torch.from_numpy(v).to(to).numpy() for k, v in sd.items()}, path)
 
 
 def load_kohya_safetensors(path: str, template: Mapping[str, torch.Tensor], rank: int,

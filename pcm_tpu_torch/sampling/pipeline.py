@@ -3,8 +3,8 @@
 Text encode, k backbone forwards (UNet or MMDiT) with optional
 classifier-free guidance (cond and uncond batched into one forward, every
 leaf of the cond tree: SDXL's ``added_cond`` and SD3's ``pooled`` too),
-sampler steps (trailing DDIM, or PCM-FM for SD3, whose stochastic variant
-takes its fresh noise from the caller), VAE decode. Runs under
+sampler steps (trailing DDIM or TCD, or PCM-FM for SD3; TCD and PCM-FM's
+stochastic variant take their fresh noise from the caller), VAE decode. Runs under
 ``torch.inference_mode()``. On a CUDA device every GroupNorm, attention and
 (teacher UNet) GEGLU goes through the port's kernels.
 """
@@ -19,23 +19,25 @@ import torch
 from ..lora.layers import LoRA
 from ..train.distill import _merge_cond
 
-
 @dataclasses.dataclass(frozen=True)
 class TextToImagePipeline:
     bundle: Any  # SD15Bundle | SDXLBundle | SD3Bundle
-    sampler: Any  # DDIMSampler | PCMFMSampler
+    sampler: Any  # DDIMSampler | TCDSampler | PCMFMSampler
 
     @torch.inference_mode()
     def generate(self, frozen: Dict[str, Any], lora: LoRA, cond: Dict[str, Any],
                  uncond: Optional[Dict[str, Any]], init_latents: torch.Tensor,
                  guidance_scale: float = 1.0, decode_chunk: Optional[int] = None,
-                 renoise: Optional[Sequence[torch.Generator]] = None) -> torch.Tensor:
+                 renoise: Optional[Sequence[torch.Generator]] = None,
+                 decode: bool = True) -> torch.Tensor:
         """cond/uncond from ``bundle.encode_prompts``, starting noise
         ``init_latents`` (N, h, w, C); returns (N, H, W, 3) images in [-1, 1],
-        decoded ``decode_chunk`` samples at a time (None: the batch). The
+        decoded ``decode_chunk`` samples at a time (None: the batch), or with
+        ``decode=False`` the final (N, h, w, C) latents. The
         caller draws the noise (the engine: one generator per request seed),
-        and a stochastic sampler's fresh noise of each step from ``renoise``:
-        one generator per row, so a row's draws do not depend on the batch."""
+        and a stochastic sampler's (PCM-FM's stochastic variant, TCD) fresh
+        noise of each step from ``renoise``: one generator per row, so a row's
+        draws do not depend on the batch."""
         bundle, sampler = self.bundle, self.sampler
         device = cond["prompt_embeds"].device
         latents = init_latents.float()
@@ -63,4 +65,6 @@ class TextToImagePipeline:
             else:
                 model_output = model_fn(latents, t)
             latents = sampler.step(model_output, i, latents, renoise)
+        if not decode:
+            return latents
         return bundle.decode_latents(frozen, latents, decode_chunk)

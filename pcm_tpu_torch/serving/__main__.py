@@ -38,51 +38,10 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Optional
 
 import torch
 
-# family -> (default resolution, token keys), as `scripts/serve.py:66-75`
-FAMILIES = {"sd15": (512, ["input_ids"]), "sdxl": (1024, ["input_ids", "input_ids_2"]),
-            "sd3": (1024, ["input_ids", "input_ids_2", "input_ids_3"])}
-# the SD3 sampler's grid: the 100 solver steps the SD3 recipes train on (as
-# `bench.py:build_infer` and `scripts/generate.py` sample; `scripts/serve.py`
-# takes the sampler's default of 50, whose 4-step sigmas miss a 4-phase
-# student's boundaries)
-SD3_PCM_TIMESTEPS = 100
-
-
-def decode_chunk(resolution: int) -> Optional[int]:
-    """Samples a VAE decode call: one at >= 1024 px, else the batch. The
-    reference decodes in chunks of 2 there when the batch is above 4
-    (`scripts/serve.py:127`, for memory). On the H100 the decoder's cuDNN
-    convolutions at 1024 px round a sample differently by its position in
-    the batch, so one sample a call keeps a request's image the same in any
-    batch (and holds less memory than 2)."""
-    return 1 if resolution >= 1024 else None
-
-
-def sd3_lora_targets(path: str, tiny: bool = False) -> dict:
-    """The `sd3_bundle` keywords of the LoRA target list whose layers the
-    kohya file at ``path`` holds, each layer of it and no other: the base
-    list ``{}``, the adversarial one (with ``pos_embed.proj``) or the
-    stochastic-adversarial one (without it). Raises ValueError for a file
-    that matches none of the three."""
-    from ..configs.families import sd3_bundle
-    from ..lora.kohya import kohya_key, kohya_layers
-    from ..lora.layers import lora_shapes
-    from ..utils.safetensors import read_header
-
-    held = set(kohya_layers(read_header(path)))
-    for kw in ({}, {"adv_targets": True}, {"adv_targets": True, "stochastic": True}):
-        bundle = sd3_bundle(tiny=tiny, **kw)
-        meta = bundle.build(torch.device("meta"), ("mmdit",))["mmdit"]
-        layers = {kohya_key(k[:-len(".lora_a")], bundle.KOHYA_PREFIX)
-                  for k in lora_shapes(meta, bundle.lora.rank) if k.endswith(".lora_a")}
-        if layers == held:
-            return kw
-    raise ValueError(f"--lora {path}: its {len(held)} layers are none of the SD3 target lists "
-                     "(base, adversarial, stochastic-adversarial) under 'lora_transformer'")
+from ..configs.families import FAMILIES, SD3_PCM_TIMESTEPS, decode_chunk, sd3_lora_targets
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -25,31 +25,16 @@ import collections
 import json
 import os
 import queue
-import struct
 import threading
 import time
-import zlib
 from concurrent.futures import Future
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 import numpy as np
 
+from ..utils.png import png_bytes
 from .engine import InferenceEngine
-
-
-def png_bytes(img: np.ndarray) -> bytes:
-    """Encode an (H, W, 3) uint8 image as PNG (8-bit RGB, no filtering)."""
-    h, w, _ = img.shape
-    raw = b"".join(b"\x00" + img[r].tobytes() for r in range(h))
-
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        body = kind + data
-        return struct.pack(">I", len(data)) + body + struct.pack(">I", zlib.crc32(body))
-
-    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
-            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
 class _Pending:

@@ -50,7 +50,27 @@ mode). A run resumes from the newest checkpoint in ``--output-dir`` unless
 ``lora_transformer``, the others' under ``lora_unet``); SIGTERM or SIGINT
 ends the run after the step in flight with both, and a rerun resumes there.
 Each run appends the kernels' launch counts of its process to
-``<output-dir>/launches.jsonl``.
+``<output-dir>/launches.jsonl``. Saves are written by a thread of their own
+(`train/loop.py`).
+
+Every ``--validation-steps`` global steps (500; 0: none) the student
+samples 4 images of each ``--validation-prompts`` prompt (the reference's
+four by default) at the recipe's ``multiphase`` steps, with DDIM at
+guidance 1 and 7.5 for SD1.5 and SDXL, or PCM-FM on the flow schedule at
+shift 3 and the recipe's solver grid at 1.5 for SD3 (uncond: the empty
+prompt, used above guidance 1), each prompt's noise from a generator of its
+own seeded from (``--seed``, the prompt's index); the grids go to
+``<output-dir>/images/validation/cfg<g>_<step>.png``, at the cache's latent
+size on cached latents, decoded a sample a call at >= 1024 px. A run in
+which no validation step falls (``--validation-steps`` above
+``--max-train-steps``) sets none up. The prompts are encoded once at set-up;
+on cached latents SDXL and SD3 then free their towers (SDXL builds its
+towers and VAE, SD3 its VAE, only for validation), and
+``--offload-encoders`` also drops the VAE (and SD1.5's tower) from the
+card, keeping a host copy of the VAE that each validation call moves to
+the card and back. ``--optimizer prodigy`` trains the LoRA with Prodigy
+(`train/prodigy.py`; lr about 1.0, no schedule; ``prodigy_d`` in the
+metrics).
 
 ``--frozen-weights int8`` stores the frozen UNet and text weights as int8
 codes with per-channel scales (`utils/quant.py`); ``--int8-matmul`` then
@@ -67,10 +87,85 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 
 import torch
 
 NOT_PORTED = "not yet ported to pcm_tpu_torch"
+# the reference's validation prompts (`scripts/train.py:153-158`)
+VALIDATION_PROMPTS = [
+    "portrait photo of a girl, photograph, highly detailed face, depth of field",
+    "Self-portrait oil painting, a beautiful cyborg with golden hair, 8k",
+    "Astronaut in a jungle, cold color palette, muted colors, detailed, 8k",
+    "A photo of beautiful mountain with realistic sunset and blue lake, highly detailed, "
+    "masterpiece",
+]
+VALIDATION_IMAGES = 4  # a prompt (`scripts/train.py:469`)
+
+
+def validation_setup(bundle, recipe, frozen, toks, prompts, latent_hw: int, device) -> dict:
+    """What each validation call needs, encoded once at set-up
+    (`scripts/train.py:459-520`): the sampler (DDIM at the recipe's
+    ``multiphase`` steps; SD3: PCM-FM on the flow schedule at shift 3 and the
+    recipe's solver grid), the guidance scales, each prompt's cond and the
+    empty prompt's uncond, tiled to `VALIDATION_IMAGES` rows."""
+    from ..core.schedule import make_ddpm_schedule, make_flow_schedule
+    from ..sampling.ddim import DDIMSampler
+    from ..sampling.pcm_fm import PCMFMSampler
+    from ..configs.families import decode_chunk
+    from ..serving.engine import make_prompt_encoder
+
+    k, n = recipe.distill.multiphase, VALIDATION_IMAGES
+    if recipe.family == "sd3":
+        sampler = PCMFMSampler.create(make_flow_schedule(shift=3.0), k,
+                                      recipe.distill.num_solver_steps)
+        scales = (1.5,)
+    else:
+        sampler = DDIMSampler.create(make_ddpm_schedule(), k)
+        scales = (1.0, 7.5)
+    res = latent_hw * bundle.vae_scale
+    encode = make_prompt_encoder(bundle, toks, frozen, device, res)
+    return {"sampler": sampler, "scales": scales, "conds": [encode([p] * n) for p in prompts],
+            "uncond": encode([""] * n), "latents": (n, latent_hw, latent_hw,
+                                                    bundle.latent_channels),
+            "decode_chunk": decode_chunk(res)}
+
+
+def validation_seed(seed: int, prompt_index: int) -> int:
+    """The seed of a prompt's validation noise: (``--seed``, its index)."""
+    return (seed * 1000003 + 1000 * prompt_index) % 2 ** 63
+
+
+def validation_fn(bundle, setup: dict, seed: int, device, vae_host=None):
+    """``validation_fn(frozen, lora, step) -> {"cfg<g>": images}``: each
+    prompt's `VALIDATION_IMAGES` samples at each guidance scale, concatenated
+    in prompt order. ``vae_host``: the offloaded VAE, moved to the card for
+    the call and back."""
+    from ..sampling.pipeline import TextToImagePipeline
+
+    pipe = TextToImagePipeline(bundle, setup["sampler"])
+
+    def validate(frozen, lora, step):
+        modules = dict(frozen)
+        if vae_host is not None:
+            modules["vae"] = vae_host.to(device)
+        try:
+            out = {}
+            for g in setup["scales"]:
+                images = []
+                for i, cond in enumerate(setup["conds"]):
+                    gen = torch.Generator(device).manual_seed(validation_seed(seed, i))
+                    init = torch.randn(setup["latents"], generator=gen, device=device)
+                    images.append(pipe.generate(
+                        modules, lora, cond, setup["uncond"] if g > 1 else None, init, g,
+                        setup["decode_chunk"]).float().cpu())
+                out[f"cfg{g:g}"] = torch.cat(images)
+            return out
+        finally:
+            if vae_host is not None:
+                vae_host.to("cpu")
+
+    return validate
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -110,7 +205,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gradient-accumulation-steps", type=int, default=1)
     ap.add_argument("--use-8bit-adam", action="store_true",
                     help="blockwise int8 Adam moments")
-    ap.add_argument("--optimizer", default="adamw", choices=["adamw", "prodigy"])
+    ap.add_argument("--optimizer", default="adamw", choices=["adamw", "prodigy"],
+                    help="student optimizer; prodigy is parameter-free: pair it with "
+                         "--learning-rate 1.0")
     ap.add_argument("--checkpointing-steps", type=int, default=500)
     ap.add_argument("--checkpoints-total-limit", type=int, default=5)
     ap.add_argument("--log-every", type=int, default=10,
@@ -131,10 +228,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "alternating; fused = one batch feeds one D and one G update "
                          "(counts as 2 steps)")
     ap.add_argument("--split-d", action="store_true", help="(" + NOT_PORTED + ")")
-    ap.add_argument("--validation-steps", type=int, default=0,
-                    help="validation image grids (" + NOT_PORTED + ")")
-    ap.add_argument("--validation-prompts", nargs="*", default=None,
-                    help="(" + NOT_PORTED + ")")
+    ap.add_argument("--validation-steps", type=int, default=500,
+                    help="validation image grids every N global steps (0: none)")
+    ap.add_argument("--validation-prompts", nargs="*", default=VALIDATION_PROMPTS)
+    ap.add_argument("--offload-encoders", action="store_true",
+                    help="(cached latents) after the set-up encodes, drop the VAE and the text "
+                         "towers from the card; validation moves a host copy of the VAE to the "
+                         "card for each call")
     ap.add_argument("--tiny", action="store_true", help="tiny-model smoke mode")
     ap.add_argument("--device", default="cuda")
     return ap
@@ -156,15 +256,17 @@ def main(argv=None):
         ap.error(f"--frozen-weights int8 with an SD3 recipe is {NOT_PORTED} (bf16)")
     if recipe.adversarial and args.frozen_weights == "int8":
         ap.error(f"--frozen-weights int8 with an adversarial recipe is {NOT_PORTED}")
-    if args.optimizer == "prodigy":
-        ap.error(f"--optimizer prodigy is {NOT_PORTED}")
+    if args.optimizer == "prodigy" and (args.lr_scheduler != "constant" or args.lr_warmup_steps):
+        ap.error("--optimizer prodigy takes no learning-rate schedule (it adapts its own step, "
+                 "as `pcm_tpu/train/state.py:make_optimizer` builds it)")
     if args.int8_matmul and args.frozen_weights != "int8":
         ap.error(f"--int8-matmul {args.int8_matmul} requires --frozen-weights int8 (it "
                  "quantizes activations against int8 weights)")
-    if args.validation_steps or args.validation_prompts:
-        ap.error(f"validation grids are {NOT_PORTED}")
     if bool(args.cached_latents_dir) == bool(args.train_data_dir):
         ap.error("pass one of --train-data-dir / --cached-latents-dir")
+    if args.offload_encoders and not args.cached_latents_dir:
+        ap.error("--offload-encoders requires --cached-latents-dir (the train step must not "
+                 "need the encoder towers)")
     if args.train_data_dir and not (args.tokenizer_dir or args.allow_hash_tokenizer
                                     or args.tiny):
         ap.error("no tokenizer for the captions: pass --tokenizer-dir, or "
@@ -184,6 +286,7 @@ def main(argv=None):
     from ..ops import launch_counts, reset_launch_counts
     from ..utils.quant import int8_matmul, quantize_frozen
     from .adv import AdvConfig, adv_offset_span, build_adv_train_step, init_discriminator
+    from .bundles import BACKBONES
     from .distill import build_ddim_distill_step
     from .loop import LoopConfig, Trainer
     from .state import TrainState, make_optimizer
@@ -209,18 +312,24 @@ def main(argv=None):
                                         seed=args.seed, crop="random" if sdxl else "center")
         except (FileNotFoundError, ValueError) as e:
             ap.error(str(e))
+    batch = args.batch_size or recipe.batch_per_chip
+    accum = args.gradient_accumulation_steps
+    max_steps = args.max_train_steps or recipe.max_steps
+    lr = args.learning_rate if args.learning_rate is not None else recipe.lr
+    validate = bool(args.validation_prompts) and 0 < args.validation_steps <= max_steps
     # SD3 encodes the empty prompt through its three towers on caches too
     tok_keys = (["input_ids", "input_ids_2", "input_ids_3"] if sd3
-                else ["input_ids", "input_ids_2"] if sdxl and args.train_data_dir
+                else ["input_ids", "input_ids_2"] if sdxl and (args.train_data_dir or validate)
                 else ["input_ids"])
     try:
         toks = resolve_tokenizers(args.tokenizer_dir, tok_keys)
     except (FileNotFoundError, OSError) as e:
         ap.error(str(e))
-    batch = args.batch_size or recipe.batch_per_chip
-    accum = args.gradient_accumulation_steps
-    max_steps = args.max_train_steps or recipe.max_steps
-    lr = args.learning_rate if args.learning_rate is not None else recipe.lr
+    if args.optimizer == "prodigy":  # the reference's warnings (`scripts/train.py:293-298`)
+        if args.use_8bit_adam:
+            print("warning: --use-8bit-adam is ignored with --optimizer prodigy", file=sys.stderr)
+        if lr <= 0.1:
+            print("warning: with prodigy set the learning rate around 1.0", file=sys.stderr)
 
     dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
     kw = dict(dtype=dtype, tiny=args.tiny, remat=args.remat == "full")
@@ -234,9 +343,11 @@ def main(argv=None):
         bundle = dataclasses.replace(bundle, vae_encode_chunk=chunk)
     gen = torch.Generator(device).manual_seed(args.seed)
     # on cached latents SDXL needs the UNet alone and SD3 the MMDiT and, for the
-    # uncond encode, its towers (each module draws the whole bundle's weights:
-    # the others draw from streams of their own)
-    cached_modules = {"sdxl": ("unet",), "sd3": ("mmdit", "text", "text2", "t5")}
+    # uncond encode, its towers; validation adds the towers and the VAE (each
+    # module draws the whole bundle's weights: the others draw from streams of
+    # their own)
+    cached_modules = {"sdxl": ("unet",) + (("vae", "text", "text2") if validate else ()),
+                      "sd3": ("mmdit", "text", "text2", "t5") + (("vae",) if validate else ())}
     if args.cached_latents_dir and family in cached_modules:
         frozen, lora = bundle.init(gen, device, modules=cached_modules[family])
     else:
@@ -256,7 +367,7 @@ def main(argv=None):
 
     tx = make_optimizer(lr, max_grad_norm=1.0, use_8bit=args.use_8bit_adam,
                         warmup_steps=args.lr_warmup_steps, schedule=args.lr_scheduler,
-                        total_steps=max_steps)
+                        total_steps=max_steps, optimizer=args.optimizer)
     state = TrainState.create(lora, tx)
 
     proc_batch = batch * accum
@@ -268,17 +379,31 @@ def main(argv=None):
         extra["uncond_embeds"] = uncond["prompt_embeds"]
         if sd3:
             extra["uncond_pooled"] = uncond["pooled"]
-            if args.cached_latents_dir:  # the towers' one use on caches (T5-XXL: 9.5 GB)
-                frozen = {"mmdit": frozen["mmdit"]}
-                if device.type == "cuda":
-                    torch.cuda.empty_cache()
+    validation = None
+    if validate:
+        latent_hw = (ds.get(0)["latents"].shape[0] if args.cached_latents_dir
+                     else res // bundle.vae_scale)
+        validation = validation_setup(bundle, recipe, frozen, toks, args.validation_prompts,
+                                      latent_hw, device)
+    # on caches the step needs the backbone alone: SDXL and SD3 free their
+    # towers after the set-up encodes (T5-XXL: 9.5 GB), --offload-encoders
+    # every module but the backbone, keeping a host copy of the VAE
+    vae_host = None
+    if args.offload_encoders and "vae" in frozen:
+        vae_host = frozen["vae"].to("cpu")
+    if args.cached_latents_dir and (args.offload_encoders or family != "sd15"):
+        keep = BACKBONES + (() if args.offload_encoders else ("vae",))
+        frozen = {k: m for k, m in frozen.items() if k in keep}
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
 
     loop_cfg = LoopConfig(output_dir=args.output_dir, max_train_steps=max_steps,
                           checkpointing_steps=args.checkpointing_steps,
                           checkpoints_total_limit=args.checkpoints_total_limit,
                           log_every=args.log_every, seed=args.seed, resume=not args.no_resume,
                           lora_alpha=bundle.lora.alpha if bundle.lora.alpha is not None
-                          else bundle.lora.rank, kohya_prefix=bundle.KOHYA_PREFIX)
+                          else bundle.lora.rank, kohya_prefix=bundle.KOHYA_PREFIX,
+                          validation_steps=args.validation_steps if validate else 0)
     schedule = make_flow_schedule(shift=3.0) if sd3 else make_ddpm_schedule()
     if recipe.adversarial:
         disc, d_params = init_discriminator(
@@ -300,8 +425,10 @@ def main(argv=None):
 
         trainer = Trainer(loop_cfg, frozen, state, step, distill_cfg, bundle.latents_like,
                           device, accum)
+    if validation is not None:
+        trainer.validation_fn = validation_fn(bundle, validation, args.seed, device, vae_host)
     print(f"# {args.recipe}: batch {batch} x accum {accum}, {max_steps} steps on {device}, "
-          f"{args.frozen_weights} frozen weights"
+          f"{args.frozen_weights} frozen weights, {args.optimizer}"
           + (f", {args.adv_pairing} adversarial pairing" if recipe.adversarial else "")
           + (f", int8 matmul {args.int8_matmul}" if args.int8_matmul else "")
           + (f", resumed at step {trainer.resumed_from}" if trainer.resumed_from else ""),

@@ -47,6 +47,16 @@ def global_norm(tree: Params) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree.values()))
 
 
+def clip_by_global_norm(grads: Params, max_norm: Optional[float]) -> Params:
+    """optax.clip_by_global_norm: ``g / norm * max_norm`` where ``norm >=
+    max_norm``, as a select on the device (None: unclipped)."""
+    if max_norm is None:
+        return grads
+    norm = global_norm(grads)
+    keep = norm < max_norm
+    return {k: torch.where(keep, g, (g / norm) * max_norm) for k, g in grads.items()}
+
+
 def bias_corrections(b1: float, b2: float, count: int) -> Tuple[float, float]:
     """Adam's ``1 - b**count`` in fp32, as optax computes them (host scalars:
     no device copy per parameter)."""
@@ -104,13 +114,7 @@ class AdamW:
         return {"count": 0, "mu": mu, "nu": nu}
 
     def clip(self, grads: Params) -> Params:
-        if self.max_grad_norm is None:
-            return grads
-        norm = global_norm(grads)
-        # optax: select(norm < max, g, g / norm * max), as a select on the device
-        keep = norm < self.max_grad_norm
-        return {k: torch.where(keep, g, (g / norm) * self.max_grad_norm)
-                for k, g in grads.items()}
+        return clip_by_global_norm(grads, self.max_grad_norm)
 
     def update(self, grads: Params, state: Dict[str, Any], params: Params
                ) -> Tuple[Params, Dict[str, Any]]:
@@ -137,10 +141,15 @@ def make_optimizer(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1
                    weight_decay: float = 0.0, max_grad_norm: Optional[float] = 1.0,
                    warmup_steps: int = 0, total_steps: Optional[int] = None,
                    schedule: str = "constant", use_8bit: bool = False,
-                   optimizer: str = "adamw") -> AdamW:
-    """AdamW + global-norm clipping, as `pcm_tpu.train.state.make_optimizer`."""
+                   optimizer: str = "adamw"):
+    """AdamW + global-norm clipping, as `pcm_tpu.train.state.make_optimizer`;
+    ``optimizer="prodigy"``: global-norm clipping + Prodigy at ``lr`` with
+    no schedule (`train/prodigy.py`; keep lr about 1.0)."""
     if optimizer == "prodigy":
-        raise NotImplementedError("--optimizer prodigy is not yet ported to pcm_tpu_torch")
+        from .prodigy import Prodigy
+
+        return Prodigy(lr, b1, b2, eps=eps, weight_decay=weight_decay,
+                       max_grad_norm=max_grad_norm)
     if optimizer != "adamw":
         raise ValueError(f"unsupported optimizer {optimizer!r} (adamw|prodigy)")
     return AdamW(lr_schedule(lr, warmup_steps, schedule, total_steps), b1, b2, eps,

@@ -77,14 +77,13 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
 
-    from pcm_tpu_torch.configs.families import (sd3_bundle, sd15_bundle,
-                                                sdxl_bundle)
+    from pcm_tpu_torch.configs.families import (FAMILIES, SD3_PCM_TIMESTEPS, decode_chunk,
+                                                sd3_bundle, sd15_bundle, sdxl_bundle)
     from pcm_tpu_torch.core.schedule import make_ddpm_schedule, make_flow_schedule
     from pcm_tpu_torch.data.tokenizer import resolve_tokenizers
     from pcm_tpu_torch.sampling.ddim import DDIMSampler
     from pcm_tpu_torch.sampling.pcm_fm import PCMFMSampler
     from pcm_tpu_torch.serving import EngineConfig, InferenceEngine
-    from pcm_tpu_torch.serving.__main__ import FAMILIES, SD3_PCM_TIMESTEPS, decode_chunk
     from pcm_tpu_torch.train.bundles import adapter_like
 
     dev = torch.device("cuda")

@@ -37,3 +37,12 @@ def test_no_jax_import(path):
 def test_the_check_sees_lazy_imports():
     code = "def f():\n    from pcm_tpu.data.tokenizer import resolve_tokenizers\n    import jax.numpy\n"
     assert {root for _, root in _imported_roots(ast.parse(code))} == {"pcm_tpu", "jax"}
+
+
+def test_the_new_entry_points_are_checked():
+    """The hub-weight converter, the generate CLI, Prodigy, the metrics logger
+    and the PNG writer are among the files the check parses."""
+    names = {str(p.relative_to(REPO)) for p in FILES}
+    assert {"pcm_tpu_torch/port_weights.py", "pcm_tpu_torch/generate.py",
+            "pcm_tpu_torch/train/prodigy.py", "pcm_tpu_torch/utils/logging.py",
+            "pcm_tpu_torch/utils/png.py"} <= names

@@ -422,7 +422,9 @@ def test_train_cli_runs_and_resumes(tmp_path, capsys):
     # the adversarial recipes (SD3's too) are ported, not on int8 frozen weights
     (["--recipe", "sd15_2phase_adv", "--frozen-weights", "int8"], "not yet ported"),
     (["--recipe", "sd3_2phase_adv", "--frozen-weights", "int8"], "not yet ported"),
-    (["--recipe", "sd15_4phase", "--optimizer", "prodigy"], "not yet ported"),
+    # Prodigy is ported; it takes no schedule (`pcm_tpu/train/state.py:50-58`)
+    (["--recipe", "sd15_4phase", "--optimizer", "prodigy", "--lr-warmup-steps", "10"],
+     "takes no learning-rate schedule"),
     # int8 products are ported; they need int8 weights (scripts/train.py:199-203)
     (["--recipe", "sd15_4phase", "--int8-matmul", "dense"], "requires --frozen-weights int8")],
     ids=["adversarial", "sd3", "prodigy", "int8_matmul"])
