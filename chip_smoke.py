@@ -12,7 +12,10 @@ distillation (the teacher's taps, ``sd3_4phase_adv`` on caches and from
 pixels, ``cache_latents --family sd3``) and ``--family sd3`` serving of the
 LoRA it trains, deterministic and stochastic; and SD1.5 teacher weights from
 a hub folder, Prodigy training with validation grids and asynchronous saves,
-and ``python -m pcm_tpu_torch.generate`` with TCD and DDIM.
+and ``python -m pcm_tpu_torch.generate`` with TCD and DDIM; and int8
+frozen weights on every family and recipe: the int8-against-bf16 loss
+trajectory of an adversarial recipe, SDXL and SD3 adversarial training,
+SD3 serving on int8 weights, and the int8 ``conv`` / ``both`` modes.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -191,6 +194,36 @@ Phases, one printed line each:
      ``--cfg 7.5`` (K5); batch latencies, and the final latents with the
      kernels against all plain versions within max(2e-2, 2 x the
      input-nudge yardstick).
+ 27. int8-adv: ``sd15_2phase_adv`` on phase 7's cache, batch 4, ``fresh``
+     pairing, one seed, 12 global steps on int8 frozen weights under
+     ``--int8-matmul fused`` and on bf16 weights; the gate is
+     ``scripts/compare_runs.py`` on their metrics (its default 5 %
+     final-window threshold), and the per-point max / mean of ``loss`` and
+     ``d_loss`` are printed; then 2 steps under ``scoped`` and ``dense``.
+     Every run as phase 11 checks its runs; K6 launched under ``fused``
+     alone. (Phase 11's checkpoints are deleted first, and each run's after
+     it: the smoke's disk is bounded.)
+ 28. sdxl-adv-int8: ``sdxl_4phase_adv`` on phase 11's cache, batch 2,
+     ``fused`` pairing, 4 global steps on int8 weights under ``fused``;
+     checked as phase 11's runs and K6 launched; pair ms and peak beside
+     phase 11's bf16 pair.
+ 29. sd3-int8: ``serving --family sd3 --weights int8 --lora <phase 22a's
+     fused file>`` (a full batch and a partial one, the shared request's
+     image equal bit for bit, batch ms and peak beside phase 23's bf16) and
+     the bytes its int8 weights save (MMDiT, CLIP-L, CLIP-bigG, T5-XXL; the
+     VAE stays bf16); its MMDiT at batch 2 under ``fused``: with K6's plain
+     version alone equal bit for bit, against every plain version within
+     phase 19's rule; ``sd3_4phase_adv --frozen-weights int8 --int8-matmul
+     fused`` as a child process on phase 22a's cache, ``fused`` pairing, 2
+     global steps: finite losses, the LoRA and the heads moved, K6 launched.
+     (``generate --family sd3 --weights int8`` is not driven here: it takes a
+     teacher file, 15.4 GB for SD3 in bf16, past the smoke's disk bound.)
+ 30. int8-conv: the full-width SD1.5 UNet on int8 weights at batch 4 under
+     ``both``, ``conv`` and ``fused`` against the dequantized forward
+     (finite; errors printed) and CUDA-event ms of each; at every int8 conv,
+     `QConvFn`'s ``dx`` against autograd of the dequantized conv within two
+     bf16 ulps; the input gradient of the whole UNet under ``both`` against
+     ``dense``'s, beside the input-nudge yardstick, printed.
 Each main path runs with the launch counts set to 0 just before it and read
 just after. Then a JSON line of the kernels, the nvidia-smi line, and a last
 JSON line ``{"ok": true, ...}``.
@@ -639,6 +672,14 @@ K6_SHAPES = [(16384, 320, 320), (16384, 1280, 320), (16384, 640, 640), (4096, 12
              (4096, 5120, 1280), (4096, 1280, 10240), (308, 2048, 1280)]
 K6_HEADLINE = (16384, 320, 320)
 K6_SDXL = (4096, 1280, 10240)  # second headline: SDXL's feed-forward out of 1280
+# SD3-1024's int8 products at batch 2 (the MMDiT's every LoRALinear under
+# fused): the image stream's q/k/v/out and FF in/out, proj_out, the context
+# stream over 2 x 154 tokens and context_embedder out of 4096, the adaLN
+# linears (M = batch), the timestep (K = 256) and pooled-text embedders
+K6_SD3_SHAPES = [(8192, 1536, 1536), (8192, 1536, 6144), (8192, 6144, 1536), (8192, 1536, 64),
+                 (308, 1536, 1536), (308, 4096, 1536), (2, 1536, 9216), (2, 256, 1536),
+                 (2, 2048, 1536)]
+K6_SD3 = (8192, 1536, 6144)  # third headline: the image stream's FF in
 
 
 def check_int8(gen) -> dict:
@@ -650,8 +691,8 @@ def check_int8(gen) -> dict:
                                                fused_quantized_dot_reference)
     from pcm_tpu_torch.utils.quant import quantize
 
-    result = {"max_abs_err": 0.0, "library_ms": None}
-    for shp in K6_SHAPES:
+    result = {"max_abs_err": 0.0, "library_ms": None, "sd3_rows": []}
+    for shp in K6_SHAPES + K6_SD3_SHAPES:
         m, k, n = shp
         x = bf16_randn((m, k), gen)
         x[1] = 0  # an all-zero row: scale 1, codes 0
@@ -676,6 +717,10 @@ def check_int8(gen) -> dict:
             result.update(ms=ms, plain_ms=plain, **b)
         if shp == K6_SDXL:
             result.update(sdxl_ms=ms, sdxl_plain_ms=plain, sdxl_bound_ms=b["bound_ms"])
+        if shp == K6_SD3:
+            result.update(sd3_ms=ms, sd3_plain_ms=plain, sd3_bound_ms=b["bound_ms"])
+        if shp in K6_SD3_SHAPES:  # [shape, ms, plain ms, bound ms, bound by]
+            result["sd3_rows"].append([shp, ms, plain, b["bound_ms"], b["bound_by"]])
         del x, out, ref, qt, values, scale
     return result
 
@@ -1125,13 +1170,13 @@ def write_sdxl_cache(out_dir: str, seed: int, n: int = 8) -> str:
 
 
 def train_adv(tag: str, recipe: str, cache_dir: str, out_dir: str, seed: int, batch: int,
-              pairing: str, steps: int, resume_to: int = 0) -> dict:
+              pairing: str, steps: int, resume_to: int = 0, extra=()) -> dict:
     """``main`` of the training CLI on an adversarial recipe for ``steps``
     global steps from scratch (then, with ``resume_to``, a resumed run to that
-    step); checks finite losses, that the LoRA and the heads moved and that
-    the adversarial kernels were all launched; returns the launch counts of
-    the first run, its rows and, on a resume, what it restored. ``out_dir``
-    is emptied first."""
+    step), ``extra`` flags added; checks finite losses, that the LoRA and the
+    heads moved and that the adversarial kernels were all launched; returns
+    the launch counts of the first run, its rows and, on a resume, what it
+    restored. ``out_dir`` is emptied first."""
     from pcm_tpu_torch.configs.families import RECIPES, disc_config
     from pcm_tpu_torch.models.unet import SD15_CONFIG, SDXL_CONFIG
     from pcm_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -1140,7 +1185,7 @@ def train_adv(tag: str, recipe: str, cache_dir: str, out_dir: str, seed: int, ba
 
     argv = ["--recipe", recipe, "--cached-latents-dir", cache_dir, "--output-dir", out_dir,
             "--batch-size", str(batch), "--seed", str(seed), "--log-every", "1",
-            "--checkpointing-steps", str(steps), "--adv-pairing", pairing]
+            "--checkpointing-steps", str(steps), "--adv-pairing", pairing, *extra]
     shutil.rmtree(out_dir, ignore_errors=True)  # a run from scratch: no rows or checkpoints
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1660,11 +1705,14 @@ def _serve_family(family: str, lora_path: str, seed: int, seed_base: int, *flags
         _concurrent(url, full, res)
         _concurrent(url, partial, res)
         lat = []
+        set_up_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()  # the timed batches' own peak
         for _ in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             images = engine.generate_batch([p["prompt"] for p in full], [p["seed"] for p in full])
             lat.append((time.perf_counter() - t0) * 1000)
+        batch_peak = torch.cuda.max_memory_allocated()
         stats = server.stats()
     finally:
         server.stop()
@@ -1673,8 +1721,8 @@ def _serve_family(family: str, lora_path: str, seed: int, seed_base: int, *flags
         "sizes": {k: r["batch_size"] for k, r in res.items()},
         "same_seed_identical": pngs["f1"] == pngs["p0"], "differ": pngs["f0"] != pngs["f1"],
         "header": _png_header(pngs["f0"]), "batch_ms": lat, "images": images,
-        "peak_bytes": torch.cuda.max_memory_allocated(), "counts": launch_counts(),
-        "stats": stats, "lora": engine.lora_source}
+        "peak_bytes": max(set_up_peak, batch_peak), "batch_peak_bytes": batch_peak,
+        "counts": launch_counts(), "stats": stats, "lora": engine.lora_source}
 
 
 def _serve_teacher(engine, family: str, guidance: float, seed_base: int) -> dict:
@@ -1711,7 +1759,7 @@ def _serve_readings(sv: dict, tv: dict) -> dict:
             "teacher_batch_ms": tv["batch_ms"], "student_peak_bytes": sv["peak_bytes"],
             "teacher_peak_bytes": tv["peak_bytes"], "student_counts": sv["counts"],
             "teacher_counts": tv["counts"], "stats": sv["stats"], "teacher_shape": tv["shape"],
-            "lora": sv["lora"],
+            "lora": sv["lora"], "student_batch_peak_bytes": sv["batch_peak_bytes"],
             "counts": {k: sv["counts"][k] + tv["counts"][k] for k in sv["counts"]}}
 
 
@@ -1825,26 +1873,33 @@ def sd3_cond(n: int, gen) -> dict:
     return {"prompt_embeds": bf16_randn((n, 154, 4096), gen), "pooled": bf16_randn((n, 2048), gen)}
 
 
-def sd3_mmdit_vs_reference(bundle, frozen, gen) -> dict:
+def sd3_mmdit_vs_reference(bundle, frozen, gen, int8: bool = False) -> dict:
     """Phase 19: one full-width MMDiT teacher forward at batch 2 (4250-token
     joint attention through K1) against every plain version (``all``) beside
     the input-nudge yardstick (``noise``), as phase 9; its CUDA-event ms and
-    K1 launches."""
+    launches. Phase 29 (``int8``): on int8 weights under ``fused`` (every
+    Linear through K6), and whether the output with K6's plain version
+    alone is equal bit for bit."""
     from pcm_tpu_torch.ops import reference_ops
+    from pcm_tpu_torch.utils.quant import int8_matmul
 
     x = torch.randn((2, *SD3_LATENT), generator=gen, device="cuda")
     t = torch.tensor([999.0, 421.0], device="cuda")
     cond = sd3_cond(2, gen)
-    with torch.inference_mode():
+    res = {}
+    with torch.inference_mode(), int8_matmul("fused") if int8 else contextlib.nullcontext():
         out, counts, peak = _measured(lambda: bundle.teacher(frozen, x, t, cond))
         ms = cuda_ms(lambda: bundle.teacher(frozen, x, t, cond), iters=5, warmup=1)
         with reference_ops():
             ref = bundle.teacher(frozen, x, t, cond)
             nudged = bundle.teacher(frozen, x * (1 + 2 ** -8), t, cond)
+        if int8:
+            with reference_ops("int8_matmul"):
+                res["k6_plain_identical"] = torch.equal(out, bundle.teacher(frozen, x, t, cond))
     return {"all": (rel_max(out, ref), rel_l2(out, ref)),
             "noise": (rel_max(nudged, ref), rel_l2(nudged, ref)), "ms": ms, "counts": counts,
             "peak_bytes": peak, "shape": tuple(out.shape),
-            "finite": bool(torch.isfinite(out).all())}
+            "finite": bool(torch.isfinite(out).all()), **res}
 
 
 def sd3_step(bundle, frozen, template, gen, steps: int = 3) -> dict:
@@ -2655,6 +2710,274 @@ def hub_phases(seed: int) -> list:
     return [tp, gp]
 
 
+# ---------------------------------------------------------------------------
+# phases 27-30: int8 frozen weights on every family and recipe
+# ---------------------------------------------------------------------------
+
+TRAJ_STEPS = 12  # phase 27's global steps a run: 6 D and 6 G updates (fresh pairing)
+# phase 30: `QConvFn`'s dx against autograd of the dequantized conv, rel-max to
+# the tensor's largest entry: two bf16 ulps (the two may sum in other orders)
+CONV_DX_BOUND = 2 ** -7
+INT8 = ("--frozen-weights", "int8", "--int8-matmul")
+
+
+def _dir_gib(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path)
+               for f in fs) / 2**30
+
+
+def _drop_checkpoints(run_dir: str) -> float:
+    """Delete a finished run's checkpoints (nothing reads them again; the
+    smoke's disk is bounded) and return their GiB."""
+    path = os.path.join(run_dir, "checkpoints")
+    gib = _dir_gib(path)
+    shutil.rmtree(path, ignore_errors=True)
+    return gib
+
+
+def _per_point(a: list, b: list, key: str) -> tuple:
+    """(max, mean) over the steps both runs logged of |a - b| / |b| for ``key``."""
+    ra = {r["step"]: r[key] for r in a if key in r}
+    rb = {r["step"]: r[key] for r in b if key in r}
+    d = [abs(ra[s] - rb[s]) / max(abs(rb[s]), 1e-12) for s in sorted(set(ra) & set(rb))]
+    return (max(d), sum(d) / len(d)) if d else (math.nan, math.nan)
+
+
+def int8_trajectory(cache_dir: str, seed: int) -> dict:
+    """Phase 27: ``sd15_2phase_adv`` from phase 7's cache, batch 4, fresh
+    pairing, one seed, for `TRAJ_STEPS` global steps on int8 frozen weights
+    under ``fused`` and on bf16 ones; the gate is `scripts/compare_runs.py`
+    on their metrics (its default 5 % final-window threshold). Then 2 steps
+    under ``scoped`` and under ``dense``. Every run is checked as phase 11's
+    are (`train_adv`); K6 launched in the ``fused`` run alone."""
+    root = "build/chip_smoke"
+    runs, ck_gib = {}, {}
+    for tag, extra, steps in (("int8_fused", INT8 + ("fused",), TRAJ_STEPS),
+                              ("bf16", (), TRAJ_STEPS), ("int8_scoped", INT8 + ("scoped",), 2),
+                              ("int8_dense", INT8 + ("dense",), 2)):
+        out = os.path.join(root, f"int8_adv_{tag}")
+        runs[tag] = train_adv(f"int8-adv {tag}", "sd15_2phase_adv", cache_dir, out, seed, 4,
+                              "fresh", steps, extra=extra)
+        runs[tag]["dir"] = out
+        ck_gib[tag] = _drop_checkpoints(out)
+    metrics = [os.path.join(runs[t]["dir"], "metrics.jsonl") for t in ("int8_fused", "bf16")]
+    cmp = subprocess.run([sys.executable, "scripts/compare_runs.py", *metrics, "--label-a",
+                          "int8_fused", "--label-b", "bf16"], capture_output=True, text=True,
+                         timeout=120, cwd=os.path.dirname(os.path.abspath(__file__)))
+    a, b = runs["int8_fused"]["rows"], runs["bf16"]["rows"]
+    return {"runs": runs, "compare_rc": cmp.returncode,
+            "compare": [ln for ln in (cmp.stdout + cmp.stderr).splitlines()
+                        if ln.startswith(("- per-point", "- final", "OK", "DIVERGED"))],
+            "loss": _per_point(a, b, "loss"), "d_loss": _per_point(a, b, "d_loss"),
+            "checkpoint_gib": ck_gib}
+
+
+def sd3_int8(lora_path: str, cache_dir: str, seed: int, gen) -> dict:
+    """Phase 29: ``serving --family sd3 --weights int8 --lora <file>``
+    (`_serve_family`: a full batch and a partial one, batch ms, peak) and the
+    bytes its int8 weights save; its MMDiT at batch 2 under ``fused`` against
+    K6's plain version alone (bit for bit) and every plain version (phase
+    19's rule); then ``sd3_4phase_adv --frozen-weights int8 --int8-matmul
+    fused`` as a child process, fused pairing, 2 global steps."""
+    from pcm_tpu_torch.utils.quant import quantized_bytes_saved
+
+    engine, sv = _serve_family("sd3", lora_path, seed, 500, "--weights", "int8")
+    out = {"serve": sv, "bytes_saved": quantized_bytes_saved(engine.frozen),
+           "int8_params_m": {k: round(sum(b.numel() for n, b in m.named_buffers()
+                                          if n.endswith("weight_values")) / 1e6, 1)
+                             for k, m in engine.frozen.items()}}
+    out["mmdit"] = sd3_mmdit_vs_reference(engine.bundle, engine.frozen, gen, int8=True)
+    del engine
+    run_dir = "build/chip_smoke/sd3_adv_int8"
+    out["train"] = _adv_child(
+        ["--recipe", "sd3_4phase_adv", "--cached-latents-dir", cache_dir, "--batch-size", "2",
+         "--max-train-steps", "2", "--checkpointing-steps", "2", "--log-every", "1", "--seed",
+         str(seed), "--adv-pairing", "fused", *INT8, "fused"], run_dir, seed, "sd3", saves=(2,))
+    out["checkpoint_gib"] = _drop_checkpoints(run_dir)
+    return out
+
+
+def int8_conv(gen) -> dict:
+    """Phase 30: the full-width SD1.5 UNet on int8 weights at batch 4, one
+    forward under ``both``, ``conv``, ``fused`` and with no int8 mode (the
+    dequantized weights); each output's error against the dequantized one,
+    CUDA-event ms and launches. The backward under ``both``: at every
+    quantized conv, on its input in the dequantized forward, `QConvFn`'s ``dx`` of a
+    seeded cotangent against autograd of the conv on the weight dequantized
+    to bf16 (``conv_dx``); and, as a reading, the gradient of a fixed
+    projection of the whole output to the latents against ``dense``'s
+    (whose convs dequantize; every int8 path's backward is the dequantized
+    product, but the nonlinear layers' backward reads the forward's
+    activations, which differ), beside ``dense`` on the latents nudged by
+    half a bf16 step (``grad_noise``)."""
+    import warnings
+
+    import torch.nn.functional as F
+
+    from pcm_tpu_torch.configs.families import sd15_bundle
+    from pcm_tpu_torch.lora.layers import LoRAConv
+    from pcm_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pcm_tpu_torch.utils.quant import int8_matmul, quantize_frozen, quantized_conv
+
+    bundle = sd15_bundle()
+    frozen, _ = bundle.init(gen, torch.device("cuda"))
+    quantize_frozen(frozen)
+    x = torch.randn((4, 64, 64, 4), generator=gen, device="cuda")
+    t = torch.full((4,), 801.0, device="cuda")
+    cond = {"prompt_embeds": bf16_randn((4, 77, 768), gen)}
+    proj = torch.randn((4, 64, 64, 4), generator=gen, device="cuda")
+    res = {"out": {}, "ms": {}, "counts": {}}
+
+    def mode(m):
+        return int8_matmul(m) if m else contextlib.nullcontext()
+
+    convs = {n: m for n, m in frozen["unet"].named_modules()
+             if isinstance(m, LoRAConv) and m.qweight() is not None}
+    inputs = {}
+
+    def keep_input(name):
+        def hook(module, args, out):
+            inputs.setdefault(name, args[0])  # returns None: the output stays
+        return hook
+
+    hooks = [m.register_forward_hook(keep_input(n)) for n, m in convs.items()]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # conv / both warn, as in the JAX package
+        with torch.no_grad():
+            ref = bundle.teacher(frozen, x, t, cond).float()  # and every conv's input
+            for h in hooks:
+                h.remove()
+            for m in ("both", "conv", "fused"):
+                with mode(m):
+                    reset_launch_counts()
+                    y = bundle.teacher(frozen, x, t, cond).float()
+                    torch.cuda.synchronize()
+                    res["counts"][m] = launch_counts()
+                    res["out"][m] = (rel_max(y, ref), rel_l2(y, ref),
+                                     bool(torch.isfinite(y).all()))
+            for m in ("both", "conv", "fused", None):
+                with mode(m):
+                    res["ms"][m or "dequant"] = cuda_ms(
+                        lambda: bundle.teacher(frozen, x, t, cond), iters=5, warmup=1)
+
+        errs = []
+        for n, inp in inputs.items():
+            layer, qt = convs[n], convs[n].qweight()
+            a = inp.detach().clone().requires_grad_(True)
+            with int8_matmul("conv"):
+                out = quantized_conv(a, qt, None, layer.stride, layer.padding)
+            g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+            (dx,) = torch.autograd.grad(out, [a], g)
+            b = inp.detach().clone().requires_grad_(True)
+            (dref,) = torch.autograd.grad(
+                F.conv2d(b, qt.astype(b.dtype), None, layer.stride, layer.padding), [b], g)
+            errs.append(rel_max(dx, dref))
+        res["conv_dx"] = (len(errs), max(errs))
+
+        def grad(m, lat):
+            lat = lat.clone().requires_grad_(True)
+            with mode(m):
+                y = bundle.teacher(frozen, lat, t, cond)
+                (g,) = torch.autograd.grad((y.float() * proj).sum(), [lat])
+            return g
+
+        g_both, g_dense = grad("both", x), grad("dense", x)
+        g_noise = grad("dense", x * (1 + 2 ** -8))
+    res["grad"] = (rel_max(g_both, g_dense), rel_l2(g_both, g_dense))
+    res["grad_noise"] = (rel_max(g_noise, g_dense), rel_l2(g_noise, g_dense))
+    res["grad_finite"] = bool(torch.isfinite(g_both).all())
+    return res
+
+
+def int8_phases(seed: int, gen, cache_dir: str, xl_cache: str, xl_bf16: dict,
+                sd3_serve: dict) -> list:
+    """Phases 27-30, each checked; returns the runs whose launches count.
+    ``xl_bf16``: phase 11's bf16 fused SDXL run; ``sd3_serve``: phase 23's
+    readings (bf16), each logged beside its int8 twin."""
+    root = "build/chip_smoke"
+    freed = sum(_drop_checkpoints(os.path.join(root, d))
+                for d in ("adv_sd15", "adv_fused", "adv_fresh"))  # phase 11's, read already
+    log("int8-disk", build_chip_smoke_gib=f"{_dir_gib(root):.2f}", freed_gib=f"{freed:.2f}")
+    tj = int8_trajectory(cache_dir, seed)
+    runs = tj["runs"]
+    log("int8-adv", gate="scripts/compare_runs.py", rc=tj["compare_rc"],
+        compare=json.dumps(tj["compare"]), loss_max_mean="%.4e/%.4e" % tj["loss"],
+        d_loss_max_mean="%.4e/%.4e" % tj["d_loss"],
+        int8_losses=json.dumps([r.get("loss") for r in runs["int8_fused"]["rows"]]),
+        bf16_losses=json.dumps([r.get("loss") for r in runs["bf16"]["rows"]]),
+        int8_d_losses=json.dumps([r.get("d_loss") for r in runs["int8_fused"]["rows"]]),
+        bf16_d_losses=json.dumps([r.get("d_loss") for r in runs["bf16"]["rows"]]),
+        k6=json.dumps({k: r["counts"]["int8_matmul"] for k, r in runs.items()}),
+        checkpoint_gib=json.dumps({k: round(v, 3) for k, v in tj["checkpoint_gib"].items()}))
+    k6_ok = all((r["counts"]["int8_matmul"] > 0) == (k == "int8_fused") for k, r in runs.items())
+    if tj["compare_rc"] != 0 or not k6_ok:
+        raise AssertionError(f"int8 against bf16 trajectories: compare_runs rc "
+                             f"{tj['compare_rc']} {tj['compare']}; K6 launched under fused "
+                             f"only: {k6_ok}")
+
+    xr = train_adv("sdxl-adv-int8", "sdxl_4phase_adv", xl_cache,
+                   os.path.join(root, "adv_int8_xl"), seed, 2, "fused", 4,
+                   extra=INT8 + ("fused",))
+    ck = _drop_checkpoints(os.path.join(root, "adv_int8_xl"))
+    log("sdxl-adv-int8", pair_ms=json.dumps([round(r["step_ms"], 1) for r in xr["rows"]]),
+        peak_gib=f"{max(r['peak_gib'] for r in xr['rows']):.3f}",
+        bf16_pair_ms=json.dumps([round(r["step_ms"], 1) for r in xl_bf16["rows"]]),
+        bf16_peak_gib=f"{max(r['peak_gib'] for r in xl_bf16['rows']):.3f}",
+        k6_launches=xr["counts"]["int8_matmul"], checkpoint_gib=f"{ck:.3f}")
+    if not xr["counts"]["int8_matmul"] > 0:
+        raise AssertionError(f"K6 not launched on the int8 SDXL adversarial pair: {xr}")
+
+    s3 = sd3_int8(os.path.join(root, "sd3_adv_fused", "pcm_lora_0000004.safetensors"),
+                  os.path.join(root, "cache_sd3"), seed, gen)
+    sv, mm, tr = s3["serve"], s3["mmdit"], s3["train"]
+    log("sd3-int8", bytes_saved_gib=f"{s3['bytes_saved'] / 2**30:.3f}",
+        int8_params_m=json.dumps(s3["int8_params_m"]), sizes=json.dumps(sv["sizes"]),
+        same_seed_identical=sv["same_seed_identical"],
+        student_batch_ms=json.dumps([round(x, 1) for x in sv["batch_ms"]]),
+        peak_gib=f"{sv['peak_bytes'] / 2**30:.3f}",
+        batch_peak_gib=f"{sv['batch_peak_bytes'] / 2**30:.3f}",
+        bf16_student_batch_ms=json.dumps([round(x, 1) for x in sd3_serve["student_batch_ms"]]),
+        bf16_peak_gib=f"{sd3_serve['student_peak_bytes'] / 2**30:.3f}",
+        bf16_batch_peak_gib=f"{sd3_serve['student_batch_peak_bytes'] / 2**30:.3f}",
+        counts=json.dumps(sv["counts"]))
+    log("sd3-int8", op="mmdit", batch=2, **{k: "%.3e/%.3e" % mm[k] for k in ("all", "noise")},
+        bounds="max(2e-2,2*noise)", k6_plain_bit_identical=mm["k6_plain_identical"],
+        ms=f"{mm['ms']:.3f}", peak_gib=f"{mm['peak_bytes'] / 2**30:.3f}",
+        counts=json.dumps(mm["counts"]))
+    rows = tr["rows"]
+    log("sd3-int8", op="train", steps=[x["step"] for x in rows],
+        losses=json.dumps([x.get("loss") for x in rows]),
+        d_losses=json.dumps([x.get("d_loss") for x in rows]),
+        step_ms=json.dumps([round(x["step_ms"], 1) for x in rows]),
+        peak_gib=f"{max(x['peak_gib'] for x in rows):.3f}", lora_b_max=f"{tr['lora_b_max']:.3e}",
+        heads_moved=f"{tr['heads_moved']:.3e}", checkpoint_gib=f"{s3['checkpoint_gib']:.3f}",
+        counts=json.dumps(tr["counts"]))
+    caps = [max(2e-2, 2 * n) for n in mm["noise"]]
+    if not (sv["sizes"] == {"f0": 4, "f1": 4, "f2": 4, "f3": 4, "p0": 2, "p1": 2}
+            and sv["same_seed_identical"] and sv["differ"] and sv["header"] == (1024, 1024, 8, 2)
+            and s3["bytes_saved"] > 0 and all(s3["int8_params_m"][k] > 0
+                                              for k in ("mmdit", "text", "text2", "t5"))
+            and s3["int8_params_m"]["vae"] == 0
+            and mm["finite"] and mm["k6_plain_identical"]
+            and all(e <= c for e, c in zip(mm["all"], caps))
+            and mm["counts"]["int8_matmul"] > 0):
+        raise AssertionError(f"SD3 on int8 weights: {({k: v for k, v in s3.items() if k != 'train'})}")
+    check_sd3_run("sd3-int8 train", tr, 2, sd3_adv_layers(), (*SD3_ADV_KERNELS, "int8_matmul"))
+
+    cv = int8_conv(gen)
+    log("int8-conv", batch=4, **{f"out_{m}": "%.3e/%.3e" % v[:2] for m, v in cv["out"].items()},
+        conv_dx="%d convs, rel-max %.3e" % cv["conv_dx"], conv_dx_bound=CONV_DX_BOUND,
+        grad_both_vs_dense="%.3e/%.3e" % cv["grad"], grad_noise="%.3e/%.3e" % cv["grad_noise"],
+        ms=json.dumps({k: round(v, 3) for k, v in cv["ms"].items()}),
+        k6=json.dumps({m: c["int8_matmul"] for m, c in cv["counts"].items()}))
+    if not (all(v[2] for v in cv["out"].values()) and cv["grad_finite"]
+            and cv["conv_dx"][0] > 0 and cv["conv_dx"][1] <= CONV_DX_BOUND
+            and cv["counts"]["fused"]["int8_matmul"] > 0
+            and cv["counts"]["both"]["int8_matmul"] == 0):
+        raise AssertionError(f"int8 convs (both / conv) on the SD1.5 UNet: {cv}")
+    return [*runs.values(), xr, sv, mm, tr, {"counts": cv["counts"]["fused"]}]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
@@ -2820,6 +3143,7 @@ def main() -> int:
     xl_runs = sdxl_phases(args.seed, gen)
     sd3_runs = sd3_phases(args.seed, gen)
     hub_runs = hub_phases(args.seed)
+    int8_runs = int8_phases(args.seed, gen, cache, xl_cache, adv_runs[0], sd3_runs[-1])
 
     retained = sum(os.path.getsize(os.path.join(d, f))
                    for d, _, fs in os.walk("build/chip_smoke") for f in fs)
@@ -2837,7 +3161,7 @@ def main() -> int:
                "geglu": ("pcm_tpu_torch/csrc/geglu.cu", "pcm_tpu/ops/geglu.py:47"),
                "int8_matmul": ("pcm_tpu_torch/csrc/int8_matmul.cu",
                                "pcm_tpu/ops/int8_matmul.py:56")}
-    runs = (s, tr, ti, sx, *adv_runs, enc, px, sl, *xl_runs, *sd3_runs, *hub_runs)
+    runs = (s, tr, ti, sx, *adv_runs, enc, px, sl, *xl_runs, *sd3_runs, *hub_runs, *int8_runs)
     launches = {k: sum(run["counts"][k] for run in runs) for k in sources}
     kernels["group_norm_silu"]["fp32_launches"] = sum(
         run["counts"]["group_norm_silu_fp32"] for run in runs)
@@ -2848,7 +3172,8 @@ def main() -> int:
              "vae_plain_ms", "vae_bound_ms", "vae_library_ms", "product_ms", "sdxl_product_ms",
              "act_none_library", "fp32_shape", "fp32_ms", "fp32_plain_ms", "fp32_bound_ms",
              "fp32_library_ms", "fp32_max_abs_err", "fp32_launches", "vae_1024", "gn_1024",
-             "sd3_ms", "sd3_plain_ms", "sd3_bound_ms", "sd3_library_ms", "sd3_4250", "fp32_sd3")
+             "sd3_ms", "sd3_plain_ms", "sd3_bound_ms", "sd3_library_ms", "sd3_4250", "fp32_sd3",
+             "sd3_rows")
     line = {"kernels": [{"name": k, "route": "cuda", "source": sources[k][0],
                          "replaces": sources[k][1], "launches": launches[k],
                          **{f: kernels[k][f] for f in keys},

@@ -21,9 +21,9 @@ without it the teacher samples. SD1.5 and SDXL sample trailing DDIM
 the uncond is ``--negative-prompt``. Row i's starting noise, and the fresh
 noise of TCD and ``fm_stoch``, come from a generator seeded ``--seed + i``
 on the device. At >= 1024 px the VAE decodes a sample a call unless
-``--decode-chunk`` says otherwise. ``--weights int8`` stores the UNet and
-text weights as per-channel int8, as serving's ``--weights int8`` does; not
-with SD3. One image is written to ``--out``, several to ``<out>_<i>.png``.
+``--decode-chunk`` says otherwise. ``--weights int8`` stores the UNet or
+MMDiT and the text weights as per-channel int8, as serving's ``--weights
+int8`` does, for every family. One image is written to ``--out``, several to ``<out>_<i>.png``.
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="VAE-decode this many images at a time (default: one at >= 1024 px)")
     ap.add_argument("--out", default="out.png")
     ap.add_argument("--weights", default="bf16", choices=["bf16", "int8"],
-                    help="int8 = per-channel int8 UNet and text weights (the VAE stays bf16)")
+                    help="int8 = per-channel int8 UNet / MMDiT and text weights (the VAE stays bf16)")
     ap.add_argument("--tiny", action="store_true", help="tiny-model smoke mode")
     ap.add_argument("--device", default="cuda")
     return ap
@@ -65,8 +65,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_args(ap: argparse.ArgumentParser, args: argparse.Namespace) -> None:
     """Refuse what is not ported and a scheduler of another family."""
-    if args.family == "sd3" and args.weights == "int8":
-        ap.error("--weights int8 with --family sd3 is not yet ported (bf16)")
     if args.scheduler is not None and args.scheduler not in SCHEDULERS[args.family]:
         ap.error(f"--scheduler {args.scheduler} is not one of --family {args.family}'s "
                  f"{SCHEDULERS[args.family]}")

@@ -13,8 +13,10 @@ conv ``A (r, in, kh, kw)`` with the layer's stride and padding, then
 
 The base weight ``W`` is bf16 or, after `utils.quant.quantize_frozen`, int8
 codes with per-channel scales. Then the base product routes as `_base_dot`
-/ `_base_conv` do (`pcm_tpu/lora/layers.py:62-84`): through an int8 path
-inside an `int8_matmul` context, else through the dequantized weight. The
+/ `_base_conv` do (`pcm_tpu/lora/layers.py:62-84`): through the int8 path
+of the active `int8_matmul` mode that covers its op class (a Linear under
+``dense``, ``both`` and ``fused``; a conv as `quantized_conv` routes it),
+else through the dequantized weight. The
 LoRA factors stay in the activations' dtype over their fp32 masters.
 """
 
@@ -28,7 +30,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..models.convert import torch_segment
-from ..utils.quant import QuantizableWeight, int8_mode, quantized_conv, quantized_dot
+from ..utils.quant import (QuantizableWeight, int8_matmul_enabled, quantized_conv,
+                           quantized_dot)
 
 LoRA = Optional[Dict[str, torch.Tensor]]
 
@@ -75,7 +78,7 @@ class LoRALinear(QuantizableWeight, nn.Linear):
         qt = self.qweight()
         if qt is None:
             y = F.linear(x, self.weight, self.bias)
-        elif int8_mode():
+        elif int8_matmul_enabled("dense"):
             y = quantized_dot(x, qt)
             y = y if self.bias is None else y + self.bias
         else:

@@ -205,7 +205,8 @@ def mmdit_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 def t5_state_from_jax(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
     """JAX ``T5Encoder`` params -> the transformers-named state dict of the
-    port's ``T5Encoder`` (the inverse of `convert_t5_torch_state`)."""
+    port's ``T5Encoder`` (the inverse of `convert_t5_torch_state`); int8
+    kernels as the module docstring says."""
     def t(a, transpose: bool = False) -> torch.Tensor:
         a = np.asarray(a)
         return torch.from_numpy(np.ascontiguousarray(a.T if transpose else a))
@@ -219,7 +220,9 @@ def t5_state_from_jax(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]
         out[bp + "0.layer_norm.weight"] = t(p["attn_layer_norm"]["weight"])
         out[bp + "1.layer_norm.weight"] = t(p["ff_layer_norm"]["weight"])
         for k in ("q", "k", "v", "o"):
-            out[f"{bp}0.SelfAttention.{k}.weight"] = t(p[k]["kernel"], transpose=True)
+            out.update((f"{bp}0.SelfAttention.{k}.{name}", v) for name, v in _leaf(
+                "kernel", p[k]["kernel"]))
         for k in ("wi_0", "wi_1", "wo"):
-            out[f"{bp}1.DenseReluDense.{k}.weight"] = t(p[k]["kernel"], transpose=True)
+            out.update((f"{bp}1.DenseReluDense.{k}.{name}", v) for name, v in _leaf(
+                "kernel", p[k]["kernel"]))
     return out

@@ -107,14 +107,15 @@ class _Block(nn.Module):
 def _kernel_choice(plain: frozenset, int8_mode: Optional[str]):
     names = () if common.ALL_KERNELS in plain else tuple(plain)
     with reference_ops(*names) if plain else contextlib.nullcontext():
-        with quant.int8_matmul(int8_mode) if int8_mode else contextlib.nullcontext():
+        with quant.mode_context(int8_mode):
             yield
 
 
 def _remat_contexts():
     """(forward, recompute) contexts of a checkpointed block: the recompute,
     which autograd may run on another thread, keeps the caller's choice of
-    kernels or plain versions and its int8 mode."""
+    kernels or plain versions and its int8 mode (that of ``PCM_INT8_MATMUL``
+    included)."""
     return contextlib.nullcontext(), _kernel_choice(common.reference_forced(), quant.int8_mode())
 
 

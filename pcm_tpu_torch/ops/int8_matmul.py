@@ -44,12 +44,14 @@ def pick_block(dim: int, target: int, quantum: int) -> int:
     return dim
 
 
-def quantize_rows(x32: torch.Tensor):
-    """Symmetric int8 codes of fp32 rows, one scale per row: ``(codes as
-    fp32, scale (rows, 1))``, s = max|x| · fl(1/127) (1 for an all-zero
-    row), codes = clip(round(x / s), ±127) with an IEEE division (a tensor
-    divisor) and round half to even."""
-    amax = x32.abs().amax(dim=-1, keepdim=True)
+def quantize_act(x32: torch.Tensor, dims=-1):
+    """Symmetric int8 codes of fp32 activations, one scale per slice over
+    ``dims`` (the last axis: one per row; (1, 2, 3): one per sample of an
+    NCHW tensor): ``(codes as fp32, scale with dims kept as 1)``, s = max|x|
+    · fl(1/127) (1 for an all-zero slice), codes = clip(round(x / s), ±127)
+    with an IEEE division (a tensor divisor) and round half to even
+    (`pcm_tpu/utils/quant.py:_quantize_act` as XLA compiles it)."""
+    amax = x32.abs().amax(dim=dims, keepdim=True)
     s = torch.where(amax > 0, amax * RECIP_127, torch.ones_like(amax))
     return torch.clamp(torch.round(x32 / s), -127, 127), s
 
@@ -57,12 +59,12 @@ def quantize_rows(x32: torch.Tensor):
 def quantize_tiles_reference(x: torch.Tensor, bk: int):
     """Plain version of the quantize pass: the int8 codes ``(M, K)`` of every
     (row, K-tile of ``bk``) of ``x (M, K)`` and their fp32 scales laid out
-    ``(K / bk, M)``, as `quantize_rows` gives them tile by tile."""
+    ``(K / bk, M)``, as `quantize_act` gives them tile by tile."""
     m, k = x.shape
     codes = torch.empty((m, k), dtype=torch.int8, device=x.device)
     scales = torch.empty((k // bk, m), dtype=torch.float32, device=x.device)
     for t, k0 in enumerate(range(0, k, bk)):
-        xq, s = quantize_rows(x[:, k0:k0 + bk].float())
+        xq, s = quantize_act(x[:, k0:k0 + bk].float())
         codes[:, k0:k0 + bk] = xq.to(torch.int8)
         scales[t] = s.reshape(m)
     return codes, scales
@@ -87,7 +89,7 @@ def fused_quantized_dot_reference(x: torch.Tensor, values: torch.Tensor, scale: 
     bk = pick_block(k, BLOCK_K, 128)
     acc = torch.zeros((x2.shape[0], n), dtype=torch.float32, device=x.device)
     for k0 in range(0, k, bk):
-        xq, s = quantize_rows(x2[:, k0:k0 + bk])
+        xq, s = quantize_act(x2[:, k0:k0 + bk])
         acc = acc + int_product(xq, values[:, k0:k0 + bk]) * s
     return (acc * scale.reshape(1, n).float()).to(x.dtype).reshape(*lead, n)
 

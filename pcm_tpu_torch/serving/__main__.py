@@ -22,9 +22,10 @@ adapter's layers from the file: the base list of the SD3 recipes, the
 adversarial one or the stochastic-adversarial one (`sd3_lora_targets`); a
 file of any other layers is refused, as is any file holding layers outside
 the engine's adapter (every layer of a file is served, or none).
-``--weights int8`` stores the UNet and text weights as per-channel int8 and
-dequantizes each at its use (weight-only: the products stay bf16); not yet
-with SD3. Without ``--teacher-checkpoint`` (``torch.save``d state dicts of
+``--weights int8`` stores the UNet or MMDiT and the text weights as
+per-channel int8 (the VAE and the embeddings stay bf16) and dequantizes
+each at its use (weight-only: the products stay bf16), for every family, as
+`scripts/serve.py` does. Without ``--teacher-checkpoint`` (``torch.save``d state dicts of
 ``unet``, ``vae``, ``text`` and, for SDXL, ``text2``; for SD3 ``mmdit``,
 ``vae``, ``text``, ``text2`` and ``t5``) the weights are drawn on the device
 from ``--seed``.
@@ -79,8 +80,6 @@ def check_args(ap: argparse.ArgumentParser, args: argparse.Namespace) -> None:
         ap.error(f"--lora {args.lora}: no such file")
     if args.stochastic and args.family != "sd3":
         ap.error("--stochastic is SD3's sampler (--family sd3)")
-    if args.family == "sd3" and args.weights == "int8":
-        ap.error("--weights int8 with --family sd3 is not yet ported (bf16)")
     if args.data_parallel != 1:
         ap.error("--data-parallel is not yet ported")
     if args.family == "sd3" and args.lora:

@@ -72,14 +72,19 @@ the card and back. ``--optimizer prodigy`` trains the LoRA with Prodigy
 (`train/prodigy.py`; lr about 1.0, no schedule; ``prodigy_d`` in the
 metrics).
 
-``--frozen-weights int8`` stores the frozen UNet and text weights as int8
-codes with per-channel scales (`utils/quant.py`); ``--int8-matmul`` then
+``--frozen-weights int8`` stores the frozen UNet or MMDiT and text weights
+as int8 codes with per-channel scales (`utils/quant.py`), with every
+recipe, before the discriminator heads are drawn (`scripts/train.py:280-283`);
+the VAE, the embeddings and the heads stay in float. ``--int8-matmul`` then
 computes their products on an int8 path: ``scoped`` in the teacher and
-target forwards only, ``dense`` everywhere (whole-row activation scales),
-``fused`` everywhere through the K6 kernel (pointwise convs included). With
-``--tiny`` every Linear and conv weight is quantized (all but a few TINY
-weights are under the 65536-element threshold). It is not yet taken with an
-adversarial recipe, SD3's included.
+target forwards only (the adversarial recipes' taps keep the dequantized
+weights), ``dense`` everywhere (whole-row activation scales), ``fused``
+everywhere through the K6 kernel (pointwise convs included), the taps and
+validation sampling included. The JAX package's bisection modes ``conv``
+and ``both`` are not choices here, as there: `utils.quant.int8_matmul` or
+``PCM_INT8_MATMUL`` reach them. With ``--tiny`` every Linear and conv
+weight is quantized (all but a few TINY weights are under the 65536-element
+threshold).
 """
 
 from __future__ import annotations
@@ -217,8 +222,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="full = checkpoint every UNet or MMDiT block (least memory), none = "
                          "keep all activations")
     ap.add_argument("--frozen-weights", default="bf16", choices=["bf16", "int8"],
-                    help="int8 = frozen UNet/text weights as per-channel int8 (the VAE "
-                         "stays bf16)")
+                    help="int8 = frozen UNet or MMDiT and text weights as per-channel int8 "
+                         "(the VAE stays bf16)")
     ap.add_argument("--int8-matmul", default=None, choices=["scoped", "dense", "fused"],
                     help="int8 products of the int8 weights (needs --frozen-weights int8): "
                          "scoped = teacher and target forwards only, dense = every Linear, "
@@ -252,10 +257,6 @@ def main(argv=None):
     recipe = RECIPES[args.recipe]
     if args.split_d:
         ap.error(f"--split-d is {NOT_PORTED} (the D step is one step here)")
-    if recipe.family == "sd3" and args.frozen_weights == "int8":
-        ap.error(f"--frozen-weights int8 with an SD3 recipe is {NOT_PORTED} (bf16)")
-    if recipe.adversarial and args.frozen_weights == "int8":
-        ap.error(f"--frozen-weights int8 with an adversarial recipe is {NOT_PORTED}")
     if args.optimizer == "prodigy" and (args.lr_scheduler != "constant" or args.lr_warmup_steps):
         ap.error("--optimizer prodigy takes no learning-rate schedule (it adapts its own step, "
                  "as `pcm_tpu/train/state.py:make_optimizer` builds it)")

@@ -55,7 +55,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.root).resolve()))
     from chip_smoke import K6_SHAPES, bound
     from pcm_tpu_torch.ops import common
-    from pcm_tpu_torch.ops.int8_matmul import fused_quantized_dot_fwd, quantize_rows
+    from pcm_tpu_torch.ops.int8_matmul import fused_quantized_dot_fwd, quantize_act
     from pcm_tpu_torch.utils.quant import quantize
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -76,7 +76,7 @@ def main() -> int:
                **bound(2.0 * m * k * n, "int8", 2.0 * m * k + n * k + 4.0 * n + 2.0 * m * n),
                "bf16_linear_ms": cuda_ms(lambda: F.linear(x, w))}
         if m > 16:
-            xq = quantize_rows(x.float())[0].to(torch.int8)
+            xq = quantize_act(x.float())[0].to(torch.int8)
             row["int_mm_ms"] = cuda_ms(lambda: torch._int_mm(xq, values.t()))
             del xq
         else:

@@ -557,10 +557,27 @@ def test_train_cli_adversarial_resumes_heads(tmp_path, capsys):
                "--max-train-steps", "6")
 
 
+def test_train_cli_adversarial_int8(tmp_path, capsys):
+    """``--recipe sdxl_4phase_adv --frozen-weights int8 --int8-matmul fused``
+    (refused before int8 weights reached the adversarial recipes): two
+    global steps of the fused pair on int8 UNet weights, finite losses, the
+    LoRA and the heads moved, the heads fp32."""
+    trainer = _train(*_cli(tmp_path, "sdxl_4phase_adv", "sdxl", "fused"), "--max-train-steps",
+                     "2", "--frozen-weights", "int8", "--int8-matmul", "fused")
+    printed = capsys.readouterr().out
+    assert trainer.global_step == 2 and "int8 frozen weights" in printed
+    assert "int8 matmul fused" in printed and "nan" not in printed
+    rows = _rows(tmp_path)
+    assert all(np.isfinite(r["loss"]) and np.isfinite(r["d_loss"]) for r in rows)
+    assert trainer.frozen["unet"].conv_in.weight_values.dtype == torch.int8
+    assert max(float(v.abs().max()) for k, v in trainer.state.params.items()
+               if k.endswith("lora_b")) > 0
+    assert trainer.d_state.step == 1
+    assert all(v.dtype == torch.float32 for v in trainer.d_state.params.values())
+
+
 @pytest.mark.parametrize("extra,msg", [
-    (["--recipe", "sdxl_4phase_adv", "--frozen-weights", "int8"], "not yet ported"),
-    (["--recipe", "sd15_2phase_adv", "--split-d"], "not yet ported")],
-    ids=["int8_adversarial", "split_d"])
+    (["--recipe", "sd15_2phase_adv", "--split-d"], "not yet ported")], ids=["split_d"])
 def test_train_cli_refuses_unported_adversarial(tmp_path, capsys, extra, msg):
     with pytest.raises(SystemExit) as exc:
         _train(*extra, "--tiny", "--device", "cpu", "--output-dir", str(tmp_path / "o"),

@@ -432,10 +432,28 @@ def test_generate_cli_tiny(teachers, tmp_path, capsys, family, scheduler):
     assert np.any(np.asarray(Image.open(other[0])) != imgs[0])
 
 
+def test_generate_sd3_int8_tiny_cpu(tmp_path, capsys):
+    """``generate --family sd3 --weights int8`` (refused before) on a TINY
+    teacher file: PNGs, the same bytes on a rerun."""
+    pb = families.sd3_bundle(dtype=torch.float32, tiny=True)
+    frozen, _ = pb.init(torch.Generator().manual_seed(5), CPU)
+    ckpt = str(tmp_path / "teacher.pt")
+    torch.save({k: m.state_dict() for k, m in frozen.items()}, ckpt)
+    argv = ["--family", "sd3", "--teacher-checkpoint", ckpt, "--steps", "2", "--tiny",
+            "--device", "cpu", "--resolution", "16", "--weights", "int8", "--prompt",
+            "a red square", "a blue circle"]
+    runs = []
+    for out in ("a.png", "b.png"):
+        generate.main(argv + ["--out", str(tmp_path / out)])
+        runs.append(sorted(glob.glob(str(tmp_path / out).replace(".png", "*.png"))))
+    assert [os.path.basename(p) for p in runs[0]] == ["a_0.png", "a_1.png"]
+    assert "wrote" in capsys.readouterr().out
+    assert [open(p, "rb").read() for p in runs[0]] == [open(p, "rb").read() for p in runs[1]]
+
+
 @pytest.mark.parametrize("extra,msg", [
-    (["--family", "sd3", "--weights", "int8"], "not yet ported"),
     (["--family", "sd15", "--scheduler", "fm_stoch"], "is not one of"),
-], ids=["sd3_int8", "scheduler_of_another_family"])
+], ids=["scheduler_of_another_family"])
 def test_generate_cli_refuses(tmp_path, capsys, extra, msg):
     with pytest.raises(SystemExit) as exc:
         generate.main([*extra, "--teacher-checkpoint", str(tmp_path / "x.pt"), "--prompt", "p",

@@ -246,7 +246,10 @@ def test_backward_dx_matches_qdot_bwd(mode):
     assert fn_grads[1:] == (None, None, None)
 
 
-def test_int8_modes():
+def test_int8_modes(monkeypatch):
+    """Nested contexts; ``conv`` and ``both`` are entered with the JAX
+    package's warning."""
+    monkeypatch.delenv("PCM_INT8_MATMUL", raising=False)
     assert quant.int8_mode() is None
     with quant.int8_matmul("fused"):
         assert quant.int8_mode() == "fused"
@@ -255,9 +258,78 @@ def test_int8_modes():
         assert quant.int8_mode() == "fused"
     assert quant.int8_mode() is None
     for which in ("conv", "both"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        with pytest.warns(UserWarning, match="SPATIAL convs"):
             with quant.int8_matmul(which):
-                pass
+                assert quant.int8_mode() == which
+    assert quant.int8_mode() is None
+
+
+def test_int8_matmul_which_scopes_op_class(monkeypatch):
+    """As `tests/test_int8_matmul.py::test_int8_matmul_which_scopes_op_class`:
+    ``which`` narrows the int8 path to Linears or convs, ``PCM_INT8_MATMUL``
+    is read when no context is set ("1": both), a context beats it, and each
+    state gives `int8_matmul_enabled` what JAX's gives on the same calls."""
+    def both(kind):
+        ours, theirs = quant.int8_matmul_enabled(kind), jquant.int8_matmul_enabled(kind)
+        assert ours == theirs, kind
+        return ours
+
+    monkeypatch.delenv("PCM_INT8_MATMUL", raising=False)
+    assert not both("dense") and not both("conv")
+    for which, dense, conv in (("dense", True, False), ("fused", True, False),
+                               ("conv", False, True), ("both", True, True)):
+        with pytest.warns(UserWarning) if which in ("conv", "both") else contextlib.nullcontext():
+            with quant.int8_matmul(which), jquant.int8_matmul(which=which):
+                assert (both("dense"), both("conv")) == (dense, conv), which
+    for env, mode in (("1", "both"), ("conv", "conv"), ("dense", "dense"), ("fused", "fused"),
+                      ("0", None), ("bogus", None)):
+        monkeypatch.setenv("PCM_INT8_MATMUL", env)
+        assert quant.int8_mode() == mode, env
+        both("dense"), both("conv")
+    monkeypatch.setenv("PCM_INT8_MATMUL", "conv")
+    with quant.int8_matmul(enable=False), jquant.int8_matmul(enable=False):  # context beats env
+        assert quant.int8_mode() is None and not both("conv")
+    with quant.int8_matmul("dense"), jquant.int8_matmul(which="dense"):
+        assert quant.int8_mode() == "dense" and not both("conv")
+    with pytest.raises(ValueError):
+        quant.int8_matmul("bogus")
+
+
+@pytest.mark.parametrize("mode", ["conv", "both"])
+@pytest.mark.parametrize("geometry", ["1x1", "3x3", "3x3_stride2", "2x2_stride2"])
+def test_quantized_conv_matches_qconv(geometry, mode):
+    """`quantized_conv` under ``conv`` / ``both`` (`QConvFn`: per-sample
+    activation scales over (C, H, W), the exact integer conv, fp32 rescale)
+    against JAX's ``_qconv`` under jit: the output bit for bit, at 1x1, 3x3
+    stride 1 and 2 (padding 1), and SD3's ``pos_embed.proj`` 2x2 stride 2;
+    ``dx`` against ``_qconv_bwd`` rtol 1e-5 (the dequantized conv's input
+    gradient), none for the codes or the scales. A sample of all zeros
+    gives scale 1 and a zero output."""
+    ks, stride, pad = {"1x1": ((1, 1), (1, 1), 0), "3x3": ((3, 3), (1, 1), 1),
+                       "3x3_stride2": ((3, 3), (2, 2), 1),
+                       "2x2_stride2": ((2, 2), (2, 2), 0)}[geometry]
+    rng = np.random.default_rng(20)
+    x = rng.standard_normal((3, 8, 8, 32)).astype(np.float32)
+    x[1] *= 20.0  # the samples get different scales
+    x[2] = 0.0
+    w = (rng.standard_normal((*ks, 32, 48)) * 0.1).astype(np.float32)
+    qt = jquant.quantize(jnp.asarray(w))
+    jpad = ((pad, pad), (pad, pad))
+    f = jax.jit(lambda x_: jquant._qconv(x_, qt.values, qt.scale, jnp.float32, stride, jpad))
+    ref, vjp = jax.vjp(f, jnp.asarray(x))
+    g = rng.standard_normal(ref.shape).astype(np.float32)
+    (dref,) = vjp(jnp.asarray(g))
+    values = t(np.asarray(qt.values).transpose(3, 2, 0, 1).copy())
+    scale = t(np.asarray(qt.scale).reshape(-1, 1, 1, 1).copy())
+    xt = t(x).permute(0, 3, 1, 2).requires_grad_(True)
+    with pytest.warns(UserWarning, match="SPATIAL"), quant.int8_matmul(mode):
+        y = quant.quantized_conv(xt, quant.QTensor(values, scale), None, stride, (pad, pad))
+    y.backward(t(g).permute(0, 3, 1, 2))
+    np.testing.assert_array_equal(y.detach().permute(0, 2, 3, 1).numpy(), np.asarray(ref))
+    assert not y[2].any()
+    np.testing.assert_allclose(xt.grad.permute(0, 2, 3, 1).numpy(), np.asarray(dref),
+                               rtol=1e-5, atol=1e-6)
+    assert y.grad_fn is not None and not values.requires_grad
 
 
 def test_reference_ops_forces_named_kernels():
@@ -298,6 +370,12 @@ class _JWrap(fnn.Module):
         return JLoRAConv(self.features, ks, padding="SAME", lora=self.spec, name="layer")(x)
 
 
+def _warns(mode):
+    """The JAX package's warning on entering ``conv`` or ``both``."""
+    return pytest.warns(UserWarning, match="SPATIAL") if mode in ("conv", "both") \
+        else contextlib.nullcontext()
+
+
 class _Wrap(torch.nn.Module):
     def __init__(self, layer):
         super().__init__()
@@ -307,11 +385,15 @@ class _Wrap(torch.nn.Module):
         return self.layer(x, lora)
 
 
-@pytest.mark.parametrize("mode", [None, "dense", "fused"], ids=["dequant", "dense", "fused"])
+@pytest.mark.parametrize("mode", [None, "dense", "fused", "conv", "both"],
+                         ids=["dequant", "dense", "fused", "conv", "both"])
 @pytest.mark.parametrize("kind", ["linear", "conv1x1", "conv3x3"])
 def test_lora_layers_match_jax(kind, mode):
     """`LoRALinear` / `LoRAConv` with int8 base weights against `LoRADense` /
-    `LoRAConv` on `quantize_tree`'s QTensor, in each `int8_matmul` mode."""
+    `LoRAConv` on `quantize_tree`'s QTensor, in each `int8_matmul` mode: a
+    Linear takes the int8 product under ``dense``, ``fused`` and ``both``
+    and dequantizes under ``conv``; a conv takes `QConvFn` under ``conv``
+    and ``both``, K6 (1x1) or the dequantized conv (3x3) under ``fused``."""
     rng = np.random.default_rng(4)
     spec = JLoRASpec(rank=4, alpha=8.0, targets=("layer",))
     cin, cout = 256, 128
@@ -323,7 +405,7 @@ def test_lora_layers_match_jax(kind, mode):
     if mode is None:
         ref = jm.apply({"params": qparams, "lora": v["lora"]}, jnp.asarray(x))
     else:
-        with jquant.int8_matmul(which=mode):
+        with _warns(mode), jquant.int8_matmul(which=mode):
             ref = jax.jit(jm.apply)({"params": qparams, "lora": v["lora"]}, jnp.asarray(x))
 
     if kind == "linear":
@@ -338,7 +420,8 @@ def test_lora_layers_match_jax(kind, mode):
     assert layer.weight is None and layer.weight_values.dtype == torch.int8
     adapter = convert.lora_state_from_jax(v["lora"])
     xt = t(x) if kind == "linear" else t(x).permute(0, 3, 1, 2)
-    with torch.no_grad(), quant.int8_matmul(mode) if mode else contextlib.nullcontext():
+    with torch.no_grad(), _warns(mode), (quant.int8_matmul(mode) if mode
+                                         else contextlib.nullcontext()):
         out = port(xt, adapter)
     out = out if kind == "linear" else out.permute(0, 2, 3, 1)
     assert rel_max(out, ref) < 1e-5
@@ -390,11 +473,15 @@ def test_quantize_frozen_matches_jax_bit_for_bit():
         jquant.quantize_frozen({"unet": params}))
 
 
-def test_remat_grads_match_under_fused():
+@pytest.mark.parametrize("mode", ["fused", "conv", "both", "env"])
+def test_remat_grads_match_under_fused(mode, monkeypatch):
     """Checkpointed blocks recompute on the int8 path of the forward even
     when the backward runs outside the `int8_matmul` context (autograd's
-    thread on the card): remat and no-remat LoRA grads are equal. Without
-    the mode handed to the recompute they are not."""
+    thread on the card): remat and no-remat LoRA grads are equal, in each
+    mode that takes int8 products in the blocks, and with the mode set by
+    ``PCM_INT8_MATMUL=1`` alone (``both``). Without the context's mode handed
+    to the recompute they are not."""
+    monkeypatch.delenv("PCM_INT8_MATMUL", raising=False)
     v = _tiny_sdxl_params(7)
     rng = np.random.default_rng(8)
     x = t(rng.standard_normal((2, 4, 16, 16)).astype(np.float32))
@@ -403,18 +490,26 @@ def test_remat_grads_match_under_fused():
     added = {"text_embeds": t(rng.standard_normal((2, 32)).astype(np.float32)),
              "time_ids": t(np.tile(np.array([16, 16, 0, 0, 16, 16], np.float32), (2, 1)))}
     adapter = convert.lora_state_from_jax(v["lora"])
+    if mode == "env":
+        monkeypatch.setenv("PCM_INT8_MATMUL", "1")
 
     def grads(remat):
         port = _port_unet(v["params"], remat)
         quant.quantize_frozen({"unet": port}, min_size=0)
         lora = {k: a.clone().requires_grad_(True) for k, a in adapter.items()}
-        with quant.int8_matmul("fused"):
+        with (contextlib.nullcontext() if mode == "env" else _warns(mode)), \
+                (contextlib.nullcontext() if mode == "env" else quant.int8_matmul(mode)):
             loss = port(x, ts, ctx, lora, added).square().mean()
         return torch.autograd.grad(loss, list(lora.values()))  # outside the context
 
     plain, remat = grads(False), grads(True)
     for a, b in zip(plain, remat):
         assert torch.equal(a, b)
+    if mode == "env":
+        with quant.int8_matmul(enable=False):  # the env mode took int8 products
+            dequant = grads(False)
+        assert any(not torch.equal(a, b) for a, b in zip(plain, dequant))
+        return
 
     lost = unet_module._remat_contexts
     try:  # a recompute that drops the int8 mode takes the dequantized weights:

@@ -634,13 +634,33 @@ def test_train_cli_pixels_sigterm_and_resume(tmp_path):
     assert [(r["from_step"], r["to_step"]) for r in runs] == [(0, stop), (stop, 6)]
 
 
+@pytest.mark.parametrize("recipe", ["sd3_2phase_adv", "sd15_2phase_adv"],
+                         ids=["sd3", "adversarial_int8"])
+def test_train_cli_pixels_int8(tmp_path, capsys, recipe):
+    """An SD3 recipe and an adversarial one on int8 frozen weights from a
+    folder of PNGs (both refused before): two global steps of the fused pair
+    under ``--int8-matmul fused``, the towers quantized as well as the
+    backbone, finite losses."""
+    from pcm_tpu_torch.train.__main__ import main
+    from pcm_tpu_torch.utils.quant import quantized_bytes_saved
+
+    trainer = main(["--recipe", recipe, "--tiny", "--device", "cpu", "--train-data-dir",
+                    _png_folder(tmp_path / "imgs", 4), "--output-dir", str(tmp_path / "run"),
+                    "--resolution", "16", "--batch-size", "2", "--max-train-steps", "2",
+                    "--log-every", "1", "--adv-pairing", "fused", "--dataloader-workers", "1",
+                    "--frozen-weights", "int8", "--int8-matmul", "fused"])
+    printed = capsys.readouterr().out
+    assert trainer.global_step == 2 and "step 2:" in printed and "nan" not in printed
+    text = trainer.frozen["text"].text_model.encoder.layers[0].mlp.fc1
+    assert text.weight is None and text.weight_values.dtype == torch.int8
+    assert quantized_bytes_saved(trainer.frozen) > 0
+
+
 @pytest.mark.parametrize("extra,msg", [
-    (["--recipe", "sd3_2phase_adv", "--frozen-weights", "int8"], "int8 with an SD3 recipe"),
-    (["--recipe", "sd15_2phase_adv", "--frozen-weights", "int8"], "not yet ported"),
     (["--recipe", "sd15_4phase", "--cached-latents-dir", "x"], "one of"),
     (["--recipe", "sd15_4phase", "--no-tiny-tokenizer"], "no tokenizer"),
     (["--recipe", "sd15_4phase", "--with-bmp"], "1 of the 1 images")],
-    ids=["sd3", "adversarial_int8", "both_sources", "no_tokenizer", "unreadable_image"])
+    ids=["both_sources", "no_tokenizer", "unreadable_image"])
 def test_train_cli_refuses_pixels(tmp_path, capsys, extra, msg):
     from pcm_tpu_torch.train.__main__ import main
 

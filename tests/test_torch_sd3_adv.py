@@ -465,13 +465,24 @@ def test_train_cli_sd3_adv_resumes_heads(tmp_path, capsys):
         assert torch.equal(v, heads[k]), k
 
 
-def test_train_cli_refuses_int8_with_sd3(tmp_path, capsys):
-    with pytest.raises(SystemExit) as e:
-        train_main(["--recipe", "sd3_4phase_adv", "--frozen-weights", "int8", "--tiny",
-                    "--device", "cpu", "--output-dir", str(tmp_path / "o"),
-                    "--cached-latents-dir", str(tmp_path)])
-    err = capsys.readouterr().err
-    assert e.value.code != 0 and "int8 with an SD3 recipe is not yet ported" in err
+@pytest.mark.parametrize("mode", ["scoped", "dense", "fused"])
+def test_train_cli_int8_with_sd3(tmp_path, capsys, mode):
+    """``--recipe sd3_4phase_adv --frozen-weights int8 --int8-matmul <mode>``
+    (refused before): two global steps of the fused pair, finite losses, the
+    MMDiT on int8 weights (``pos_embed.proj`` too), the LoRA and the heads
+    moved."""
+    trainer = _train(tmp_path, "sd3_4phase_adv", "fused", _write_cache(tmp_path / "cache"), 2,
+                     "--frozen-weights", "int8", "--int8-matmul", mode)
+    printed = capsys.readouterr().out
+    assert trainer.global_step == 2 and f"int8 matmul {mode}" in printed
+    assert "step 2:" in printed and "nan" not in printed
+    mm = trainer.frozen["mmdit"]
+    assert mm.pos_embed.proj.weight_values.dtype == torch.int8
+    assert mm.transformer_blocks[0].to_q.weight is None
+    assert trainer.distill_cfg.int8_no_grad_fwd == (mode == "scoped")
+    assert max(float(p.abs().max()) for k, p in trainer.state.params.items()
+               if k.endswith("lora_b")) > 0
+    assert trainer.d_state.step == 1
 
 
 def test_serve_sd3_adversarial_file_tiny_cpu(tmp_path, capsys):

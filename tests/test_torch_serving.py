@@ -241,8 +241,21 @@ def test_serve_entry_point_tiny_cpu():
         proc.wait(timeout=30)
 
 
+def test_serve_entry_point_takes_sd3_int8():
+    """``--family sd3 --weights int8`` (refused before) passes the CLI's
+    checks and builds a TINY engine whose MMDiT holds int8 codes."""
+    from pcm_tpu_torch.serving.__main__ import build_engine, build_parser, check_args
+
+    ap = build_parser()
+    args = ap.parse_args(["--family", "sd3", "--weights", "int8", "--tiny", "--device", "cpu",
+                          "--resolution", "16", "--batch-size", "1"])
+    check_args(ap, args)
+    engine = build_engine(args)
+    assert engine.frozen["mmdit"].proj_out.weight_values.dtype == torch.int8
+    assert engine.generate_batch(["a cat"], [1]).shape == (1, 16, 16, 3)
+
+
 @pytest.mark.parametrize("argv,msg", [
-    (["--family", "sd3", "--weights", "int8"], "not yet ported"),  # SD3 serves in bf16
     (["--data-parallel", "2"], "not yet ported"),
     (["--lora", "x.safetensors"], "no such file"),  # --lora is ported: tests/test_torch_kohya.py
 ])

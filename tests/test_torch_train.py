@@ -418,16 +418,39 @@ def test_train_cli_runs_and_resumes(tmp_path, capsys):
         _train(*common, "--max-train-steps", "4", "--use-8bit-adam")
 
 
+@pytest.mark.parametrize("recipe,cache", [("sd15_2phase_adv", "sd15"), ("sd3_2phase_adv", "sd3")],
+                         ids=["adversarial", "sd3"])
+def test_train_cli_int8_every_recipe(tmp_path, capsys, recipe, cache):
+    """int8 frozen weights with an adversarial recipe and with an SD3 recipe
+    (both refused before), the frozen weights quantized before the heads
+    are drawn: two global steps of the fused pair under ``--int8-matmul
+    fused``, finite losses, a moving LoRA."""
+    rng = np.random.default_rng(12)
+    (tmp_path / "cache").mkdir()
+    seq, width = (154, 32) if cache == "sd3" else (77, 32)
+    arrays = {"latents": rng.standard_normal((4, 8, 8, 4)).astype(np.float16),
+              "prompt_embeds": rng.standard_normal((4, seq, width)).astype(np.float16)}
+    if cache == "sd3":
+        arrays["pooled_embeds"] = rng.standard_normal((4, 32)).astype(np.float16)
+    np.savez(tmp_path / "cache" / "shard_00000.npz", **arrays)
+    trainer = _train("--recipe", recipe, "--tiny", "--device", "cpu", "--output-dir",
+                     str(tmp_path / "o"),
+                     "--cached-latents-dir", str(tmp_path / "cache"), "--batch-size", "2",
+                     "--max-train-steps", "2", "--log-every", "1", "--adv-pairing", "fused",
+                     "--frozen-weights", "int8", "--int8-matmul", "fused")
+    printed = capsys.readouterr().out
+    assert trainer.global_step == 2 and "step 2:" in printed and "nan" not in printed
+    assert max(float(v.abs().max()) for k, v in trainer.state.params.items()
+               if k.endswith("lora_b")) > 0
+
+
 @pytest.mark.parametrize("extra,msg", [
-    # the adversarial recipes (SD3's too) are ported, not on int8 frozen weights
-    (["--recipe", "sd15_2phase_adv", "--frozen-weights", "int8"], "not yet ported"),
-    (["--recipe", "sd3_2phase_adv", "--frozen-weights", "int8"], "not yet ported"),
     # Prodigy is ported; it takes no schedule (`pcm_tpu/train/state.py:50-58`)
     (["--recipe", "sd15_4phase", "--optimizer", "prodigy", "--lr-warmup-steps", "10"],
      "takes no learning-rate schedule"),
     # int8 products are ported; they need int8 weights (scripts/train.py:199-203)
     (["--recipe", "sd15_4phase", "--int8-matmul", "dense"], "requires --frozen-weights int8")],
-    ids=["adversarial", "sd3", "prodigy", "int8_matmul"])
+    ids=["prodigy", "int8_matmul"])
 def test_train_cli_refuses_unported(tmp_path, capsys, extra, msg):
     with pytest.raises(SystemExit) as exc:
         _train(*extra, "--tiny", "--device", "cpu", "--output-dir", str(tmp_path / "o"),
