@@ -15,7 +15,10 @@ a hub folder, Prodigy training with validation grids and asynchronous saves,
 and ``python -m pcm_tpu_torch.generate`` with TCD and DDIM; and int8
 frozen weights on every family and recipe: the int8-against-bf16 loss
 trajectory of an adversarial recipe, SDXL and SD3 adversarial training,
-SD3 serving on int8 weights, and the int8 ``conv`` / ``both`` modes.
+SD3 serving on int8 weights, and the int8 ``conv`` / ``both`` modes; and
+data parallelism: the trainer under ``python -m torch.distributed.run`` (one
+NCCL rank, two gloo ranks sharing the card) and, with several cards, the
+SDXL step and the sharded serving engine on all of them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -224,6 +227,22 @@ Phases, one printed line each:
      `QConvFn`'s ``dx`` against autograd of the dequantized conv within two
      bf16 ulps; the input gradient of the whole UNet under ``both`` against
      ``dense``'s, beside the input-nudge yardstick, printed.
+ddp. data parallelism (`ddp_phase`), four trainer runs as child processes,
+     concurrently, ``sd15_4phase`` at full width for 3 steps on phase 7's
+     cache rearranged (`write_ddp_caches`): (a) ``python -m
+     torch.distributed.run --nproc-per-node 1`` (one NCCL rank) at batch 4
+     against the same run with no process group, bit for bit in the losses
+     of ``metrics.jsonl`` and in the saved LoRA, K1-K5 launched; (b) two gloo
+     ranks on the card at batch 2 each, against one process at batch 4 on
+     the same global batches, losses and LoRA within max(2e-2, 2 x the
+     yardstick), the yardstick the one process against itself at batch 2 x
+     ``--gradient-accumulation-steps 2`` (the same rows and draws, sums in
+     another order); (c) with more than one card visible
+     (`ddp_cards`, ``scripts/bench_ddp_torch.py``): the SDXL cached step at
+     batch 4 a card on N NCCL ranks against one, each rank's step ms, the
+     bytes and ms of the step's all-reduce, the peak, and ``serving --family
+     sdxl --data-parallel N`` at batch 4 x N against one card at 4; with one
+     card it prints ``cards=1``.
 Each main path runs with the launch counts set to 0 just before it and read
 just after. Then a JSON line of the kernels, the nvidia-smi line, and a last
 JSON line ``{"ok": true, ...}``.
@@ -960,6 +979,207 @@ def check_train(tag: str, tr: dict, kernels) -> None:
     missing = [k for k in kernels if tr["counts"][k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the {tag} path: {missing}")
+
+
+# ---------------------------------------------------------------------------
+# phase ddp: data parallelism
+# ---------------------------------------------------------------------------
+
+DDP_STEPS = 3
+DDP_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+               "group_norm_silu", "geglu")
+
+
+def _index_stream(n: int, batch: int, seed: int, steps: int) -> list:
+    """The cached loader's first ``steps`` batches of indices over ``n``
+    samples (`data/cached.py:batches`)."""
+    from pcm_tpu_torch.data.cached import batches
+
+    class Indices:
+        def __len__(self):
+            return n
+
+        def get(self, j):
+            import numpy as np
+
+            return {"i": np.array(j)}
+
+    it = batches(Indices(), batch, seed)
+    return [next(it)["i"] for _ in range(steps)]
+
+
+def write_ddp_caches(cache_dir: str, out_dir: str, seed: int, world: int = 2,
+                     per_rank: int = 2) -> tuple:
+    """Phase 7's shard split into ``world`` shards under ``<out>/ranks``
+    (rank r reads shard r) and one shard under ``<out>/one`` whose first
+    `DDP_STEPS` batches of ``world x per_rank`` are the ``world``-rank run's
+    global batches, rank 0's rows first."""
+    import numpy as np
+
+    with np.load(os.path.join(cache_dir, "shard_00000.npz")) as z:
+        data = {k: z[k] for k in z.files}
+    n = len(data["latents"]) // world
+    shards = [{k: v[r * n:(r + 1) * n] for k, v in data.items()} for r in range(world)]
+    ranks, one = os.path.join(out_dir, "ranks"), os.path.join(out_dir, "one")
+    for d in (ranks, one):
+        os.makedirs(d, exist_ok=True)
+    for r, shard in enumerate(shards):
+        np.savez(os.path.join(ranks, f"shard_{r:05d}.npz"), **shard)
+    rank_idx = [_index_stream(n, per_rank, seed, DDP_STEPS) for _ in range(world)]
+    seq = [(r, i) for s in range(DDP_STEPS) for r in range(world) for i in rank_idx[r][s]]
+    order = np.concatenate(_index_stream(len(seq), per_rank * world, seed, DDP_STEPS))
+    rows = {k: np.empty((len(seq), *v.shape[1:]), v.dtype) for k, v in data.items()}
+    for pos, (r, i) in zip(order, seq):
+        for k in rows:
+            rows[k][pos] = shards[r][k][i]
+    np.savez(os.path.join(one, "shard_00000.npz"), **rows)
+    return ranks, one
+
+
+def _ddp_run(out_dir: str, cache: str, batch: int, seed: int, ranks: int = 0,
+             accum: int = 1):
+    """``python -m pcm_tpu_torch.train --recipe sd15_4phase`` as a child
+    process (under ``python -m torch.distributed.run`` with ``ranks``),
+    `DDP_STEPS` steps, a checkpoint at the last; returns the process and its
+    log file."""
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    launcher = (["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(ranks)]
+                if ranks else [])
+    argv = [sys.executable, "-u", *launcher, "-m", "pcm_tpu_torch.train", "--recipe",
+            "sd15_4phase", "--cached-latents-dir", cache, "--output-dir", out_dir,
+            "--batch-size", str(batch), "--gradient-accumulation-steps", str(accum), "--seed",
+            str(seed), "--log-every", "1", "--max-train-steps", str(DDP_STEPS),
+            "--checkpointing-steps", str(DDP_STEPS), "--no-resume"]
+    log_file = open(os.path.join(out_dir, "stdout.log"), "w")
+    return subprocess.Popen(argv, stdout=log_file, stderr=subprocess.STDOUT, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__))), log_file
+
+
+def _ddp_result(out_dir: str) -> dict:
+    """A finished run's losses, saved LoRA, launches and printed lines."""
+    with open(os.path.join(out_dir, "stdout.log")) as f:
+        lines = f.read().splitlines()
+    rows = [r for r in _rows_of(out_dir) if "loss" in r]
+    with open(os.path.join(out_dir, "launches.jsonl")) as f:
+        counts = json.loads(f.read().splitlines()[-1])["launches"]
+    ck = torch.load(os.path.join(out_dir, "checkpoints", f"step_{DDP_STEPS:07d}.pt"),
+                    map_location="cpu", weights_only=True)
+    return {"losses": [r["loss"] for r in rows], "step_ms": [r["step_ms"] for r in rows],
+            "peak_gib": max(r["peak_gib"] for r in rows), "lora": ck["lora"], "counts": counts,
+            "banner": next((ln for ln in lines if ln.startswith("# sd15_4phase")), "")}
+
+
+def _ddp_diff(run: dict, ref: dict) -> tuple:
+    """(the losses' largest relative difference, the LoRA's rel-max: its
+    largest difference over its largest entry)."""
+    loss = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], ref["losses"]))
+    top = max(float(v.abs().max()) for v in ref["lora"].values())
+    lora = max(float((run["lora"][k] - v).abs().max()) for k, v in ref["lora"].items()) / top
+    return loss, lora
+
+
+def ddp_phase(cache_dir: str, seed: int) -> list:
+    """Phase ddp (a) and (b): four child runs at once (the card holds them),
+    then the checks; (c) on several cards (`ddp_cards`). Returns the runs
+    with their launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = "build/chip_smoke/ddp"
+    ranks_cache, one_cache = write_ddp_caches(cache_dir, root, seed)
+    t0 = time.perf_counter()
+    specs = {"plain": (one_cache, 4, 0, 1), "nccl1": (one_cache, 4, 1, 1),
+             "gloo2": (ranks_cache, 2, 2, 1), "accum2": (one_cache, 2, 0, 2)}
+    procs = {tag: _ddp_run(os.path.join(root, tag), cache, batch, seed, ranks, accum)
+             for tag, (cache, batch, ranks, accum) in specs.items()}
+    rcs = {}
+    for tag, (proc, log_file) in procs.items():
+        try:
+            rcs[tag] = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_file.close()
+    if any(rcs.values()):
+        tails = {tag: open(os.path.join(root, tag, "stdout.log")).read()[-2000:]
+                 for tag, rc in rcs.items() if rc}
+        raise AssertionError(f"ddp runs failed: {rcs} {tails}")
+    runs = {tag: _ddp_result(os.path.join(root, tag)) for tag in specs}
+    wall = time.perf_counter() - t0
+    plain, nccl1, gloo2, accum2 = (runs[k] for k in specs)
+    identical = (nccl1["losses"] == plain["losses"]
+                 and all(torch.equal(nccl1["lora"][k], v) for k, v in plain["lora"].items()))
+    yard = _ddp_diff(accum2, plain)
+    got = _ddp_diff(gloo2, plain)
+    caps = [max(2e-2, 2 * y) for y in yard]
+    log("ddp", runs_wall_s=f"{wall:.1f}", nccl1_identical=identical,
+        nccl1_banner=repr(nccl1["banner"]), gloo2_banner=repr(gloo2["banner"]),
+        losses=json.dumps({k: [round(x, 6) for x in r["losses"]] for k, r in runs.items()}),
+        gloo2_vs_plain="%.3e/%.3e" % got, yardstick="%.3e/%.3e" % yard,
+        bounds="%.3e/%.3e" % tuple(caps),
+        step_ms=json.dumps({k: [round(x, 1) for x in r["step_ms"]] for k, r in runs.items()}),
+        peak_gib=json.dumps({k: round(r["peak_gib"], 3) for k, r in runs.items()}),
+        nccl1_counts=json.dumps(nccl1["counts"]))
+    missing = [k for k in DDP_KERNELS if nccl1["counts"][k] == 0]
+    if not (identical and "rank 0 of 1 (nccl)" in nccl1["banner"]
+            and "rank 0 of 2 (gloo), global batch 4" in gloo2["banner"] and not missing
+            and all(math.isfinite(x) for r in runs.values() for x in r["losses"])
+            and all(g <= c for g, c in zip(got, caps))):
+        raise AssertionError(f"data parallelism: one NCCL rank identical {identical}, two gloo "
+                             f"ranks {got} against bounds {caps}, kernels not launched "
+                             f"{missing}, banners {nccl1['banner']!r} {gloo2['banner']!r}")
+    for r in runs.values():
+        del r["lora"]
+    return list(runs.values()) + ddp_cards(seed)
+
+
+def ddp_cards(seed: int) -> list:
+    """Phase ddp (c): with N > 1 cards, ``scripts/bench_ddp_torch.py``'s SDXL
+    step on N NCCL ranks and on one, and its serving engine with
+    ``--data-parallel N`` against one card; with one card, ``cards=1``."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log("ddp-cards", cards=cards)
+        return []
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(here, "scripts", "bench_ddp_torch.py")
+
+    def run(*argv):
+        out = subprocess.run([sys.executable, *argv], capture_output=True, text=True, cwd=here,
+                             timeout=1200)
+        lines = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
+        if out.returncode or not lines:
+            raise AssertionError(f"{argv}: rc {out.returncode}\n{out.stderr[-3000:]}")
+        return json.loads(lines[-1])
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    launcher = ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node"]
+    one = run(*launcher, "1", script, "step", "--seed", str(seed))
+    many = run(*launcher, str(cards), script, "step", "--seed", str(seed))
+    serve = run(script, "serve", "--cards", str(cards), "--seed", str(seed))
+    log("ddp-cards", cards=cards, backend=many["backend"], batch_per_card=many["batch_per_card"],
+        one_card_step_ms=f"{one['ranks'][0]['median_ms']:.1f}",
+        step_ms_per_rank=json.dumps([round(r["median_ms"], 1) for r in many["ranks"]]),
+        step_ms_all=json.dumps([[round(x, 1) for x in r["step_ms"]] for r in many["ranks"]]),
+        one_card_step_ms_all=json.dumps([round(x, 1) for x in one["ranks"][0]["step_ms"]]),
+        allreduce_bytes=many["allreduce_bytes"],
+        allreduce_mean_ms=f"{many['allreduce_mean_ms']:.3f}",
+        allreduce_bare_ms=f"{many['allreduce_bare_ms']:.3f}",
+        one_card_allreduce_mean_ms=f"{one['allreduce_mean_ms']:.3f}",
+        peak_gib=json.dumps([round(r["peak_gib"], 3) for r in many["ranks"]]),
+        one_card_peak_gib=f"{one['ranks'][0]['peak_gib']:.3f}",
+        serve_one_card_ms=json.dumps([round(x, 1) for x in serve["dp1"]["batch_ms"]]),
+        serve_dp_ms=json.dumps([round(x, 1) for x in serve[f"dp{cards}"]["batch_ms"]]),
+        serve_dp_batch=serve[f"dp{cards}"]["batch"],
+        serve_dp_same_as_one_card=serve[f"dp{cards}"]["same_as_one_card"])
+    losses = [x for r in many["ranks"] + one["ranks"] for x in r["losses"]]
+    if not (all(math.isfinite(x) for x in losses) and many["backend"] == "nccl"
+            and len(set(json.dumps(r["losses"]) for r in many["ranks"])) == 1
+            and serve[f"dp{cards}"]["same_as_one_card"]):
+        raise AssertionError(f"{cards}-card SDXL step: {many}; serving: {serve}")
+    return [{"counts": many["launches"]}, {"counts": serve[f"dp{cards}"]["launches"]}]
 
 
 # ---------------------------------------------------------------------------
@@ -3144,6 +3364,7 @@ def main() -> int:
     sd3_runs = sd3_phases(args.seed, gen)
     hub_runs = hub_phases(args.seed)
     int8_runs = int8_phases(args.seed, gen, cache, xl_cache, adv_runs[0], sd3_runs[-1])
+    ddp_runs = ddp_phase(cache, args.seed)
 
     retained = sum(os.path.getsize(os.path.join(d, f))
                    for d, _, fs in os.walk("build/chip_smoke") for f in fs)
@@ -3161,7 +3382,8 @@ def main() -> int:
                "geglu": ("pcm_tpu_torch/csrc/geglu.cu", "pcm_tpu/ops/geglu.py:47"),
                "int8_matmul": ("pcm_tpu_torch/csrc/int8_matmul.cu",
                                "pcm_tpu/ops/int8_matmul.py:56")}
-    runs = (s, tr, ti, sx, *adv_runs, enc, px, sl, *xl_runs, *sd3_runs, *hub_runs, *int8_runs)
+    runs = (s, tr, ti, sx, *adv_runs, enc, px, sl, *xl_runs, *sd3_runs, *hub_runs, *int8_runs,
+            *ddp_runs)
     launches = {k: sum(run["counts"][k] for run in runs) for k in sources}
     kernels["group_norm_silu"]["fp32_launches"] = sum(
         run["counts"]["group_norm_silu_fp32"] for run in runs)

@@ -311,7 +311,7 @@ cudaError_t launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o, f
         pcm::map_bshd(&tv, v, b, sk, h, d, st[6], st[7], st[8], BK, CW)))
     return cudaErrorInvalidPitchValue;  // cuTensorMapEncodeTiled refused a tensor map
   auto kern = flash_fwd_kernel<D_PAD, BK, CW>;
-  static const cudaError_t allowed = pcm::allow_smem(kern, C::smem_bytes);  // once an instance
+  const cudaError_t allowed = pcm::allow_smem(kern, C::smem_bytes);  // once a device
   if (allowed != cudaSuccess) return allowed;
   const int tiles = (sq + C::BQ - 1) / C::BQ * b * h;
   kern<<<std::min(tiles, pcm::sm_count()), THREADS, C::smem_bytes, stream>>>(
@@ -532,7 +532,7 @@ cudaError_t launch_d512(const bf16* q, const bf16* k, const bf16* v, bf16* o, fl
         pcm::map_bshd(&tv, v, b, sk, h, d, st[6], st[7], st[8], C::BK, C::CW)))
     return cudaErrorInvalidPitchValue;  // cuTensorMapEncodeTiled refused a tensor map
   auto kern = flash_fwd_d512_kernel;
-  static const cudaError_t allowed = pcm::allow_smem(kern, C::smem_bytes);  // once
+  const cudaError_t allowed = pcm::allow_smem(kern, C::smem_bytes);  // once a device
   if (allowed != cudaSuccess) return allowed;
   const int tiles = (sq + C::BQ - 1) / C::BQ * b * h;
   kern<<<std::min(tiles, pcm::sm_count()), THREADS, C::smem_bytes, stream>>>(

@@ -486,7 +486,7 @@ cudaError_t launch_dkv(const Args& a, bf16* dk, bf16* dv, float* part, int nspli
         pcm::map_bshd(&tv, a.v, a.b, a.sk, a.h, a.d, a.vsb, a.vss, a.vsh, C::BK)))
     return cudaErrorInvalidPitchValue;  // cuTensorMapEncodeTiled refused a tensor map
   auto kern = flash_bwd_dkv_kernel<D_PAD, WD, BQ>;
-  static const cudaError_t allowed = pcm::allow_smem(kern, C::smem_bytes);  // once an instance
+  const cudaError_t allowed = pcm::allow_smem(kern, C::smem_bytes);  // once a device
   cudaError_t err = allowed;
   if (err != cudaSuccess) return err;
   const int nsteps = (a.sq + C::BQ - 1) / C::BQ;
@@ -513,7 +513,7 @@ cudaError_t launch_dq(const Args& a, bf16* dq) {
         pcm::map_bshd(&tv, a.v, a.b, a.sk, a.h, a.d, a.vsb, a.vss, a.vsh, C::BK)))
     return cudaErrorInvalidPitchValue;
   auto kern = flash_bwd_dq_kernel<D_PAD, BK>;
-  static const cudaError_t allowed = pcm::allow_smem(kern, C::smem_bytes);  // once an instance
+  const cudaError_t allowed = pcm::allow_smem(kern, C::smem_bytes);  // once a device
   cudaError_t err = allowed;
   if (err != cudaSuccess) return err;
   dim3 grid((a.sq + C::BQ - 1) / C::BQ, a.b * a.h);

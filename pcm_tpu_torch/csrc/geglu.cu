@@ -170,7 +170,7 @@ extern "C" int pcm_geglu(const void* x, const void* w, const void* bias, void* o
   if (!(pcm::tensor_map(&tx, x, 2, xdims, row_bytes, xbox) &&
         pcm::tensor_map(&tw, w, 2, wdims, row_bytes, wbox)))
     return cudaErrorInvalidPitchValue;  // cuTensorMapEncodeTiled refused a tensor map
-  static const cudaError_t allowed = pcm::allow_smem(geglu_kernel, SMEM_BYTES);  // once
+  const cudaError_t allowed = pcm::allow_smem(geglu_kernel, SMEM_BYTES);  // once a device
   if (allowed != cudaSuccess) return allowed;
   const int tiles = ((f + BN - 1) / BN) * ((m + BM - 1) / BM);
   geglu_kernel<<<std::min(tiles, pcm::sm_count()), THREADS, SMEM_BYTES,

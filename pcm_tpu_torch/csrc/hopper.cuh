@@ -27,6 +27,8 @@
 
 #include <algorithm>
 #include <mutex>
+#include <utility>
+#include <vector>
 
 #include "common.cuh"
 #include "wgmma_ops.cuh"
@@ -390,11 +392,24 @@ inline int sm_count() {
   return n > 0 ? n : 1;
 }
 
-// Dynamic shared memory above 48 KB for a kernel (once an instance: the
-// caller keeps the result in a static).
+// Dynamic shared memory above 48 KB for a kernel on the current device. The
+// attribute belongs to a device's context, so it is set once a (kernel,
+// device), here: a process that launches on several cards (the serving
+// engine's data-parallel replicas, one host thread a card) sets it on each.
 template <typename Kern>
 cudaError_t allow_smem(Kern kern, size_t bytes) {
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  static std::mutex mu;
+  static std::vector<std::pair<const void*, int>> done;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const void* fn = reinterpret_cast<const void*>(kern);
+  std::lock_guard<std::mutex> lock(mu);
+  for (const auto& d : done)
+    if (d.first == fn && d.second == dev) return cudaSuccess;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) done.emplace_back(fn, dev);
+  return err;
 }
 
 }  // namespace pcm

@@ -320,7 +320,7 @@ cudaError_t launch_gemm(const int8_t* xq, const int8_t* w, const float* sx, cons
         pcm::tensor_map(&to, out, 2, odims, out_row_bytes, obox)))
     return cudaErrorInvalidPitchValue;  // cuTensorMapEncodeTiled refused a tensor map
   auto kern = int8_matmul_gemm_kernel<CB>;
-  static const cudaError_t allowed = pcm::allow_smem(kern, C::smem_bytes);  // once an instance
+  const cudaError_t allowed = pcm::allow_smem(kern, C::smem_bytes);  // once a device
   if (allowed != cudaSuccess) return allowed;
   const int tiles = ((n + BN - 1) / BN) * ((m + BM - 1) / BM);
   kern<<<std::min(tiles, pcm::sm_count()), THREADS, C::smem_bytes, stream>>>(

@@ -6,6 +6,8 @@ A cache is a directory of ``shard_*.npz`` files (written by
 least ``latents`` (N, h, w, C), optionally ``prompt_embeds`` (N, 77, D) and,
 for SDXL, ``pooled_embeds`` (N, 1280) and ``time_ids`` (N, 6). Every key of
 a shard is read.
+With several ranks each reads its own slice of the shard files
+(`dataset.shard_for_process`).
 Batches come out as numpy dicts; fp16 arrays (how the cache stores bf16
 tensors) are promoted to fp32, as `scripts/train.py:325-329` does.
 """
@@ -18,16 +20,24 @@ from typing import Dict, Iterator, List
 
 import numpy as np
 
+from .dataset import shard_for_process
+
 
 class CachedLatentsDataset:
-    """Random access over the concatenated shards, keeping the last
-    ``keep_shards`` shards loaded."""
+    """Random access over the concatenated shards (process ``process_index``
+    of ``process_count``'s slice of them), keeping the last ``keep_shards``
+    shards loaded."""
 
-    def __init__(self, cache_dir: str, keep_shards: int = 2):
-        self.files = sorted(os.path.join(cache_dir, f) for f in os.listdir(cache_dir)
-                            if f.startswith("shard_") and f.endswith(".npz"))
-        if not self.files:
+    def __init__(self, cache_dir: str, keep_shards: int = 2, process_index: int = 0,
+                 process_count: int = 1):
+        files = sorted(os.path.join(cache_dir, f) for f in os.listdir(cache_dir)
+                       if f.startswith("shard_") and f.endswith(".npz"))
+        if not files:
             raise FileNotFoundError(f"no shard_*.npz under {cache_dir}")
+        if process_count > len(files):  # every rank raises, not just those left out
+            raise ValueError(f"{len(files)} shard files under {cache_dir} for {process_count} "
+                             "ranks: each rank needs one")
+        self.files = shard_for_process(files, process_index, process_count)
         sizes = []
         for f in self.files:
             with np.load(f) as z:

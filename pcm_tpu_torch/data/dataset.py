@@ -24,6 +24,9 @@ One repair against the JAX loader, which shares one ``random.Random`` across
 its load threads (so dropout and retries depend on thread timing): every
 sample's randomness here comes from a ``random.Random`` seeded with (seed,
 epoch, position in the epoch), so a seed fixes the batches.
+
+With several ranks each reads its own slice of the file list
+(`shard_for_process`, applied by the trainer to ``files``).
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import os
 import random
 import signal
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
-from typing import Callable, Dict, Iterator, List, Mapping, Optional
+from typing import Callable, Dict, Iterator, List, Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -50,6 +53,11 @@ def list_image_files(root: str) -> List[str]:
     for dirpath, _, files in os.walk(root):
         out.extend(os.path.join(dirpath, f) for f in files if f.lower().endswith(IMAGE_EXTS))
     return sorted(out)
+
+
+def shard_for_process(files: Sequence[str], index: int, count: int) -> List[str]:
+    """Process ``index`` of ``count``'s files: every ``count``-th from its index."""
+    return list(files[index::count])
 
 
 def sample_rng(seed: int, epoch: int, position: int) -> random.Random:

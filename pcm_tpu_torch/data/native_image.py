@@ -57,14 +57,15 @@ _lib = None
 _load_error: Optional[str] = None
 
 
-def native_library() -> str:
-    """The path of the library built from the checkout's ``image_pipe.cpp``:
-    a directory a source and flags hash, so an edit builds anew."""
-    source = os.path.join(NATIVE_DIR, "image_pipe.cpp")
-    h = hashlib.sha256(" ".join(CXX_FLAGS + LIBS).encode())
-    with open(source, "rb") as f:
+def native_library(source: str = "image_pipe.cpp", libs=LIBS) -> str:
+    """The path of the library ``lib<stem>.so`` built from the checkout's
+    ``native/<source>``: a directory a source and flags hash, so an edit
+    builds anew."""
+    with open(os.path.join(NATIVE_DIR, source), "rb") as f:
+        h = hashlib.sha256(" ".join(CXX_FLAGS + tuple(libs)).encode())
         h.update(f.read())
-    return os.path.join(BUILD_DIR, h.hexdigest()[:16], "libimage_pipe.so")
+    return os.path.join(BUILD_DIR, h.hexdigest()[:16],
+                        f"lib{os.path.splitext(source)[0]}.so")
 
 
 @contextlib.contextmanager
@@ -79,25 +80,40 @@ def _build_lock(path: str):
             fcntl.flock(lock, fcntl.LOCK_UN)
 
 
-def build_native(path: str) -> None:
-    """Compile ``image_pipe.cpp`` to ``path`` unless it exists: ``g++`` to a
+def build_native(path: str, source: str = "image_pipe.cpp", libs=LIBS) -> None:
+    """Compile ``native/<source>`` to ``path`` unless it exists: ``g++`` to a
     temporary name, then a rename, under the lock."""
     with _build_lock(path):
         if os.path.exists(path):
             return
         tmp = f"{path}.{os.getpid()}.tmp"
         try:
-            subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, os.path.join(NATIVE_DIR,
-                                                                      "image_pipe.cpp"), *LIBS],
-                           check=True, capture_output=True, text=True)
+            subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, os.path.join(NATIVE_DIR, source),
+                            *libs], check=True, capture_output=True, text=True)
             os.replace(tmp, path)
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
 
 
+def load_native(source: str, libs=LIBS) -> ctypes.CDLL:
+    """``native/<source>`` built (`build_native`, once for every process)
+    and loaded; a load that fails is tried once more under the build lock,
+    with no build of another process under way."""
+    path = native_library(source, libs)
+    build_native(path, source, libs)
+    try:
+        return ctypes.CDLL(path)
+    except OSError:
+        with _build_lock(path):
+            return ctypes.CDLL(path)
+
+
 def _load(path: str) -> ctypes.CDLL:
-    lib = ctypes.CDLL(path)
+    return _bind(ctypes.CDLL(path))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ip_load_resized.argtypes = [
         ctypes.c_char_p, ctypes.c_int, ctypes.POINTER(ctypes.POINTER(ctypes.c_ubyte)),
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
@@ -114,14 +130,8 @@ def _get_lib():
     with _lock:
         if _lib is not None or _load_error is not None:
             return _lib
-        path = native_library()
         try:
-            build_native(path)
-            try:
-                _lib = _load(path)
-            except OSError:  # once more, with no build of another process under way
-                with _build_lock(path):
-                    _lib = _load(path)
+            _lib = _bind(load_native("image_pipe.cpp"))
         except subprocess.CalledProcessError as e:
             _load_error = f"g++ libimage_pipe.so failed: {(e.stderr or '').strip()[-300:]}"
         except OSError as e:

@@ -5,7 +5,9 @@ and `pcm_tpu/data/native_tokenizer.py`).
 package's (md5 word hashing with CLIP-style BOS/EOS framing; a test holds the
 two equal). `resolve_tokenizers` builds the per-tower tokenizers of a local
 tokenizer directory: the native C++ CLIP BPE (``native/clip_bpe.cpp``, bound
-with ctypes and built with ``make`` on first use) where ``vocab.json`` and
+with ctypes and built on first use with ``g++`` into
+``build/pcm_tpu_torch/native/<source hash>/``, under the image library's lock
+and rename: `native_image.load_native`) where ``vocab.json`` and
 ``merges.txt`` exist, else a transformers tokenizer. The port keeps its own
 copy so that it loads nothing of the JAX package.
 """
@@ -21,7 +23,7 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
-NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "native")
+from . import native_image
 
 
 class HashTokenizer:
@@ -59,21 +61,13 @@ class HFTokenizer:
         return enc["input_ids"].astype(np.int32)
 
 
-def _native_library() -> str:
-    lib = os.path.join(NATIVE_DIR, "libclip_bpe.so")
-    if not os.path.exists(lib):
-        subprocess.run(["make", "-C", NATIVE_DIR, "libclip_bpe.so"], check=True,
-                       capture_output=True)
-    return lib
-
-
 class NativeCLIPTokenizer:
     """CLIP BPE from vocab.json + merges.txt in C++ (``native/clip_bpe.cpp``):
     BOS text EOS, padded with EOS, as CLIPTokenizer frames it."""
 
     def __init__(self, vocab_path: str, merges_path: str, max_length: int = 77,
                  bos_id: int = 49406, eos_id: int = 49407, pad_id: Optional[int] = None):
-        lib = ctypes.CDLL(_native_library())
+        lib = native_image.load_native("clip_bpe.cpp", libs=())
         lib.clip_bpe_new.restype = ctypes.c_void_p
         lib.clip_bpe_new.argtypes = [ctypes.c_char_p, ctypes.c_char_p] + [ctypes.c_int] * 3
         lib.clip_bpe_encode_batch.argtypes = [

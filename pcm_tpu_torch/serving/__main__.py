@@ -29,6 +29,11 @@ each at its use (weight-only: the products stay bf16), for every family, as
 ``unet``, ``vae``, ``text`` and, for SDXL, ``text2``; for SD3 ``mmdit``,
 ``vae``, ``text``, ``text2`` and ``t5``) the weights are drawn on the device
 from ``--seed``.
+``--data-parallel N`` serves each batch on ``cuda:0`` ... ``cuda:N-1``: a
+replica of the weights on each card, each card a contiguous chunk of the
+batch (``--batch-size`` must divide by N, and N must not exceed the visible
+cards; `serving/engine.py`); a request's image is the one a single card
+gives it.
 ``--tiny --device cpu`` runs the tiny configuration on the CPU through the
 kernels' plain versions (a smoke mode; with ``--weights int8`` it quantizes
 every Linear and conv weight: all but a few TINY weights are under the
@@ -68,20 +73,28 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--tiny", action="store_true", help="tiny-model smoke mode")
     ap.add_argument("--enable-lora-swap", action="store_true",
                     help="start with a no-op adapter so adapters can be swapped in later")
-    ap.add_argument("--data-parallel", type=int, default=1)
+    ap.add_argument("--data-parallel", type=int, default=1,
+                    help="split each batch over this many cards (--batch-size must divide by "
+                         "it); 1 = one card")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0, help="seed of the random weights")
     return ap
 
 
 def check_args(ap: argparse.ArgumentParser, args: argparse.Namespace) -> None:
-    """Refuse what is not ported, and a ``--lora`` that is not a file."""
+    """Refuse what is not ported, a ``--lora`` that is not a file and a
+    ``--data-parallel`` that the batch or the cards cannot take."""
     if args.lora and not os.path.isfile(args.lora):
         ap.error(f"--lora {args.lora}: no such file")
     if args.stochastic and args.family != "sd3":
         ap.error("--stochastic is SD3's sampler (--family sd3)")
-    if args.data_parallel != 1:
-        ap.error("--data-parallel is not yet ported")
+    if args.data_parallel < 1:
+        ap.error("--data-parallel must be at least 1")
+    if args.batch_size % args.data_parallel:
+        ap.error("--batch-size must be divisible by --data-parallel")
+    cards = torch.cuda.device_count()
+    if torch.device(args.device).type == "cuda" and 1 < args.data_parallel > cards:
+        ap.error(f"--data-parallel {args.data_parallel} > {cards} visible devices")
     if args.family == "sd3" and args.lora:
         try:
             sd3_lora_targets(args.lora, args.tiny)
@@ -100,6 +113,8 @@ def build_engine(args: argparse.Namespace):
     from .engine import EngineConfig, InferenceEngine
 
     device = torch.device(args.device)
+    if device.type == "cuda" and args.data_parallel > 1:
+        device = torch.device("cuda", 0)
     dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
     default_res, tok_keys = FAMILIES[args.family]
     make_bundle = {"sd15": sd15_bundle, "sdxl": sdxl_bundle, "sd3": sd3_bundle}[args.family]
@@ -121,12 +136,15 @@ def build_engine(args: argparse.Namespace):
                                       SD3_PCM_TIMESTEPS, stochastic=args.stochastic)
     else:
         sampler = DDIMSampler.create(make_ddpm_schedule(), args.steps)
+    devices = ([torch.device("cuda", i) for i in range(args.data_parallel)]
+               if device.type == "cuda" and args.data_parallel > 1
+               else [device] * args.data_parallel)
     engine = InferenceEngine(
         bundle, sampler, frozen, lora, toks,
         EngineConfig(batch_size=args.batch_size, latent_hw=res // bundle.vae_scale,
                      resolution=res, guidance_scale=args.cfg,
                      decode_chunk=decode_chunk(res)),
-        device,
+        devices,
     )
     if args.lora:
         engine.load_lora(args.lora, swap=False)
@@ -143,7 +161,8 @@ def main(argv=None) -> None:
     from .server import BatchingServer
 
     engine = build_engine(args)
-    print(f"# warming up {args.family} {args.steps}-step engine (bs={args.batch_size}) on {device}"
+    print(f"# warming up {args.family} {args.steps}-step engine (bs={args.batch_size}) on "
+          + ", ".join(map(str, engine.devices))
           + (f" with {args.lora}" if args.lora else "") + "...", flush=True)
     engine.warmup()
     server = BatchingServer(engine, args.host, args.port, args.max_wait_ms)

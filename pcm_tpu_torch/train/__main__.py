@@ -12,6 +12,8 @@
       --output-dir runs/sd3_adv [--adv-pairing fresh|fused]
   python -m pcm_tpu_torch.train --recipe sd15_4phase --tiny --device cpu \\
       --cached-latents-dir tiny_cache/ --output-dir runs/tiny --max-train-steps 2
+  python -m torch.distributed.run --nproc-per-node 4 -m pcm_tpu_torch.train \\
+      --recipe sd15_4phase --cached-latents-dir cache/ --output-dir runs/sd15_dp4
 
 The flags are those of `scripts/train.py`: the sd15 recipes
 (consistency-only and ``sd15_2phase_adv``) on cached latents (``shard_*.npz``
@@ -53,6 +55,19 @@ Each run appends the kernels' launch counts of its process to
 ``<output-dir>/launches.jsonl``. Saves are written by a thread of their own
 (`train/loop.py`).
 
+Under ``python -m torch.distributed.run`` (or with ``--multihost`` and that
+launcher's environment) each process is a rank of a data-parallel run
+(`parallel/mesh.py`): rank r trains on ``cuda:LOCAL_RANK`` (NCCL; gloo when
+ranks share a card, or with ``--device cpu``), reads every N-th shard file or
+image from its index (`shard_for_process`; each rank needs one) and takes a
+block of the global batch of ``--batch-size`` x N rows (``--batch-size``,
+``--vae-encode-chunk`` and ``--dataloader-workers`` count per rank); the
+gradients are averaged over the ranks every step, so N ranks compute what
+one process computes on the global batch. Rank 0 alone prints the banner
+and the log rows and writes ``metrics.jsonl``, checkpoints, kohya files,
+validation grids and ``launches.jsonl``; a SIGTERM to any rank stops every
+rank after the same step.
+
 Every ``--validation-steps`` global steps (500; 0: none) the student
 samples 4 images of each ``--validation-prompts`` prompt (the reference's
 four by default) at the recipe's ``multiphase`` steps, with DDIM at
@@ -84,7 +99,8 @@ validation sampling included. The JAX package's bisection modes ``conv``
 and ``both`` are not choices here, as there: `utils.quant.int8_matmul` or
 ``PCM_INT8_MATMUL`` reach them. With ``--tiny`` every Linear and conv
 weight is quantized (all but a few TINY weights are under the 65536-element
-threshold).
+threshold). ``--int8-no-grad-fwd`` is the JAX CLI's alias of ``--int8-matmul
+scoped``.
 """
 
 from __future__ import annotations
@@ -224,6 +240,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--frozen-weights", default="bf16", choices=["bf16", "int8"],
                     help="int8 = frozen UNet or MMDiT and text weights as per-channel int8 "
                          "(the VAE stays bf16)")
+    ap.add_argument("--int8-no-grad-fwd", action="store_true",
+                    help="alias for --int8-matmul scoped")
     ap.add_argument("--int8-matmul", default=None, choices=["scoped", "dense", "fused"],
                     help="int8 products of the int8 weights (needs --frozen-weights int8): "
                          "scoped = teacher and target forwards only, dense = every Linear, "
@@ -242,6 +260,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "card for each call")
     ap.add_argument("--tiny", action="store_true", help="tiny-model smoke mode")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--multihost", action="store_true",
+                    help="join the process group of python -m torch.distributed.run (also "
+                         "implied by its WORLD_SIZE in the environment)")
     return ap
 
 
@@ -260,6 +281,10 @@ def main(argv=None):
     if args.optimizer == "prodigy" and (args.lr_scheduler != "constant" or args.lr_warmup_steps):
         ap.error("--optimizer prodigy takes no learning-rate schedule (it adapts its own step, "
                  "as `pcm_tpu/train/state.py:make_optimizer` builds it)")
+    if args.int8_no_grad_fwd:
+        if args.int8_matmul not in (None, "scoped"):
+            ap.error(f"--int8-no-grad-fwd is --int8-matmul scoped, not {args.int8_matmul}")
+        args.int8_matmul = "scoped"
     if args.int8_matmul and args.frozen_weights != "int8":
         ap.error(f"--int8-matmul {args.int8_matmul} requires --frozen-weights int8 (it "
                  "quantizes activations against int8 weights)")
@@ -277,6 +302,15 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu (with --tiny) to smoke-test on the CPU")
+    from ..parallel import mesh
+
+    multihost = args.multihost or "WORLD_SIZE" in os.environ
+    if multihost:
+        try:
+            device = mesh.init_distributed(device=device.type)
+        except RuntimeError as e:
+            ap.error(str(e))
+    rank, world = mesh.rank(), mesh.world()
 
     import contextlib
     import dataclasses
@@ -295,7 +329,11 @@ def main(argv=None):
     family = recipe.family
     sdxl, sd3 = family == "sdxl", family == "sd3"
     if args.cached_latents_dir:
-        ds = CachedLatentsDataset(args.cached_latents_dir)
+        try:
+            ds = CachedLatentsDataset(args.cached_latents_dir, process_index=rank,
+                                      process_count=world)
+        except ValueError as e:
+            ap.error(str(e))
         needed = {"sd15": ("prompt_embeds",), "sdxl": ("prompt_embeds", "pooled_embeds",
                                                        "time_ids"),
                   "sd3": ("prompt_embeds", "pooled_embeds")}[family]
@@ -304,7 +342,7 @@ def main(argv=None):
             ap.error(f"cached shards without {missing} (captions through the text towers) "
                      f"are {NOT_PORTED}")
     else:
-        from ..data.dataset import DataLoader, ImageFolderDataset, make_collate
+        from ..data.dataset import DataLoader, ImageFolderDataset, make_collate, shard_for_process
 
         res = args.resolution or recipe.resolution
         try:
@@ -313,11 +351,17 @@ def main(argv=None):
                                         seed=args.seed, crop="random" if sdxl else "center")
         except (FileNotFoundError, ValueError) as e:
             ap.error(str(e))
+        if len(images.files) < world:
+            ap.error(f"{len(images.files)} images under {args.train_data_dir} for {world} "
+                     "ranks: each rank needs one")
+        images.files = shard_for_process(images.files, rank, world)
     batch = args.batch_size or recipe.batch_per_chip
     accum = args.gradient_accumulation_steps
     max_steps = args.max_train_steps or recipe.max_steps
     lr = args.learning_rate if args.learning_rate is not None else recipe.lr
-    validate = bool(args.validation_prompts) and 0 < args.validation_steps <= max_steps
+    # validation runs on rank 0 alone: the other ranks build nothing for it
+    validate = (bool(args.validation_prompts) and 0 < args.validation_steps <= max_steps
+                and rank == 0)
     # SD3 encodes the empty prompt through its three towers on caches too
     tok_keys = (["input_ids", "input_ids_2", "input_ids_3"] if sd3
                 else ["input_ids", "input_ids_2"] if sdxl and (args.train_data_dir or validate)
@@ -428,12 +472,15 @@ def main(argv=None):
                           device, accum)
     if validation is not None:
         trainer.validation_fn = validation_fn(bundle, validation, args.seed, device, vae_host)
-    print(f"# {args.recipe}: batch {batch} x accum {accum}, {max_steps} steps on {device}, "
-          f"{args.frozen_weights} frozen weights, {args.optimizer}"
-          + (f", {args.adv_pairing} adversarial pairing" if recipe.adversarial else "")
-          + (f", int8 matmul {args.int8_matmul}" if args.int8_matmul else "")
-          + (f", resumed at step {trainer.resumed_from}" if trainer.resumed_from else ""),
-          flush=True)
+    if rank == 0:
+        print(f"# {args.recipe}: batch {batch} x accum {accum}, {max_steps} steps on {device}"
+              + (f", rank 0 of {world} ({mesh.backend()}), global batch {batch * world}"
+                 if mesh.active() else "")
+              + f", {args.frozen_weights} frozen weights, {args.optimizer}"
+              + (f", {args.adv_pairing} adversarial pairing" if recipe.adversarial else "")
+              + (f", int8 matmul {args.int8_matmul}" if args.int8_matmul else "")
+              + (f", resumed at step {trainer.resumed_from}" if trainer.resumed_from else ""),
+              flush=True)
     # dense/fused: every int8 product of the run (the scoped mode is in the step)
     run_ctx = (int8_matmul(args.int8_matmul) if args.int8_matmul in ("dense", "fused")
                else contextlib.nullcontext())
@@ -441,7 +488,9 @@ def main(argv=None):
         from ..data.native_image import native_error
 
         why = f" ({native_error()})" if images.decoder == "numpy" else ""
-        print(f"# {len(images)} images at {res} px, {images.decoder} decoder{why}", flush=True)
+        if rank == 0:
+            print(f"# {len(images)} images at {res} px" + (" a rank" if world > 1 else "")
+                  + f", {images.decoder} decoder{why}", flush=True)
         data = DataLoader(images, proc_batch, make_collate(toks, res, sdxl=sdxl),
                           num_workers=args.dataloader_workers, seed=args.seed)
     else:
@@ -450,9 +499,12 @@ def main(argv=None):
     reset_launch_counts()  # launches.jsonl counts the run alone, not the set-up
     with run_ctx:
         trainer.run(data, extra)
-    with open(os.path.join(args.output_dir, "launches.jsonl"), "a") as f:
-        f.write(json.dumps({"from_step": start, "to_step": trainer.global_step,
-                            "launches": launch_counts()}) + "\n")
+    if rank == 0:
+        with open(os.path.join(args.output_dir, "launches.jsonl"), "a") as f:
+            f.write(json.dumps({"from_step": start, "to_step": trainer.global_step,
+                                "launches": launch_counts()}) + "\n")
+    if multihost:
+        torch.distributed.destroy_process_group()
     return trainer
 
 

@@ -53,6 +53,20 @@ its own stream. A loader error is raised on the step thread. SIGTERM and
 SIGINT (handlers installed when `run` is on the main thread, restored when
 it returns) and `request_stop` end the run after the step in flight, with a
 checkpoint, a kohya file and a ``preempted`` row.
+
+In a process group (`parallel/mesh.py`) every rank runs this loop on its
+block of the global batch. Each step's draws are the global batch's, drawn
+on every rank from the same generator (the ranks' generators stay equal),
+of which each rank takes its rows (`local_rows`), so a run of N ranks at a
+batch of B draws what one process draws at N x B; the step all-reduces the
+gradients. Rank 0 alone writes ``metrics.jsonl``, checkpoints, kohya files
+and validation grids, and only it keeps a pinned host twin; every rank
+resumes from the same checkpoint file (then `replicate` guards that the
+states agree). A stop request on any rank stops every rank after the same
+step: the ranks agree on the flag before each step over the host group (no
+rank waits in a collective that another has left), and rank 0 writes the
+``preempted`` row and the save. The run ends at a barrier, after rank 0's
+last write.
 """
 
 from __future__ import annotations
@@ -69,6 +83,7 @@ import numpy as np
 import torch
 
 from ..lora.kohya import save_kohya_safetensors
+from ..parallel import mesh
 from ..utils.logging import MetricsLogger
 from ..utils.threads import prefetch_thread
 from .distill import DistillConfig, sample_draws, split_microbatches
@@ -205,6 +220,14 @@ def _layout(tree):
     return type(tree)
 
 
+def _replicated(state: Optional[TrainState]) -> Optional[TrainState]:
+    """Rank 0's parameters and optimizer state on every rank."""
+    if state is None:
+        return None
+    return dataclasses.replace(state, **mesh.replicate({"params": state.params,
+                                                        "opt_state": state.opt_state}))
+
+
 class Trainer:
     """Drives ``step(state, d_state, frozen, batch, draws, global_step) ->
     (state, d_state, metrics, global steps counted)`` to ``max_train_steps``
@@ -231,9 +254,11 @@ class Trainer:
         self.latents_like = latents_like
         self._stop_requested = False
         self.generator = torch.Generator(self.device).manual_seed(loop_cfg.seed)
+        self.rank, self.world = mesh.rank(), mesh.world()
+        self.is_main = self.rank == 0  # the one rank that writes
         self.ckpt_dir = os.path.join(loop_cfg.output_dir, "checkpoints")
         os.makedirs(self.ckpt_dir, exist_ok=True)
-        self.logger = MetricsLogger(loop_cfg.output_dir)
+        self.logger = MetricsLogger(loop_cfg.output_dir, is_main=self.is_main)
         self.validation_fn: Optional[Callable[[Any, Any, int], Dict[str, Any]]] = None
         self.writer = CheckpointWriter()
         self._mirror = self._mirror_layout = None  # the pinned host twin of the state
@@ -242,6 +267,8 @@ class Trainer:
         self.last_saved: Optional[int] = None  # the step of the newest checkpoint
         if loop_cfg.resume:
             self._try_resume()
+        if self.world > 1:  # a guard: every rank built or read the same state
+            self.state, self.d_state = _replicated(self.state), _replicated(self.d_state)
 
     def request_stop(self) -> None:
         """End the run after the step in flight, with a checkpoint (any
@@ -257,19 +284,25 @@ class Trainer:
 
     def _saved_state(self):
         """The trees a checkpoint holds, and their pinned host twin on a CUDA
-        run (made at the first call, and again if the layout changed)."""
+        run's writing rank (made at the first call, and again if the layout
+        changed)."""
         state = {"lora": self.state.params, "opt_state": self.state.opt_state}
         if self.d_state is not None:
             state.update(d_params=self.d_state.params, d_opt_state=self.d_state.opt_state)
-        if self.device.type == "cuda" and self._mirror_layout != _layout(state):
+        if (self.is_main and self.device.type == "cuda"
+                and self._mirror_layout != _layout(state)):
             self._mirror, self._mirror_layout = _pinned_like(state), _layout(state)
         return state, self._mirror
 
     def save(self) -> str:
         """Copy the state to the host and hand the files to the writer
-        (returns the checkpoint's path; `writer.wait` for the file)."""
+        (returns the checkpoint's path; `writer.wait` for the file). Only
+        rank 0 writes; the others note the step."""
         step, cfg = self.global_step, self.cfg
         path = os.path.join(self.ckpt_dir, f"step_{step:07d}.pt")
+        if not self.is_main:
+            self.last_saved = step
+            return path
         self.writer.wait()  # the write before, which reads the pinned twin
         state, mirror = self._saved_state()
         payload = {"step": step, "lora_step": self.state.step,
@@ -362,7 +395,8 @@ class Trainer:
             self._run_steps(feed, extra_batch)
             if self._stop_requested and self.global_step < cfg.max_train_steps:
                 self.logger.log(self.global_step, {"preempted": 1})
-                print(f"preempted at step {self.global_step}", flush=True)
+                if self.is_main:
+                    print(f"preempted at step {self.global_step}", flush=True)
             if self.last_saved != self.global_step:
                 self.save()
         finally:
@@ -372,7 +406,18 @@ class Trainer:
                 feed.close()
                 for sig, h in handlers.items():
                     signal.signal(sig, h)
+        mesh.barrier("pcm_run_done")  # the ranks leave after rank 0's last write
         return self.state
+
+    def _draws(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This rank's rows of the draws of the global batch: the whole
+        global batch's drawn at once (so a row's draws depend neither on the
+        ranks nor on the accumulation), this rank's block taken."""
+        like = self.latents_like(batch)
+        glob = like[:1].expand(like.shape[0] * self.world, *like.shape[1:])
+        draws = sample_draws(self.distill_cfg, self.generator, glob, self.adv_span,
+                             posterior="pixel_values" in batch)
+        return mesh.local_rows(draws, self.rank, self.world)
 
     def _next_batch(self, feed: Iterator, extra_batch) -> Dict[str, torch.Tensor]:
         try:
@@ -397,15 +442,15 @@ class Trainer:
         cfg = self.cfg
         t_last, step_last = time.perf_counter(), self.global_step
         t_data = t_dispatch = t_save = t_wait = 0.0
-        while self.global_step < cfg.max_train_steps and not self._stop_requested:
+        while self.global_step < cfg.max_train_steps:
+            if mesh.any_rank(self._stop_requested):  # every rank stops after the same step
+                self._stop_requested = True
+                break
             t0 = time.perf_counter()
             batch = self._next_batch(feed, extra_batch)
             t1 = time.perf_counter()
             t_data += t1 - t0
-            draws = []
-            for mb in split_microbatches(batch, self.accum):
-                draws.append(sample_draws(self.distill_cfg, self.generator, self.latents_like(mb),
-                                          self.adv_span, posterior="pixel_values" in mb))
+            draws = split_microbatches(self._draws(batch), self.accum)
             self.state, self.d_state, metrics, counted = self.step(
                 self.state, self.d_state, self.frozen, batch, draws, self.global_step)
             self.global_step += counted
@@ -428,8 +473,9 @@ class Trainer:
                 self._feed_iter_s = self._feed_put_s = t_data = t_dispatch = t_save = 0.0
                 t_wait = 0.0
                 self.logger.log(self.global_step, row)
-                print(f"step {self.global_step}: " + " ".join(
-                    f"{k}={v:.6g}" for k, v in row.items()), flush=True)
+                if self.is_main:
+                    print(f"step {self.global_step}: " + " ".join(
+                        f"{k}={v:.6g}" for k, v in row.items()), flush=True)
                 bad = {k: row[k] for k in ("loss", "d_loss", "g_loss")
                        if k in row and not math.isfinite(row[k])}
                 if bad:
@@ -442,7 +488,7 @@ class Trainer:
                 t_wait += time.perf_counter() - ts
                 self.save()
                 t_save += time.perf_counter() - ts
-            if (self.validation_fn is not None and cfg.validation_steps
+            if (self.validation_fn is not None and self.is_main and cfg.validation_steps
                     and self.global_step % cfg.validation_steps == 0):
                 seconds = self._validate()
                 t_last += seconds  # step_ms leaves validation out

@@ -16,15 +16,20 @@ from .png import to_uint8, write_png
 
 
 class MetricsLogger:
-    """``<out_dir>/metrics.jsonl`` rows and ``<out_dir>/images/`` grids."""
+    """``<out_dir>/metrics.jsonl`` rows and ``<out_dir>/images/`` grids,
+    written by the main rank only (``is_main``; the others' calls do
+    nothing), as the JAX logger writes on process 0."""
 
-    def __init__(self, out_dir: str):
+    def __init__(self, out_dir: str, is_main: bool = True):
         self.out_dir = out_dir
+        self.is_main = is_main
         os.makedirs(out_dir, exist_ok=True)
 
     def log(self, step: int, metrics: Dict) -> None:
         """One row ``{"step", "time", **metrics}``; values that are not
         numbers are left out, as the JAX logger leaves them."""
+        if not self.is_main:
+            return
         row = {"step": int(step), "time": time.time()}
         for k, v in metrics.items():
             try:
@@ -39,6 +44,9 @@ class MetricsLogger:
         columns, rows filled in order and the last one padded with black,
         at ``images/<tag>_<step:07d>.png`` (a tag with ``/`` makes nested
         directories); returns the path."""
+        path = os.path.join(self.out_dir, "images", f"{tag}_{step:07d}.png")
+        if not self.is_main:
+            return path
         arr = to_uint8(images)
         n, h, w, _ = arr.shape
         cols = min(4, n)
@@ -47,7 +55,6 @@ class MetricsLogger:
         for i in range(n):
             r, c = divmod(i, cols)
             grid[r * h:(r + 1) * h, c * w:(c + 1) * w] = arr[i]
-        path = os.path.join(self.out_dir, "images", f"{tag}_{step:07d}.png")
         os.makedirs(os.path.dirname(path), exist_ok=True)
         write_png(path, grid)
         return path

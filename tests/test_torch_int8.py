@@ -11,6 +11,7 @@ packages can flip one activation code (a step of amax/127 in one product).
 """
 
 import contextlib
+import json
 from fractions import Fraction
 
 import flax.linen as fnn
@@ -473,6 +474,75 @@ def test_quantize_frozen_matches_jax_bit_for_bit():
         jquant.quantize_frozen({"unet": params}))
 
 
+@pytest.mark.parametrize("mode", ["conv", "both"])
+def test_unet_conv_both_match_jax(mode):
+    """The whole TINY SDXL UNet under ``conv`` / ``both`` on the same int8
+    codes on both sides (`quantize_frozen`, bit for bit above): its output,
+    its input gradient and its LoRA gradients against the JAX package's
+    (`_qconv` / `_qdot` on the CPU) under a fixed output cotangent. Over a
+    whole model an fp32 round-off between the packages can flip an
+    activation code (a step of amax / 127 in one product), so each reading is
+    held, as `tests/test_torch_int8_adv.py` holds a whole int8 step, to the
+    larger of the whole-model bound of this module (1e-3) and four times the
+    mode's own spread: each package's reading moved by nudging the input by
+    -2, -1, +1 and +2 fp32 ulps (at these inputs one ulp moves the JAX
+    package's own ``conv`` output by 3e-2 and its input gradient by 2e-2, as
+    much as the packages differ); a LoRA gradient below 1e-6 of the largest
+    is round-off."""
+    v = _tiny_sdxl_params(9)
+    jq = jquant.quantize_frozen({"unet": v["params"]}, min_size=0)["unet"]
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((2, 16, 16, 4)).astype(np.float32)
+    ts = np.array([999.0, 421.0], np.float32)
+    ctx = rng.standard_normal((2, 7, 32)).astype(np.float32)
+    added = {"text_embeds": rng.standard_normal((2, 32)).astype(np.float32),
+             "time_ids": np.tile(np.array([16, 16, 0, 0, 16, 16], np.float32), (2, 1))}
+    cot = rng.standard_normal((2, 16, 16, 4)).astype(np.float32)
+    junet = JUNet(J_TINY_SDXL, lora=JLoRASpec(rank=4, alpha=8.0, targets=SD_UNET_LORA_TARGETS))
+
+    def jloss(x_, lora):
+        out = junet.apply({"params": jq, "lora": lora}, x_, ts, ctx, added)
+        return jnp.sum(out * cot), out
+
+    nudges = [n * 2.0 ** -23 for n in (-2, -1, 1, 2)]
+    with _warns(mode), jquant.int8_matmul(which=mode):
+        jgrad = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True))
+
+        def jax_readings(nudge=0.0):
+            (_, out), (dx, dlora) = jgrad(jnp.asarray(x * np.float32(1 + nudge)), v["lora"])
+            return {"out": t(out), "dx": t(dx),
+                    **{"lora." + k: g for k, g in convert.lora_state_from_jax(dlora).items()}}
+
+        ref = jax_readings()
+        jax_spread = [jax_readings(n) for n in nudges]
+
+    port = _port_unet(v["params"])
+    quant.quantize_frozen({"unet": port}, min_size=0)
+    adapter = convert.lora_state_from_jax(v["lora"])
+
+    def readings(nudge=0.0):
+        lora = {k: a.clone().requires_grad_(True) for k, a in adapter.items()}
+        xt = t(x * np.float32(1 + nudge)).permute(0, 3, 1, 2).requires_grad_(True)
+        with _warns(mode), quant.int8_matmul(mode):
+            out = port(xt, t(ts), t(ctx), lora, {k: t(a) for k, a in added.items()})
+            out = out.permute(0, 2, 3, 1)
+            grads = torch.autograd.grad((out * t(cot)).sum(), [xt] + list(lora.values()))
+        return {"out": out.detach(), "dx": grads[0].permute(0, 2, 3, 1),
+                **{"lora." + k: g for k, g in zip(lora, grads[1:])}}
+
+    ours = readings()
+    spread = [readings(n) for n in nudges]
+    top = max(float(g.abs().max()) for k, g in ref.items() if k.startswith("lora."))
+    assert set(ours) == set(ref)
+    for k, r in ref.items():
+        if k.startswith("lora.") and float(r.abs().max()) < 1e-6 * top:
+            continue  # round-off
+        noise = max([rel_max(s[k], ours[k]) for s in spread]
+                    + [rel_max(s[k], r) for s in jax_spread])
+        err = rel_max(ours[k], r)
+        assert err <= max(1e-3, 4 * noise), (k, err, noise)
+
+
 @pytest.mark.parametrize("mode", ["fused", "conv", "both", "env"])
 def test_remat_grads_match_under_fused(mode, monkeypatch):
     """Checkpointed blocks recompute on the int8 path of the forward even
@@ -557,6 +627,29 @@ def test_train_cli_int8(tmp_path, capsys, mode):
     assert trainer.distill_cfg.int8_no_grad_fwd == (mode == "scoped")
     b = max(float(p.abs().max()) for k, p in trainer.state.params.items() if k.endswith("lora_b"))
     assert b > 0
+
+
+def test_train_cli_int8_no_grad_fwd_is_scoped(tmp_path, capsys):
+    """``--int8-no-grad-fwd`` (the JAX CLI's alias) trains as ``--int8-matmul
+    scoped``: the same losses and the same LoRA, bit for bit."""
+    from pcm_tpu_torch.train.__main__ import main
+
+    cache = tmp_path / "cache"
+    _write_cache(cache)
+    runs = {}
+    for flag in (["--int8-matmul", "scoped"], ["--int8-no-grad-fwd"]):
+        out = tmp_path / flag[0].strip("-")
+        trainer = main(["--recipe", "sd15_4phase", "--tiny", "--device", "cpu",
+                        "--cached-latents-dir", str(cache), "--output-dir", str(out),
+                        "--batch-size", "2", "--log-every", "1", "--max-train-steps", "2",
+                        "--frozen-weights", "int8", *flag])
+        assert trainer.distill_cfg.int8_no_grad_fwd
+        rows = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+        runs[flag[0]] = [r["loss"] for r in rows], trainer.state.params
+    (loss_a, lora_a), (loss_b, lora_b) = runs.values()
+    assert loss_a == loss_b and len(loss_a) == 2
+    assert all(torch.equal(lora_a[k], lora_b[k]) for k in lora_a)
+    assert "int8 matmul scoped" in capsys.readouterr().out
 
 
 def test_train_cli_refuses_int8_matmul_without_int8_weights(tmp_path, capsys):

@@ -40,9 +40,11 @@ def test_the_check_sees_lazy_imports():
 
 
 def test_the_new_entry_points_are_checked():
-    """The hub-weight converter, the generate CLI, Prodigy, the metrics logger
-    and the PNG writer are among the files the check parses."""
+    """The hub-weight converter, the generate CLI, Prodigy, the metrics logger,
+    the PNG writer, the data-parallel module and its benchmark are among the
+    files the check parses."""
     names = {str(p.relative_to(REPO)) for p in FILES}
     assert {"pcm_tpu_torch/port_weights.py", "pcm_tpu_torch/generate.py",
             "pcm_tpu_torch/train/prodigy.py", "pcm_tpu_torch/utils/logging.py",
-            "pcm_tpu_torch/utils/png.py"} <= names
+            "pcm_tpu_torch/utils/png.py", "pcm_tpu_torch/parallel/mesh.py",
+            "pcm_tpu_torch/parallel/__init__.py", "scripts/bench_ddp_torch.py"} <= names

@@ -256,7 +256,8 @@ def test_serve_entry_point_takes_sd3_int8():
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--data-parallel", "2"], "not yet ported"),
+    # `scripts/serve.py`'s refusal of a batch that does not split over the cards
+    (["--batch-size", "3", "--data-parallel", "2"], "divisible by --data-parallel"),
     (["--lora", "x.safetensors"], "no such file"),  # --lora is ported: tests/test_torch_kohya.py
 ])
 def test_serve_entry_point_rejects_unported(argv, msg, capsys):

@@ -357,3 +357,33 @@ def test_native_library_builds_from_two_processes(tmp_path):
     assert [p.returncode for p in procs] == [0, 0], [e[-1000:] for _, e in outs]
     assert [o.strip() for o, _ in outs] == ["True", "True"]
     assert sorted(os.listdir(tmp_path / "lib")) == ["libimage_pipe.so", "lock"]
+
+
+def test_tokenizer_library_builds_from_two_processes(tmp_path):
+    """The CLIP BPE library goes through the same locked build: two processes
+    build it to one path at once and each loads a whole library; the
+    tokenizer's own build lands under ``build/``, and nothing is written
+    under ``native/``."""
+    native_dir = os.path.join(REPO, "native")
+    before = sorted(os.listdir(native_dir))
+    path = str(tmp_path / "lib" / "libclip_bpe.so")
+    code = ("import sys\n"
+            "from pcm_tpu_torch.data import native_image as n\n"
+            "n.build_native(sys.argv[1], 'clip_bpe.cpp', ())\n"
+            "import ctypes\n"
+            "print(bool(ctypes.CDLL(sys.argv[1]).clip_bpe_new))\n")
+    procs = [subprocess.Popen([sys.executable, "-c", code, path], cwd=REPO, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE) for _ in range(2)]
+    outs = [p.communicate(timeout=240) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], [e[-1000:] for _, e in outs]
+    assert [o.strip() for o, _ in outs] == ["True", "True"]
+    assert sorted(os.listdir(tmp_path / "lib")) == ["libclip_bpe.so", "lock"]
+    from pcm_tpu_torch.data.tokenizer import NativeCLIPTokenizer
+
+    vocab, merges = tmp_path / "vocab.json", tmp_path / "merges.txt"
+    vocab.write_text('{"a</w>": 0, "b</w>": 1}')
+    merges.write_text("#version: 0.2\n")
+    tok = NativeCLIPTokenizer(str(vocab), str(merges), max_length=4)
+    assert tok(["a b"]).tolist() == [[49406, 0, 1, 49407]]
+    assert os.path.exists(native_image.native_library("clip_bpe.cpp", ()))
+    assert sorted(os.listdir(native_dir)) == before
