@@ -18,7 +18,10 @@ trajectory of an adversarial recipe, SDXL and SD3 adversarial training,
 SD3 serving on int8 weights, and the int8 ``conv`` / ``both`` modes; and
 data parallelism: the trainer under ``python -m torch.distributed.run`` (one
 NCCL rank, two gloo ranks sharing the card) and, with several cards, the
-SDXL step and the sharded serving engine on all of them.
+SDXL step and the sharded serving engine on all of them; and evaluation:
+the numpy JPEG and BMP decoders, training from a JPEG folder, the CLIP
+ViT-L/14 tower, the CLIP-FID and CLIP score CLIs and the demo with its
+safety checker.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -227,6 +230,27 @@ Phases, one printed line each:
      `QConvFn`'s ``dx`` against autograd of the dequantized conv within two
      bf16 ulps; the input gradient of the whole UNet under ``both`` against
      ``dense``'s, beside the input-nudge yardstick, printed.
+eval. evaluation, the demo and image formats (`eval_phases`, run after phase
+     26): (a) the committed JPEG and BMP fixtures (`tests/fixtures/torch_images/`,
+     made with PIL by `tests/make_torch_image_fixtures.py`; the card's machine
+     has no PIL) through the numpy decoders against their PIL goldens, max <= 3
+     and mean < 0.5 LSB, and the 512-px JPEG's decode ms; (b) ``python -m
+     pcm_tpu_torch.train --recipe sd15_4phase --train-data-dir`` on a folder of
+     those JPEGs and a BMP as a child process, batch 4, 2 steps: finite losses,
+     the kohya file's up factors moved, K1-K5 launched; (c) a ViT-L/14 vision
+     tower drawn from ``--seed`` and written in transformers' naming, read by
+     `CLIPFeatures.from_torch_file` on the card and on the CPU (fp32, TF32
+     off): the card's features of phase 26's TCD images within `VISION_BOUND`
+     of the CPU's, the ms of a batch of 32 and the peak; (d) ``eval_fid``'s
+     ``main`` with ``--clip-weights`` between phase 13's PNGs and (b)'s folder,
+     and the PNGs against themselves (0 within 1e-5 x the trace of their
+     covariance), ``eval_clip_score``'s on phase 26's images and prompts; (e)
+     ``python -m pcm_tpu_torch.demo``'s ``main`` on phase 24's teacher with
+     phase 25's step-4 LoRA under the 2-Step name, one prompt on stdin: the
+     image equal bit for bit to ``generate``'s (2 DDIM steps, seed 0), K1 and
+     K4 launched; again with ``--safety-concepts`` on an npz whose concept is
+     that image's CLIP feature (the image black) and on one whose concept is
+     its opposite (the image unchanged);
 ddp. data parallelism (`ddp_phase`), four trainer runs as child processes,
      concurrently, ``sd15_4phase`` at full width for 3 steps on phase 7's
      cache rearranged (`write_ddp_caches`): (a) ``python -m
@@ -2931,6 +2955,310 @@ def hub_phases(seed: int) -> list:
 
 
 # ---------------------------------------------------------------------------
+# phase eval: the numpy image decoders, CLIP-FID, CLIP score and the demo
+# ---------------------------------------------------------------------------
+
+FIXTURES = "tests/fixtures/torch_images"  # made with PIL by tests/make_torch_image_fixtures.py
+# phase eval (c): the card's ViT-L/14 features against the CPU's, both fp32
+# without TF32, rel-max to the largest CPU feature
+VISION_BOUND = 1e-3
+DEMO_PROMPT = "a lighthouse on a cliff at dusk"
+
+
+def check_fixtures() -> dict:
+    """Phase eval (a): every committed JPEG and BMP fixture through the numpy
+    decoders against its PIL golden (`goldens.npz` stores each row-differenced
+    mod 256), max and mean LSB; the 512-px JPEG's decode ms (median of 5)."""
+    import numpy as np
+
+    from pcm_tpu_torch.data.native_image import load_rgb
+
+    stored = np.load(os.path.join(FIXTURES, "goldens.npz"))
+    diffs = {}
+    for name in sorted(stored.files):
+        ref = np.cumsum(stored[name], axis=1, dtype=np.uint8)
+        ours = load_rgb(os.path.join(FIXTURES, name))
+        d = np.abs(ours.astype(np.int32) - ref.astype(np.int32)) if ours.shape == ref.shape \
+            else np.full(1, 255)
+        diffs[name] = (int(d.max()), float(d.mean()))
+    ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        load_rgb(os.path.join(FIXTURES, "photo512.jpg"))
+        ms.append((time.perf_counter() - t0) * 1000.0)
+    return {"diffs": diffs, "jpeg512_ms": statistics.median(ms), "jpeg512_all_ms": ms}
+
+
+def write_eval_images(out_dir: str) -> str:
+    """The fixture JPEGs and a BMP with sidecar captions: a folder of
+    formats the port read as PNG only before (phase eval (b) trains on it)."""
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    names = sorted(f for f in os.listdir(FIXTURES) if f.endswith(".jpg")) + ["b24.bmp"]
+    for i, name in enumerate(names):
+        shutil.copy(os.path.join(FIXTURES, name), os.path.join(out_dir, name))
+        with open(os.path.join(out_dir, os.path.splitext(name)[0] + ".txt"), "w") as f:
+            f.write(f"a photo of subject {i}, {['red', 'blue', 'green'][i % 3]} light")
+    return out_dir
+
+
+def train_jpeg(img_dir: str, out_dir: str, seed: int) -> dict:
+    """Phase eval (b): ``python -m pcm_tpu_torch.train --recipe sd15_4phase
+    --train-data-dir`` on the JPEG + BMP folder as a child process, full
+    width, batch 4, 2 steps, a save at 2."""
+    shutil.rmtree(out_dir, ignore_errors=True)
+    run = _train_process(["--recipe", "sd15_4phase", "--train-data-dir", img_dir, "--output-dir",
+                          out_dir, "--batch-size", "4", "--max-train-steps", "2",
+                          "--checkpointing-steps", "2", "--log-every", "1", "--seed", str(seed),
+                          "--allow-hash-tokenizer", "--learning-rate", PIXEL_LR,
+                          "--dataloader-workers", "4"])
+    if run["rc"] != 0:
+        raise AssertionError(f"train from JPEGs: exit {run['rc']}:\n"
+                             + "\n".join(run["lines"][-30:]))
+    steps = [r for r in _rows_of(out_dir) if "loss" in r]
+    with open(os.path.join(out_dir, "launches.jsonl")) as f:
+        runs = [json.loads(line) for line in f]
+    from pcm_tpu_torch.utils.safetensors import load_file
+
+    kohya = load_file(os.path.join(out_dir, "pcm_lora_0000002.safetensors"), bf16_as_f32=True)
+    decoder = [ln for ln in run["lines"] if " decoder" in ln and ln.startswith("# ")]
+    _drop_checkpoints(out_dir)
+    return {"rows": steps, "counts": {k: sum(r["launches"][k] for r in runs)
+                                      for k in runs[0]["launches"]},
+            "up_max": max(float(abs(v).max()) for k, v in kohya.items() if "lora_up" in k),
+            "decoder": decoder[0][2:] if decoder else "not printed"}
+
+
+def _gen_images(paths) -> "np.ndarray":
+    import numpy as np
+
+    from pcm_tpu_torch.data.native_image import load_rgb
+
+    return np.stack([load_rgb(p).astype(np.float32) / 127.5 - 1.0 for p in paths])
+
+
+def vision_tower(out_dir: str, images, seed: int) -> dict:
+    """Phase eval (c): a ViT-L/14 tower drawn from ``seed`` written in HF
+    naming (`utils/safetensors.save_file`), read back through
+    `CLIPFeatures.from_torch_file` on the card and on the CPU; the card's
+    features of ``images`` against the CPU's (rel-max to the largest), the
+    ms of a batch of 32 at 224 px (CUDA events) and the peak."""
+    import numpy as np
+
+    from pcm_tpu_torch.models.clip_vision import CLIP_VIT_L14_CONFIG, CLIPVisionModel
+    from pcm_tpu_torch.utils.fid import CLIPFeatures, fp32_exact, seeded
+    from pcm_tpu_torch.utils.safetensors import save_file
+
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "clip_vit_l14_vision.safetensors")
+    with torch.device("cuda"):
+        tower = seeded(CLIPVisionModel(CLIP_VIT_L14_CONFIG), seed, torch.device("cuda"))
+    state = {k: v.cpu().numpy() for k, v in tower.state_dict().items()}
+    params = sum(v.size for v in state.values())
+    del tower
+    t0 = time.perf_counter()
+    save_file(state, path)
+    write_s = time.perf_counter() - t0
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    card = CLIPFeatures.from_torch_file(path, device="cuda")
+    feats = card(images)
+    cpu_feats = CLIPFeatures.from_torch_file(path, device="cpu")(images)
+    x = torch.randn((32, 3, 224, 224), generator=torch.Generator("cuda").manual_seed(seed),
+                    device="cuda")
+    with torch.inference_mode(), fp32_exact():
+        ms = cuda_ms(lambda: card.model(x), iters=5, warmup=1)
+    err = float(np.abs(feats - cpu_feats).max() / np.abs(cpu_feats).max())
+    res = {"path": path, "params_m": params / 1e6, "write_s": write_s, "rel_max": err,
+           "shape": feats.shape, "batch32_ms": ms, "features": feats,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "finite": bool(np.isfinite(feats).all())}
+    del card, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def eval_clis(png_dir: str, jpeg_dir: str, gen_paths, clip_weights: str, out_dir: str) -> dict:
+    """Phase eval (d): ``python -m pcm_tpu_torch.eval_fid``'s ``main`` in
+    images mode with ``--clip-weights`` between the PNG folder and the JPEG
+    folder, and the PNG folder against itself; ``eval_clip_score``'s on
+    phase 26's images and prompts."""
+    import numpy as np
+
+    from pcm_tpu_torch import eval_clip_score, eval_fid
+
+    t0 = time.perf_counter()
+    ab = eval_fid.main(["--image-dir-a", png_dir, "--image-dir-b", jpeg_dir, "--clip-weights",
+                        clip_weights])
+    aa = eval_fid.main(["--image-dir-a", png_dir, "--image-dir-b", png_dir, "--clip-weights",
+                        clip_weights])
+    fid_s = time.perf_counter() - t0
+    score_dir = os.path.join(out_dir, "clip_score")
+    shutil.rmtree(score_dir, ignore_errors=True)
+    os.makedirs(score_dir)
+    for p in gen_paths:
+        shutil.copy(p, score_dir)
+    with open(os.path.join(out_dir, "prompts.txt"), "w") as f:
+        f.write("\n".join(GENERATE_PROMPTS) + "\n")
+    t0 = time.perf_counter()
+    score = eval_clip_score.main(["--image-dir", score_dir, "--prompts-file",
+                                  os.path.join(out_dir, "prompts.txt"), "--vision-weights",
+                                  clip_weights])
+    trace = float(np.trace(np.cov(aa["features"][0], rowvar=False)))
+    return {"fid": ab["fid"], "n": (len(ab["features"][0]), len(ab["features"][1])),
+            "self_fid": aa["fid"], "trace": trace, "fid_s": fid_s, "clip_score": score,
+            "clip_score_s": time.perf_counter() - t0}
+
+
+def _demo_run(argv, out_dir: str) -> tuple:
+    """``python -m pcm_tpu_torch.demo``'s ``main`` with ``DEMO_PROMPT`` on
+    stdin, in ``out_dir``: (demo_out.png's bytes, its launches, seconds)."""
+    import io
+
+    from pcm_tpu_torch import demo
+    from pcm_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    os.makedirs(out_dir, exist_ok=True)
+    cwd, stdin = os.getcwd(), sys.stdin
+    os.chdir(out_dir)
+    sys.stdin = io.StringIO(DEMO_PROMPT + "\n")
+    t0 = time.perf_counter()
+    try:
+        reset_launch_counts()
+        demo.main(argv)
+        counts = launch_counts()
+        reset_launch_counts()
+    finally:
+        os.chdir(cwd)
+        sys.stdin = stdin
+    with open(os.path.join(out_dir, "demo_out.png"), "rb") as f:
+        return f.read(), counts, time.perf_counter() - t0
+
+
+def demo_phase(teacher: str, lora: str, clip_weights: str, out_dir: str, seed: int) -> dict:
+    """Phase eval (e): the demo's CLI loop on phase 24's teacher with phase
+    25's step-4 LoRA under the 2-Step name, one prompt: its image against
+    ``generate``'s (the LoRA, 2 DDIM steps, guidance 1, seed 0) bit for bit;
+    then with the safety checker on two npz files drawn from that image's own
+    CLIP feature: a concept equal to it (flagged: black) and its opposite
+    (passed: the same image)."""
+    import numpy as np
+
+    from pcm_tpu_torch import demo, generate
+    from pcm_tpu_torch.utils.fid import CLIPFeatures
+
+    # absolute: the demo runs in a directory of its own
+    teacher, lora, clip_weights, out_dir = map(os.path.abspath,
+                                               (teacher, lora, clip_weights, out_dir))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    loras = os.path.join(out_dir, "loras")
+    os.makedirs(loras)
+    shutil.copy(lora, os.path.join(loras, demo.CHECKPOINT_REGISTRY["2-Step"][0].format(
+        family="sd15")))
+    base = ["--family", "sd15", "--teacher-checkpoint", teacher, "--lora-dir", loras]
+    plain, counts, plain_s = _demo_run(base, os.path.join(out_dir, "plain"))
+    out = os.path.join(out_dir, "generate.png")
+    r = generate.main(["--family", "sd15", "--teacher-checkpoint", teacher, "--lora", lora,
+                       "--prompt", DEMO_PROMPT, "--steps", "2", "--scheduler", "ddim", "--cfg",
+                       "1.0", "--seed", "0", "--out", out])
+    with open(out, "rb") as f:
+        gen_png = f.read()
+    with torch.inference_mode():
+        img = generate.generate(r["built"], r["args"]).float().cpu().numpy()
+    del r
+    gc.collect()
+    feat = CLIPFeatures.from_torch_file(clip_weights, device="cuda")(img[:1])[0]
+    unit = feat / np.linalg.norm(feat)
+    checked = {}
+    for name, sign in (("flag", 1.0), ("pass", -1.0)):
+        npz = os.path.join(out_dir, f"{name}.npz")
+        np.savez(npz, concept_embeds=sign * unit[None],
+                 concept_embeds_weights=np.full((1,), 0.5, np.float32),
+                 special_care_embeds=-unit[None],
+                 special_care_embeds_weights=np.full((1,), 0.5, np.float32))
+        checked[name] = _demo_run(base + ["--safety-concepts", npz, "--safety-clip-weights",
+                                          clip_weights], os.path.join(out_dir, name))
+    from pcm_tpu_torch.data.native_image import decode_png
+
+    flagged = decode_png(checked["flag"][0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"equal_generate": plain == gen_png, "counts": counts, "plain_s": plain_s,
+            "flagged_black": flagged.shape == (512, 512, 3) and not flagged.any(),
+            "passed_equal": checked["pass"][0] == plain,
+            "safety_s": [checked[k][2] for k in ("flag", "pass")],
+            "safety_counts": [checked[k][1] for k in ("flag", "pass")],
+            "image_nonzero": bool(decode_png(plain).any())}
+
+
+def eval_phases(seed: int) -> list:
+    """Phase eval, each part checked; returns the runs whose launches count."""
+    import numpy as np
+
+    root = "build/chip_smoke"
+    t_phase = time.perf_counter()
+    fx = check_fixtures()
+    log("eval-decode", fixtures=len(fx["diffs"]), diffs=json.dumps(fx["diffs"]),
+        bound="max<=3,mean<0.5", jpeg512_ms=f"{fx['jpeg512_ms']:.1f}",
+        jpeg512_all_ms=json.dumps([round(t, 1) for t in fx["jpeg512_all_ms"]]))
+    if not all(m <= 3 and a < 0.5 for m, a in fx["diffs"].values()):
+        raise AssertionError(f"numpy decoders against the PIL goldens: {fx['diffs']}")
+
+    jpeg_dir = write_eval_images(os.path.join(root, "eval_images"))
+    tj = train_jpeg(jpeg_dir, os.path.join(root, "train_jpeg"), seed)
+    log("eval-train-jpeg", decoder=repr(tj["decoder"]),
+        losses=json.dumps([round(r["loss"], 6) for r in tj["rows"]]),
+        step_ms=json.dumps([round(r["step_ms"], 1) for r in tj["rows"]]),
+        peak_gib=f"{max(r['peak_gib'] for r in tj['rows']):.3f}",
+        lora_up_max=f"{tj['up_max']:.3e}", counts=json.dumps(tj["counts"]))
+    missing = [k for k in ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                           "flash_attention_bwd_dq", "group_norm_silu", "geglu")
+               if tj["counts"][k] == 0]
+    if not (len(tj["rows"]) == 2 and all(math.isfinite(r["loss"]) for r in tj["rows"])
+            and tj["up_max"] > 0 and not missing):
+        raise AssertionError(f"training from JPEGs: {tj} (kernels not launched: {missing})")
+
+    gen_paths = [os.path.join(root, "generate", f"tcd_{i}.png")
+                 for i in range(len(GENERATE_PROMPTS))]
+    vt = vision_tower(os.path.join(root, "eval"), _gen_images(gen_paths), seed)
+    log("eval-vision", params_m=f"{vt['params_m']:.1f}", write_s=f"{vt['write_s']:.2f}",
+        shape=vt["shape"], rel_max=f"{vt['rel_max']:.3e}", bound=VISION_BOUND,
+        batch32_ms=f"{vt['batch32_ms']:.2f}", peak_gib=f"{vt['peak_gib']:.3f}")
+    if not (vt["finite"] and vt["shape"] == (len(gen_paths), 768)
+            and vt["rel_max"] <= VISION_BOUND):
+        raise AssertionError(f"the ViT-L/14 tower, card against CPU: {vt}")
+
+    ev = eval_clis(os.path.join(root, "images"), jpeg_dir, gen_paths, vt["path"],
+                   os.path.join(root, "eval"))
+    log("eval-clis", fid=f"{ev['fid']:.4f}", n=ev["n"], self_fid=f"{ev['self_fid']:.3e}",
+        trace=f"{ev['trace']:.4f}", self_bound="1e-5*trace", fid_s=f"{ev['fid_s']:.2f}",
+        clip_score=f"{ev['clip_score']:.4f}", clip_score_s=f"{ev['clip_score_s']:.2f}")
+    if not (np.isfinite(ev["fid"]) and ev["fid"] > 0 and abs(ev["self_fid"]) <= 1e-5 * ev["trace"]
+            and ev["n"] == (PIXEL_IMAGES, len(os.listdir(jpeg_dir)) // 2)
+            and 0.0 <= ev["clip_score"] <= 100.0):
+        raise AssertionError(f"the eval CLIs: {ev}")
+
+    dm = demo_phase(os.path.join(root, "hub_sd15", "teacher.pt"),
+                    os.path.join(root, "train_prodigy", "pcm_lora_0000004.safetensors"),
+                    vt["path"], os.path.join(root, "demo"), seed)
+    log("eval-demo", equal_generate=dm["equal_generate"], flagged_black=dm["flagged_black"],
+        passed_equal=dm["passed_equal"], plain_s=f"{dm['plain_s']:.2f}",
+        safety_s=json.dumps([round(s, 2) for s in dm["safety_s"]]),
+        counts=json.dumps(dm["counts"]))
+    if not (dm["equal_generate"] and dm["flagged_black"] and dm["passed_equal"]
+            and dm["image_nonzero"] and dm["counts"]["flash_attention_fwd"] > 0
+            and dm["counts"]["group_norm_silu"] > 0):
+        raise AssertionError(f"the demo: {dm}")
+    os.remove(vt["path"])  # 1.2 GB: the smoke's disk is bounded
+    log("eval", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return [tj, {"counts": {k: dm["counts"][k] + sum(c[k] for c in dm["safety_counts"])
+                            for k in dm["counts"]}}]
+
+
+# ---------------------------------------------------------------------------
 # phases 27-30: int8 frozen weights on every family and recipe
 # ---------------------------------------------------------------------------
 
@@ -3363,6 +3691,7 @@ def main() -> int:
     xl_runs = sdxl_phases(args.seed, gen)
     sd3_runs = sd3_phases(args.seed, gen)
     hub_runs = hub_phases(args.seed)
+    eval_runs = eval_phases(args.seed)
     int8_runs = int8_phases(args.seed, gen, cache, xl_cache, adv_runs[0], sd3_runs[-1])
     ddp_runs = ddp_phase(cache, args.seed)
 
@@ -3382,8 +3711,8 @@ def main() -> int:
                "geglu": ("pcm_tpu_torch/csrc/geglu.cu", "pcm_tpu/ops/geglu.py:47"),
                "int8_matmul": ("pcm_tpu_torch/csrc/int8_matmul.cu",
                                "pcm_tpu/ops/int8_matmul.py:56")}
-    runs = (s, tr, ti, sx, *adv_runs, enc, px, sl, *xl_runs, *sd3_runs, *hub_runs, *int8_runs,
-            *ddp_runs)
+    runs = (s, tr, ti, sx, *adv_runs, enc, px, sl, *xl_runs, *sd3_runs, *hub_runs, *eval_runs,
+            *int8_runs, *ddp_runs)
     launches = {k: sum(run["counts"][k] for run in runs) for k in sources}
     kernels["group_norm_silu"]["fp32_launches"] = sum(
         run["counts"]["group_norm_silu_fp32"] for run in runs)

@@ -9,10 +9,11 @@ and reads ``<stem>.txt`` as its caption
 (empty when missing), replaced by the empty prompt with probability
 ``proportion_empty_prompts``; a sample that fails to load is replaced by
 another drawn at random, up to 16 times (the reference's skip-bad-sample
-retry). A folder holding files its decoder cannot read (JPEG or WebP without
-the native library, BMP with either: the reference reads those through PIL)
-is refused when the dataset is made, not skipped file by file. `DataLoader`
-shuffles the indices each epoch with ``random.Random(seed)`` (the JAX
+retry). A folder holding files its decoder cannot read (under the numpy
+decoder WebP, progressive or other non-baseline JPEGs and compressed BMPs,
+found from each file's first bytes; BMPs take the numpy decoder under
+either) is refused when the dataset is made, not skipped file by file.
+`DataLoader` shuffles the indices each epoch with ``random.Random(seed)`` (the JAX
 loader's order), drops each epoch's ragged tail, loads a batch's samples on
 a pool of workers and keeps `PREFETCH` collated batches ahead. The workers
 are threads for the native decoder, whose C call releases the GIL, and
@@ -78,15 +79,23 @@ class ImageFolderDataset:
         self.seed = seed
         self.use_native = native_image.available() if use_native is None else use_native
         self.decoder = "native" if self.use_native else "numpy"
-        readable = native_image.NATIVE_EXTS if self.use_native else (".png",)
-        unread = [f for f in self.files if not f.lower().endswith(readable)]
-        if unread:
-            why = "" if self.use_native else (
-                f"; the native image library, which reads JPEG and WebP too: "
+        problems = [(f, why) for f in self.files if (why := self._problem(f))]
+        if problems:
+            path, why = problems[0]
+            hint = "" if self.use_native else (
+                f"; the native image library reads WebP and every JPEG: "
                 f"{native_image.native_error() or 'not chosen'}")
-            raise ValueError(f"{len(unread)} of the {len(self.files)} images under {root} are "
-                             f"not {'/'.join(readable)} files, which the {self.decoder} decoder "
-                             f"reads (first: {unread[0]}){why}")
+            raise ValueError(f"{len(problems)} of the {len(self.files)} images under {root} are "
+                             f"files the {self.decoder} decoder cannot read (first: {path}: "
+                             f"{why}){hint}")
+
+    def _problem(self, path: str) -> Optional[str]:
+        """Why ``path`` cannot be loaded (its format read from its first
+        bytes), or None: the native decoder reads its extensions' files, the
+        numpy one the rest (`native_image.numpy_problem`)."""
+        if self.use_native and path.lower().endswith(native_image.NATIVE_EXTS):
+            return None
+        return native_image.numpy_problem(path)
 
     def __len__(self) -> int:
         return len(self.files)

@@ -12,17 +12,22 @@ uint8 RGB array whose shortest side is ``res`` (the longer one
   The build runs under a lock file shared by every process and writes a
   temporary name that it renames, so no process loads a half-written
   library.
-- ``numpy``: a decoder of 8-bit PNGs (gray, gray+alpha, RGB, RGBA, palette;
-  not interlaced) on the standard library's ``zlib``, whose Average and
-  Paeth rows, sequential along a row, are undone a diagonal of the image
-  at a time (`_wavefront`), and a separable Lanczos-3 resize with PIL's
-  convention (support 3 x scale, centers at (i + 0.5) x scale, normalized
-  taps, float accumulation, one rounding), as two float32 matrix products.
-  Where the native library does not build, PNGs take this path and other
-  formats raise naming the missing library. PNGs with an alpha channel take
-  it always: the native library composites them onto black (libpng's
-  simplified API), where PIL's ``convert("RGB")``, the reference's loader,
-  drops the alpha.
+- ``numpy``: decoders told apart by magic bytes (`decode_image`): 8-bit
+  PNGs (gray, gray+alpha, RGB, RGBA, palette; not interlaced) on the
+  standard library's ``zlib``, whose Average and Paeth rows, sequential
+  along a row, are undone a diagonal of the image at a time (`_wavefront`);
+  baseline JPEGs (`data/jpeg.py`, libjpeg's IDCT, upsampling and colour
+  conversion, so PIL's pixels); uncompressed BMPs (8-bit palette, 24- and
+  32-bit); and a separable Lanczos-3 resize with PIL's convention (support
+  3 x scale, centers at (i + 0.5) x scale, normalized taps, float
+  accumulation, one rounding), as two float32 matrix products, to the
+  shortest side (`resize_shortest`) or an exact size (`resize_to`).
+  `numpy_problem` names what they refuse (WebP, progressive and other
+  non-baseline JPEGs, compressed BMPs) from a file's first bytes. Where the
+  native library does not build, every image takes this path. BMPs take it
+  always, and so do PNGs with an alpha channel: the native library
+  composites them onto black (libpng's simplified API), where PIL's
+  ``convert("RGB")``, the reference's loader, drops the alpha.
 
 `available()` says whether the native one loads here, `native_error()` why not.
 """
@@ -42,6 +47,8 @@ import zlib
 from typing import Optional
 
 import numpy as np
+
+from . import jpeg
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 NATIVE_DIR = os.path.join(_REPO, "native")
@@ -303,32 +310,161 @@ def _axis_weights(in_size: int, out_size: int) -> np.ndarray:
     return m
 
 
-def resize_shortest(rgb: np.ndarray, res: int) -> np.ndarray:
-    """(H, W, 3) uint8 -> shortest side ``res``, Lanczos-3 in float32: two
-    matrix products (rows, then columns), one rounding at the end."""
-    h, w = rgb.shape[:2]
-    scale = res / min(w, h)
-    tw, th = max(res, round(w * scale)), max(res, round(h * scale))
-    if (tw, th) == (w, h):
+def resize_to(rgb: np.ndarray, h: int, w: int) -> np.ndarray:
+    """(H, W, 3) uint8 -> (h, w, 3), Lanczos-3 in float32 (PIL's ``resize((w, h),
+    LANCZOS)`` convention): two matrix products (rows, then columns), one
+    rounding at the end."""
+    ih, iw = rgb.shape[:2]
+    if (ih, iw) == (h, w):
         return rgb
-    x = rgb.astype(np.float32).transpose(0, 2, 1).reshape(h * 3, w)
-    x = (x @ _axis_weights(w, tw).T).reshape(h, 3 * tw)  # (h, 3, tw)
-    x = (_axis_weights(h, th) @ x).reshape(th, 3, tw).transpose(0, 2, 1)
+    x = rgb.astype(np.float32).transpose(0, 2, 1).reshape(ih * 3, iw)
+    x = (x @ _axis_weights(iw, w).T).reshape(ih, 3 * w)  # (ih, 3, w)
+    x = (_axis_weights(ih, h) @ x).reshape(h, 3, w).transpose(0, 2, 1)
     return np.clip(np.floor(x + 0.5), 0, 255).astype(np.uint8)
 
 
-def load_resized_numpy(path: str, res: int) -> np.ndarray:
+def resize_shortest(rgb: np.ndarray, res: int) -> np.ndarray:
+    """(H, W, 3) uint8 -> shortest side ``res`` (`resize_to`)."""
+    h, w = rgb.shape[:2]
+    scale = res / min(w, h)
+    return resize_to(rgb, max(res, round(h * scale)), max(res, round(w * scale)))
+
+
+# -- numpy BMP decoder ----------------------------------------------------------
+
+BMP_MAGIC = b"BM"
+_BMP_COMPRESSION = {1: "RLE8", 2: "RLE4", 4: "JPEG-in-BMP", 5: "PNG-in-BMP", 6: "alpha-bitfield"}
+
+
+def _bmp_header(data: bytes):
+    """(pixel offset, width, height, bits, compression, header size) of a BMP."""
+    if data[:2] != BMP_MAGIC or len(data) < 26:
+        raise ValueError("not a BMP")
+    (offset,) = struct.unpack("<I", data[10:14])
+    (size,) = struct.unpack("<I", data[14:18])
+    if size == 12:  # BITMAPCOREHEADER
+        w, h, _, bits = struct.unpack("<HHHH", data[18:26])
+        return offset, w, h, bits, 0, size
+    w, h, _, bits, compression = struct.unpack("<iiHHI", data[18:34])
+    return offset, w, h, bits, compression, size
+
+
+def bmp_problem(data: bytes) -> Optional[str]:
+    """Why a BMP (its first 34 bytes suffice) cannot be decoded here, or None."""
+    try:
+        _, w, h, bits, compression, _ = _bmp_header(data)
+    except (ValueError, struct.error) as e:
+        return f"not a BMP ({e})"
+    if compression in _BMP_COMPRESSION:
+        return f"a {_BMP_COMPRESSION[compression]}-compressed BMP"
+    if compression not in (0, 3) or (compression == 3 and bits != 32):
+        return f"a BMP of compression {compression} at {bits} bits"
+    if bits not in (8, 24, 32):
+        return f"a {bits}-bit BMP"
+    if w <= 0 or h == 0:
+        return f"a BMP of {w}x{h} pixels"
+    return None
+
+
+def decode_bmp(data: bytes) -> np.ndarray:
+    """An uncompressed BMP (8-bit palette, 24-bit, 32-bit BI_RGB or
+    BI_BITFIELDS of 8-bit fields; bottom-up or top-down rows) -> (H, W, 3)
+    uint8 RGB, as PIL's ``convert("RGB")`` (a 32-bit pixel's fourth byte
+    dropped)."""
+    problem = bmp_problem(data)
+    if problem:
+        raise ValueError(f"{problem}: the numpy decoder reads 8-bit palette, 24- and 32-bit "
+                         f"uncompressed BMPs")
+    offset, w, h, bits, compression, size = _bmp_header(data)
+    rows, stride = abs(h), (w * bits + 31) // 32 * 4
+    px = np.frombuffer(data, np.uint8, rows * stride, offset).reshape(rows, stride)
+    if h > 0:  # bottom-up
+        px = px[::-1]
+    if bits == 8:
+        (used,) = struct.unpack("<I", data[46:50]) if size >= 40 else (0,)
+        entry = 3 if size == 12 else 4
+        n = used or 256
+        pal = np.frombuffer(data, np.uint8, n * entry, 14 + size).reshape(n, entry)[:, 2::-1]
+        return pal[px[:, :w]]
+    if bits == 24:
+        return np.ascontiguousarray(px[:, :3 * w].reshape(rows, w, 3)[..., ::-1])
+    v = px[:, :4 * w].copy().view("<u4").reshape(rows, w)
+    if compression == 0:
+        masks = (0xFF0000, 0xFF00, 0xFF)
+    else:
+        masks = struct.unpack("<III", data[54:66])  # after a 40-byte header, or in V4/V5
+    out = np.empty((rows, w, 3), np.uint8)
+    for c, mask in enumerate(masks):
+        shift = (mask & -mask).bit_length() - 1
+        if mask == 0 or mask >> shift != 0xFF:
+            raise ValueError(f"a BMP with channel mask {mask:#x}: the numpy decoder reads "
+                             f"8-bit fields")
+        out[..., c] = (v & mask) >> shift
+    return out
+
+
+# -- dispatch -------------------------------------------------------------------
+
+def _kind(head: bytes) -> str:
+    if head[:8] == PNG_MAGIC:
+        return "png"
+    if head[:2] == jpeg.JPEG_MAGIC:
+        return "jpeg"
+    if head[:2] == BMP_MAGIC:
+        return "bmp"
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        return "webp"
+    return "unknown"
+
+
+def numpy_problem(path: str) -> Optional[str]:
+    """Why the numpy decoders cannot read ``path``, from its first bytes (a
+    JPEG's markers up to its frame header), or None: WebP, progressive or
+    other non-baseline JPEGs, compressed BMPs, unknown formats."""
     with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != PNG_MAGIC:
-        raise ValueError(f"{path}: only PNGs decode without the native image library "
-                         f"(libjpeg, libpng, libwebp: {native_error()})")
-    return resize_shortest(decode_png(data), res)
+        head = f.read(34)
+        kind = _kind(head)
+        if kind == "jpeg":
+            f.seek(0)
+            return jpeg.frame_problem(f)
+    if kind == "bmp":
+        return bmp_problem(head)
+    if kind == "webp":
+        return "a WebP image (the native image library reads WebP)"
+    if kind == "unknown":
+        return "not a PNG, JPEG, BMP or WebP file"
+    return None
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """PNG, baseline JPEG or BMP bytes, told apart by their magic bytes ->
+    (H, W, 3) uint8 RGB."""
+    kind = _kind(data[:12])
+    if kind == "png":
+        return decode_png(data)
+    if kind == "jpeg":
+        return jpeg.decode_jpeg(data)
+    if kind == "bmp":
+        return decode_bmp(data)
+    raise ValueError(f"{'a WebP image' if kind == 'webp' else 'an unknown format'}: the numpy "
+                     f"decoder reads PNG, baseline JPEG and BMP (the native image library "
+                     f"reads WebP)")
+
+
+def load_rgb(path: str) -> np.ndarray:
+    """``path`` decoded by the numpy decoders: (H, W, 3) uint8 RGB."""
+    with open(path, "rb") as f:
+        return decode_image(f.read())
+
+
+def load_resized_numpy(path: str, res: int) -> np.ndarray:
+    return resize_shortest(load_rgb(path), res)
 
 
 def load_resized(path: str, res: int, use_native: Optional[bool] = None) -> np.ndarray:
     """Decode ``path`` and resize its shortest side to ``res``: (H, W, 3) uint8.
-    ``use_native`` None: the native library where it loads."""
+    ``use_native`` None: the native library where it loads. BMPs and PNGs
+    with an alpha channel take the numpy decoders always."""
     if use_native is None:
         use_native = available()
     if use_native and path.lower().endswith(NATIVE_EXTS) and not _png_with_alpha(path):

@@ -75,19 +75,40 @@ def check_args(ap: argparse.ArgumentParser, args: argparse.Namespace) -> None:
         raise SystemExit("no CUDA device: pass --device cpu (with --tiny) to smoke-test on the CPU")
 
 
+def load_lora(bundle, frozen: dict, family: str, path: str, device: torch.device) -> dict:
+    """The kohya file ``path`` as an adapter dict of the family's backbone, on ``device``."""
+    from .lora.kohya import load_kohya_safetensors
+    from .lora.layers import lora_shapes
+
+    backbone = frozen["mmdit" if family == "sd3" else "unet"]
+    template = {k: torch.zeros(s) for k, s in lora_shapes(backbone, bundle.lora.rank).items()}
+    tree, _ = load_kohya_safetensors(path, template, bundle.lora.rank, bundle.KOHYA_PREFIX)
+    return {k: v.to(device) for k, v in tree.items()}
+
+
+def make_sampler(family: str, scheduler: str, steps: int, shift: float):
+    """The family's sampler: PCM-FM for SD3 (``fm_stoch`` stochastic), TCD or
+    trailing DDIM for SD1.5 and SDXL."""
+    from .configs.families import SD3_PCM_TIMESTEPS
+    from .core.schedule import make_ddpm_schedule, make_flow_schedule
+    from .sampling.ddim import DDIMSampler, TCDSampler
+    from .sampling.pcm_fm import PCMFMSampler
+
+    if family == "sd3":
+        return PCMFMSampler.create(make_flow_schedule(shift=shift), steps, SD3_PCM_TIMESTEPS,
+                                   stochastic=scheduler == "fm_stoch")
+    if scheduler == "tcd":
+        return TCDSampler.create(make_ddpm_schedule(), steps)
+    return DDIMSampler.create(make_ddpm_schedule(), steps)
+
+
 def build(args: argparse.Namespace) -> dict:
     """The bundle, its weights (``--teacher-checkpoint``, ``--weights``), the
     ``--lora`` adapter (None: the teacher), the tokenizers, the pipeline and
     the resolution the flags describe."""
-    from .configs.families import (FAMILIES, SD3_PCM_TIMESTEPS, sd3_bundle, sd3_lora_targets,
-                                   sd15_bundle, sdxl_bundle)
-    from .core.schedule import make_ddpm_schedule, make_flow_schedule
+    from .configs.families import FAMILIES, sd3_bundle, sd3_lora_targets, sd15_bundle, sdxl_bundle
     from .data.tokenizer import resolve_tokenizers
-    from .lora.kohya import load_kohya_safetensors
-    from .lora.layers import lora_shapes
     from .port_weights import FAMILY_MODULES
-    from .sampling.ddim import DDIMSampler, TCDSampler
-    from .sampling.pcm_fm import PCMFMSampler
     from .sampling.pipeline import TextToImagePipeline
 
     device = torch.device(args.device)
@@ -102,25 +123,13 @@ def build(args: argparse.Namespace) -> dict:
         raise SystemExit(f"--teacher-checkpoint {args.teacher_checkpoint} lacks {lacking}")
     frozen = bundle.from_states(states, device)
     del states
-    lora = None
-    if args.lora:
-        backbone = frozen["mmdit" if args.family == "sd3" else "unet"]
-        template = {k: torch.zeros(s) for k, s in lora_shapes(backbone, bundle.lora.rank).items()}
-        tree, _ = load_kohya_safetensors(args.lora, template, bundle.lora.rank,
-                                         bundle.KOHYA_PREFIX)
-        lora = {k: v.to(device) for k, v in tree.items()}
+    lora = load_lora(bundle, frozen, args.family, args.lora, device) if args.lora else None
     if args.weights == "int8":
         from .utils.quant import quantize_frozen
 
         frozen = quantize_frozen(frozen, min_size=0 if args.tiny else 65536)
-    scheduler = args.scheduler or SCHEDULERS[args.family][0]
-    if args.family == "sd3":
-        sampler = PCMFMSampler.create(make_flow_schedule(shift=args.shift), args.steps,
-                                      SD3_PCM_TIMESTEPS, stochastic=scheduler == "fm_stoch")
-    elif scheduler == "tcd":
-        sampler = TCDSampler.create(make_ddpm_schedule(), args.steps)
-    else:
-        sampler = DDIMSampler.create(make_ddpm_schedule(), args.steps)
+    sampler = make_sampler(args.family, args.scheduler or SCHEDULERS[args.family][0],
+                           args.steps, args.shift)
     return {"bundle": bundle, "frozen": frozen, "lora": lora, "device": device,
             "toks": resolve_tokenizers(args.tokenizer_dir, tok_keys),
             "pipe": TextToImagePipeline(bundle, sampler),

@@ -2,7 +2,8 @@
 
 The inverse of `pcm_tpu/models/convert.py:convert_unet_torch_state`,
 `convert_vae_torch_state`, `convert_mmdit_torch_state`,
-`pcm_tpu/models/clip.py:convert_clip_torch_state` and
+`pcm_tpu/models/clip.py:convert_clip_torch_state`,
+`pcm_tpu/models/clip_vision.py:convert_clip_vision_torch_state` and
 `pcm_tpu/models/t5.py:convert_t5_torch_state`.
 Inputs are nested dicts of numpy arrays (a JAX tree after ``jax.tree.map(
 np.asarray, ...)``); outputs are flat dicts of CPU tensors with diffusers /
@@ -225,4 +226,31 @@ def t5_state_from_jax(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]
         for k in ("wi_0", "wi_1", "wo"):
             out.update((f"{bp}1.DenseReluDense.{k}.{name}", v) for name, v in _leaf(
                 "kernel", p[k]["kernel"]))
+    return out
+
+
+def clip_vision_state_from_jax(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``CLIPVisionModel`` params -> the transformers-named state dict of
+    the port's `CLIPVisionModel` (the inverse of
+    `convert_clip_vision_torch_state`): the patch kernel (kh, kw, in, out) ->
+    (out, in, kh, kw), the embeddings under ``vision_model.embeddings``, the
+    layers regrouped as the text tower's."""
+    def layer(p):
+        return {"self_attn": {k: p[k] for k in ("q_proj", "k_proj", "v_proj", "out_proj")},
+                "mlp": {k: p[k] for k in ("fc1", "fc2")},
+                "layer_norm1": p["layer_norm1"], "layer_norm2": p["layer_norm2"]}
+
+    tree = {"vision_model": {
+        "embeddings": {"patch_embedding": params["patch_embedding"],
+                       "position_embedding": {"weight": params["position_embedding"]}},
+        "pre_layrnorm": params["pre_layrnorm"],
+        "encoder": {"layers": {str(i): layer(params[f"layers_{i}"])
+                               for i in range(cfg.num_layers)}},
+        "post_layernorm": params["post_layernorm"],
+    }}
+    if "visual_projection" in params:
+        tree["visual_projection"] = params["visual_projection"]
+    out = _flatten(tree)
+    out["vision_model.embeddings.class_embedding"] = torch.from_numpy(
+        np.array(params["class_embedding"]))
     return out

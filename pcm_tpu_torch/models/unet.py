@@ -10,7 +10,10 @@ JAX package's ``--remat full --remat-gran block`` of training).
 JAX package's ``sow("features", ...)``): ``down_{level}`` after each level
 (its downsampler included), ``mid`` after the mid block and ``up_{i}`` after
 each up block (its upsampler included); with ``stop_after_mid`` no up block
-runs. Not yet ported: ``time_cond_proj_dim``.
+runs. ``time_cond_proj_dim`` adds the guidance embedding's bias-free
+``time_embedding_cond_proj``: with ``timestep_cond`` (N, dim) given, its
+output joins the sinusoid before ``time_embedding`` (no released config
+sets it, and no converter maps a file key for it).
 """
 
 from __future__ import annotations
@@ -47,6 +50,8 @@ class UNetConfig:
     # SDXL micro-conditioning: sinusoid width per time_id and the concat width
     addition_embed_dim: Optional[int] = None
     addition_in_dim: Optional[int] = None
+    # width of the guidance embedding (`timestep_cond`); None = disabled
+    time_cond_proj_dim: Optional[int] = None
 
     @property
     def time_embed_dim(self) -> int:
@@ -135,6 +140,9 @@ class UNet2DCondition(nn.Module):
 
         self.conv_in = LoRAConv(cfg.in_channels, ch0, 3, padding=1)
         self.time_embedding = TimestepEmbedding(ch0, temb)
+        if cfg.time_cond_proj_dim is not None:
+            self.time_embedding_cond_proj = quant.DequantLinear(cfg.time_cond_proj_dim, ch0,
+                                                                bias=False)
         if cfg.addition_in_dim is not None:
             self.add_embedding = TimestepEmbedding(cfg.addition_in_dim, temb)
 
@@ -183,10 +191,13 @@ class UNet2DCondition(nn.Module):
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor, lora: LoRA = None,
-                added_cond: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+                added_cond: Optional[Dict[str, torch.Tensor]] = None,
+                timestep_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
         """sample (N, C, H, W), timesteps (N,), encoder_hidden_states (N, S, D);
-        SDXL: added_cond {"text_embeds": (N, 1280), "time_ids": (N, 6)}."""
-        return self._run(sample, timesteps, encoder_hidden_states, lora, added_cond)
+        SDXL: added_cond {"text_embeds": (N, 1280), "time_ids": (N, 6)};
+        timestep_cond (N, time_cond_proj_dim) where the config sets it."""
+        return self._run(sample, timesteps, encoder_hidden_states, lora, added_cond,
+                         timestep_cond=timestep_cond)
 
     def features(self, sample: torch.Tensor, timesteps: torch.Tensor,
                  encoder_hidden_states: torch.Tensor, lora: LoRA = None,
@@ -201,11 +212,14 @@ class UNet2DCondition(nn.Module):
         return taps
 
     def _run(self, sample, timesteps, encoder_hidden_states, lora, added_cond,
-             taps: Optional[Dict[str, torch.Tensor]] = None, stop_after_mid: bool = False):
+             taps: Optional[Dict[str, torch.Tensor]] = None, stop_after_mid: bool = False,
+             timestep_cond: Optional[torch.Tensor] = None):
         run = self._block
         cfg = self.cfg
         dtype = self.conv_norm_out.weight.dtype  # a norm scale: never quantized
         t_emb = sinusoidal_embedding(timesteps, cfg.block_out_channels[0]).to(dtype)
+        if cfg.time_cond_proj_dim is not None and timestep_cond is not None:
+            t_emb = t_emb + self.time_embedding_cond_proj(timestep_cond.to(dtype))
         temb = self.time_embedding(t_emb)
         if cfg.addition_in_dim is not None:
             if added_cond is None:

@@ -180,7 +180,7 @@ class AutoencoderKL(nn.Module):
     """The SD VAE: ``encode(x, noise)`` maps pixels (N, 3, H, W) in [-1, 1]
     to normalized latents (N, C, H/8, W/8), ``decode(z)`` maps them back."""
 
-    # the encoder's parameters, drawn apart by `train/bundles.py:_fill_fan_in`
+    # the encoder's parameters, drawn apart by `train/bundles.py:fill_fan_in`
     ENCODER_PREFIXES = ("encoder.", "quant_conv.")
 
     def __init__(self, cfg: VAEConfig = SD15_VAE_CONFIG):

@@ -40,7 +40,7 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def _fill_fan_in(module: nn.Module, generator: torch.Generator,
+def fill_fan_in(module: nn.Module, generator: torch.Generator,
                  which: Callable[[str], bool] = lambda name: True) -> None:
     """Random weights drawn in place for the parameters ``which`` names:
     1-D weights (norm scales) 1, biases 0, everything else N(0, 1/fan_in)
@@ -160,10 +160,10 @@ class SD15Bundle:
             return name.startswith(AutoencoderKL.ENCODER_PREFIXES)
 
         for k, m in frozen.items():
-            _fill_fan_in(m, generator, lambda n: k != "vae" or not encoder(n))
+            fill_fan_in(m, generator, lambda n: k != "vae" or not encoder(n))
         template = init_lora(frozen["unet"], self.lora.rank, generator, device)
         if "vae" in frozen:
-            _fill_fan_in(frozen["vae"], _own_stream(generator, _ENCODER_STREAM), encoder)
+            fill_fan_in(frozen["vae"], _own_stream(generator, _ENCODER_STREAM), encoder)
         return frozen, template
 
     def from_states(self, states: Mapping[str, Mapping[str, torch.Tensor]],
@@ -298,11 +298,11 @@ class SDXLBundle:
         frozen = self.build(device, modules)
         template = {}
         if "unet" in frozen:
-            _fill_fan_in(frozen["unet"], generator)
+            fill_fan_in(frozen["unet"], generator)
             template = init_lora(frozen["unet"], self.lora.rank, generator, device)
         for k, tag in _SDXL_STREAMS.items():
             if k in frozen:
-                _fill_fan_in(frozen[k], _own_stream(generator, tag))
+                fill_fan_in(frozen[k], _own_stream(generator, tag))
         return frozen, template
 
     def from_states(self, states: Mapping[str, Mapping[str, torch.Tensor]],
@@ -406,11 +406,11 @@ class SD3Bundle:
         frozen = self.build(device, modules)
         template = {}
         if "mmdit" in frozen:
-            _fill_fan_in(frozen["mmdit"], generator)
+            fill_fan_in(frozen["mmdit"], generator)
             template = init_lora(frozen["mmdit"], self.lora.rank, generator, device)
         for k, tag in _SD3_STREAMS.items():
             if k in frozen:
-                _fill_fan_in(frozen[k], _own_stream(generator, tag))
+                fill_fan_in(frozen[k], _own_stream(generator, tag))
         return frozen, template
 
     def from_states(self, states: Mapping[str, Mapping[str, torch.Tensor]],

@@ -364,11 +364,29 @@ def test_numpy_decoder_undoes_every_filter(monkeypatch, channels, band_elems):
     np.testing.assert_array_equal(native_image.decode_png(_png(px, kinds)), want)
 
 
+def _rle_bmp(path):
+    """The headers of an 8-bit RLE8-compressed BMP (compression 1)."""
+    with open(path, "wb") as f:
+        f.write(b"BM" + struct.pack("<IHHI", 54 + 1024, 0, 0, 54 + 1024)
+                + struct.pack("<IiiHHIIiiII", 40, 4, 4, 1, 8, 1, 0, 2835, 2835, 0, 0)
+                + bytes(1024))
+
+
 def test_numpy_path_refuses_other_formats(tmp_path):
-    p = str(tmp_path / "x.jpg")
-    _smooth((40, 30), 3).save(p, "JPEG")
-    with pytest.raises(ValueError, match="only PNGs"):
+    """WebP and progressive JPEGs are refused by name (baseline JPEG, PNG
+    and BMP decode: `tests/test_torch_jpeg.py`), as are 16-bit PNGs and RLE
+    BMPs."""
+    p = str(tmp_path / "x.webp")
+    _smooth((40, 30), 3).save(p, "WEBP")
+    with pytest.raises(ValueError, match="WebP"):
         native_image.load_resized(p, 16, use_native=False)
+    p = str(tmp_path / "x.jpg")
+    _smooth((40, 30), 3).save(p, "JPEG", progressive=True)
+    with pytest.raises(ValueError, match="progressive"):
+        native_image.load_resized(p, 16, use_native=False)
+    _rle_bmp(str(tmp_path / "r.bmp"))
+    with pytest.raises(ValueError, match="RLE8"):
+        native_image.load_resized(str(tmp_path / "r.bmp"), 16, use_native=False)
     with pytest.raises(ValueError, match="8-bit"):
         Image.fromarray(np.zeros((4, 4), np.uint16), "I;16").save(str(tmp_path / "d.png"))
         with open(str(tmp_path / "d.png"), "rb") as f:
@@ -432,20 +450,46 @@ def png_root(image_root):
     return image_root
 
 
-@pytest.mark.parametrize("use_native,name", [(False, "e2.jpg"), (True, "f.bmp")],
-                         ids=["numpy_jpeg", "native_bmp"])
+@pytest.mark.parametrize("use_native,name", [(False, "e2.jpg"), (True, "f.bmp"),
+                                             (False, "e2.webp")],
+                         ids=["numpy_jpeg", "native_bmp", "numpy_webp"])
 def test_dataset_refuses_what_its_decoder_cannot_read(image_root, use_native, name):
-    """A JPEG under the numpy decoder, a BMP under either: the dataset is
-    refused when made, with the count and the decoder named, not trained on
-    its other files or ended by the bad-sample retry."""
+    """A progressive JPEG or a WebP under the numpy decoder, an RLE BMP under
+    the native one (BMPs take the numpy decoder there): the dataset is
+    refused when made, with the count, the decoder and the reason named, not
+    trained on its other files or ended by the bad-sample retry. (The
+    folder's baseline JPEG, ``e.jpg``, is read by either.)"""
     if use_native and not native_image.available():
         pytest.skip("native image pipeline unavailable")
-    _smooth((20, 20), 4).save(os.path.join(image_root, name))
-    unread, decoder = (1, "native") if use_native else (2, "numpy")
-    with pytest.raises(ValueError, match=rf"{unread} of the 6 images .* {decoder} decoder") as e:
+    path = os.path.join(image_root, name)
+    if name.endswith(".bmp"):
+        _rle_bmp(path)
+    else:
+        _smooth((20, 20), 4).save(path, progressive=True)
+    why = {"jpg": "progressive", "bmp": "RLE8", "webp": "WebP"}[name.rsplit(".", 1)[1]]
+    decoder = "native" if use_native else "numpy"
+    with pytest.raises(ValueError, match=rf"1 of the 6 images .* {decoder} decoder .*{why}") as e:
         dataset.ImageFolderDataset(image_root, resolution=32, use_native=use_native)
     if not use_native:
         assert "native image library" in str(e.value)
+
+
+def test_numpy_dataset_matches_jax_pil(image_root):
+    """The numpy decoders' dataset (PNGs, a baseline JPEG) against the JAX
+    dataset at ``use_native=False`` (PIL): the same files in the same order,
+    the same captions, and pixels within the 3 LSB that the numpy PNG path
+    keeps against PIL's Lanczos (the JPEG decodes to PIL's pixels exactly,
+    `tests/test_torch_jpeg.py`)."""
+    ours = dataset.ImageFolderDataset(image_root, resolution=32, use_native=False)
+    ref = jdataset.ImageFolderDataset(image_root, resolution=32, use_native=False)
+    assert ours.files == ref.files and ours.decoder == "numpy" and len(ours) == 5
+    assert ours.files[-1].endswith("e.jpg")
+    for i in range(len(ours)):
+        a, b = ours.get(i), ref.get(i)
+        assert a["caption"] == b["caption"]
+        assert a["pixel_values"].shape == b["pixel_values"].shape == (32, 32, 3)
+        d = np.abs(a["pixel_values"] - b["pixel_values"]) * 127.5
+        assert d.max() <= 3.01 and d.mean() < 1.0, ours.files[i]
 
 
 def test_numpy_and_native_decoders_agree(png_root):
@@ -665,8 +709,8 @@ def test_train_cli_refuses_pixels(tmp_path, capsys, extra, msg):
     from pcm_tpu_torch.train.__main__ import main
 
     tiny = [] if "--no-tiny-tokenizer" in extra else ["--tiny"]
-    if "--with-bmp" in extra:  # a format neither decoder reads
-        _smooth((20, 20), 4).save(str(tmp_path / "a.bmp"))
+    if "--with-bmp" in extra:  # a file neither decoder reads: BMPs take the numpy one
+        _rle_bmp(str(tmp_path / "a.bmp"))
     extra = [a for a in extra if a not in ("--no-tiny-tokenizer", "--with-bmp")]
     with pytest.raises(SystemExit) as exc:
         main([*extra, *tiny, "--device", "cpu", "--output-dir", str(tmp_path / "o"),
