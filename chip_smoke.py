@@ -18,14 +18,17 @@ trajectory of an adversarial recipe, SDXL and SD3 adversarial training,
 SD3 serving on int8 weights, and the int8 ``conv`` / ``both`` modes; and
 data parallelism: the trainer under ``python -m torch.distributed.run`` (one
 NCCL rank, two gloo ranks sharing the card) and, with several cards, the
-SDXL step and the sharded serving engine on all of them; and evaluation:
+SDXL step and the sharded serving engine on all of them; and the frozen
+weights sharded over ranks (FSDP): two gloo ranks sharing the card against
+one process, and, with four cards, data x FSDP against data parallelism
+alone; and evaluation:
 the numpy JPEG and BMP decoders, training from a JPEG folder, the CLIP
 ViT-L/14 tower, the CLIP-FID and CLIP score CLIs and the demo with its
 safety checker.
 
     python3 chip_smoke.py [--seed 0]
 
-Phases, one printed line each:
+Phases, one printed line each (``t=`` the seconds since the start):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile the port's CUDA kernels (pcm_tpu_torch/csrc) into one library;
   3. kernels: each kernel against its plain PyTorch version at the SD1.5 shapes
@@ -207,8 +210,8 @@ Phases, one printed line each:
      final-window threshold), and the per-point max / mean of ``loss`` and
      ``d_loss`` are printed; then 2 steps under ``scoped`` and ``dense``.
      Every run as phase 11 checks its runs; K6 launched under ``fused``
-     alone. (Phase 11's checkpoints are deleted first, and each run's after
-     it: the smoke's disk is bounded.)
+     alone. (Each run's checkpoints are deleted after it, as phase 11's are
+     once phase 11 has ended: the card's machine bounds the disk writes.)
  28. sdxl-adv-int8: ``sdxl_4phase_adv`` on phase 11's cache, batch 2,
      ``fused`` pairing, 4 global steps on int8 weights under ``fused``;
      checked as phase 11's runs and K6 launched; pair ms and peak beside
@@ -251,8 +254,8 @@ eval. evaluation, the demo and image formats (`eval_phases`, run after phase
      K4 launched; again with ``--safety-concepts`` on an npz whose concept is
      that image's CLIP feature (the image black) and on one whose concept is
      its opposite (the image unchanged);
-ddp. data parallelism (`ddp_phase`), four trainer runs as child processes,
-     concurrently, ``sd15_4phase`` at full width for 3 steps on phase 7's
+ddp. data parallelism (`ddp_runs` on the lane, checked by `ddp_phase`), four
+     trainer runs as child processes, concurrently, ``sd15_4phase`` at full width for 3 steps on phase 7's
      cache rearranged (`write_ddp_caches`): (a) ``python -m
      torch.distributed.run --nproc-per-node 1`` (one NCCL rank) at batch 4
      against the same run with no process group, bit for bit in the losses
@@ -267,8 +270,41 @@ ddp. data parallelism (`ddp_phase`), four trainer runs as child processes,
      bytes and ms of the step's all-reduce, the peak, and ``serving --family
      sdxl --data-parallel N`` at batch 4 x N against one card at 4; with one
      card it prints ``cards=1``.
+fsdp. the frozen weights sharded over ranks (`fsdp_runs` on the lane beside
+     phases 24-26 and eval, checked by `fsdp_phase`; needs phase 7's cache), ``scripts/bench_fsdp_torch.py`` at full
+     published width, bs 2 a rank, remat on, each step once: (a) SD1.5 at
+     512 px on phase 7's cache: the ``sd15_4phase`` consistency step, the
+     ``sd15_2phase_adv`` G step then D step on the SD1.5 heads, the fused
+     pair and the consistency step on int8 frozen weights under ``fused``,
+     as two gloo ranks sharing the card at ``data 1 x fsdp 2`` (a child
+     process under the launcher) against one process with no process group
+     (a child process run before the ranks start): each rank's
+     losses, new LoRA and new heads equal the one process's bit for bit, and
+     each rank holds at most 0.51 of the frozen bytes at rest; per rank the
+     bytes at rest beside the unsharded total, the peak, the step ms, the
+     all-gathers a step, the bytes they rebuilt, the most of those alive and
+     the TMA maps the kernels encoded; K1-K6 launched; (b) SD3's flow step
+     (``SD3_CACHED_STEP``) from 1024-px pixels, so the VAE encoder, CLIP-L,
+     CLIP-bigG, T5-XXL and the MMDiT all run on sharded weights, in the same
+     runs and checked as (a), at published widths and `FSDP_SD3_DEPTH`'s
+     depth (2 of 24 joint blocks, 2 of 24 T5 layers: gloo's gathers through
+     host memory take 55 s a full-depth step); (c) with four cards or more
+     (`fsdp_cards`): SD1.5 (a seeded cached batch) and SD3 at published depth
+     on four NCCL ranks at ``data 2 x fsdp 2`` against two at ``data 2 x
+     fsdp 1`` (data parallelism alone), one after the other, the consistency
+     steps twice (timed warm), bit for bit; with fewer it prints ``cards=N``.
 Each main path runs with the launch counts set to 0 just before it and read
-just after. Then a JSON line of the kernels, the nvidia-smi line, and a last
+just after. Some child-process runs go on one thread beside the main one
+(`Lane`), so that the card works on two phases at once: the ``ddp`` runs,
+phase 13's training from pixels, phase 22a's SD3 runs, the ``fsdp`` runs
+(once the main thread has reached phases light on the card's memory), the
+training from JPEGs and phase 29's SD3 run on int8 weights; each is checked
+where the main thread takes its result. The kernel phase (3) runs before
+any of them starts, so the JSON line's times are taken on a card the
+script has to itself; the phases' step ms and wall seconds from then on are
+taken beside the lane's runs. A run's checkpoints are deleted once they are
+read (the machine of the card bounds a call's disk writes, deleted files
+included, at 45 GiB). Then a JSON line of the kernels, the nvidia-smi line, and a last
 JSON line ``{"ok": true, ...}``.
 Any failed check raises: the script then exits non-zero and prints no result.
 It needs a CUDA device and the repository around it.
@@ -294,8 +330,98 @@ import urllib.request
 import torch
 
 
+_T0 = time.perf_counter()
+
+
 def log(phase: str, **kw) -> None:
-    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
+    """One line: the phase, the seconds since the script started, the fields
+    (one write, so that the lane's lines do not cut into the main thread's)."""
+    sys.stdout.write(f"[{phase}] t={time.perf_counter() - _T0:.0f}s "
+                     + " ".join(f"{k}={v}" for k, v in kw.items()) + "\n")
+    sys.stdout.flush()
+
+
+_CHILDREN: set = set()  # every child process started (`_popen`)
+_CHILDREN_LOCK = threading.Lock()
+_STOPPING = False
+
+
+def _popen(argv, **kw) -> subprocess.Popen:
+    """A child process in a session of its own (a launcher's ranks join
+    it), kept so that `_stop_children` can end it; none starts once the
+    script is stopping."""
+    with _CHILDREN_LOCK:
+        if _STOPPING:
+            raise RuntimeError(f"the smoke is stopping: {argv[:4]} not started")
+        proc = subprocess.Popen(argv, start_new_session=True, **kw)
+        _CHILDREN.add(proc)
+    return proc
+
+
+def _stop_children() -> None:
+    """Kill the session of every child of `_popen` that is still running,
+    and start no more."""
+    import signal
+
+    global _STOPPING
+    with _CHILDREN_LOCK:
+        _STOPPING = True
+        procs = list(_CHILDREN)
+    for proc in procs:
+        if proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+class Lane:
+    """Child-process runs on one thread beside the main one, each started
+    when the one before it has ended, in the order they were added. The
+    card's memory is shared: a run added with ``after`` waits until the main
+    thread sets that event (it has reached phases light enough to run
+    beside). A run does host work only (its children, their files), so the
+    main thread's launch counts and peaks stay its own. `result` waits for a
+    run and raises its error; once a run has failed, the later ones do not
+    start."""
+
+    def __init__(self):
+        import queue
+
+        self._queue = queue.Queue()
+        self._runs = {}
+        threading.Thread(target=self._loop, name="lane", daemon=True).start()
+
+    def add(self, name: str, fn, *args, after: threading.Event = None) -> None:
+        self._runs[name] = {"done": threading.Event(), "value": None, "error": None}
+        self._queue.put((name, fn, args, after))
+
+    def _loop(self) -> None:
+        failed = None
+        while True:
+            name, fn, args, after = self._queue.get()
+            run = self._runs[name]
+            try:
+                if after is not None:
+                    after.wait()
+                if failed:
+                    raise RuntimeError(f"not started: lane run {failed!r} failed")
+                free, total = torch.cuda.mem_get_info()
+                log("lane", run=name, card_free_gib=f"{free / 2**30:.1f}/{total / 2**30:.1f}")
+                t0 = time.perf_counter()
+                run["value"] = fn(*args)
+                log("lane", run=name, seconds=f"{time.perf_counter() - t0:.1f}")
+            except BaseException as e:  # handed to the main thread by `result`
+                run["error"] = e
+                failed = failed or name
+            finally:
+                run["done"].set()
+
+    def result(self, name: str):
+        run = self._runs[name]
+        run["done"].wait()
+        if run["error"] is not None:
+            raise AssertionError(f"lane run {name}: {run['error']!r}") from run["error"]
+        return run["value"]
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1076,8 +1202,8 @@ def _ddp_run(out_dir: str, cache: str, batch: int, seed: int, ranks: int = 0,
             str(seed), "--log-every", "1", "--max-train-steps", str(DDP_STEPS),
             "--checkpointing-steps", str(DDP_STEPS), "--no-resume"]
     log_file = open(os.path.join(out_dir, "stdout.log"), "w")
-    return subprocess.Popen(argv, stdout=log_file, stderr=subprocess.STDOUT, text=True,
-                            cwd=os.path.dirname(os.path.abspath(__file__))), log_file
+    return _popen(argv, stdout=log_file, stderr=subprocess.STDOUT, text=True,
+                  cwd=os.path.dirname(os.path.abspath(__file__))), log_file
 
 
 def _ddp_result(out_dir: str) -> dict:
@@ -1103,19 +1229,19 @@ def _ddp_diff(run: dict, ref: dict) -> tuple:
     return loss, lora
 
 
-def ddp_phase(cache_dir: str, seed: int) -> list:
-    """Phase ddp (a) and (b): four child runs at once (the card holds them),
-    then the checks; (c) on several cards (`ddp_cards`). Returns the runs
-    with their launches."""
-    gc.collect()
-    torch.cuda.empty_cache()
+# run -> (cache: "one" or "ranks", batch a rank, ranks under the launcher, accumulation)
+DDP_SPECS = {"plain": ("one", 4, 0, 1), "nccl1": ("one", 4, 1, 1),
+             "gloo2": ("ranks", 2, 2, 1), "accum2": ("one", 2, 0, 2)}
+
+
+def ddp_runs(cache_dir: str, seed: int) -> dict:
+    """Phase ddp (a) and (b)'s four child runs at once (the card holds
+    them), each of which must exit 0; a lane run (host work only)."""
     root = "build/chip_smoke/ddp"
-    ranks_cache, one_cache = write_ddp_caches(cache_dir, root, seed)
+    caches = dict(zip(("ranks", "one"), write_ddp_caches(cache_dir, root, seed)))
     t0 = time.perf_counter()
-    specs = {"plain": (one_cache, 4, 0, 1), "nccl1": (one_cache, 4, 1, 1),
-             "gloo2": (ranks_cache, 2, 2, 1), "accum2": (one_cache, 2, 0, 2)}
-    procs = {tag: _ddp_run(os.path.join(root, tag), cache, batch, seed, ranks, accum)
-             for tag, (cache, batch, ranks, accum) in specs.items()}
+    procs = {tag: _ddp_run(os.path.join(root, tag), caches[cache], batch, seed, ranks, accum)
+             for tag, (cache, batch, ranks, accum) in DDP_SPECS.items()}
     rcs = {}
     for tag, (proc, log_file) in procs.items():
         try:
@@ -1129,9 +1255,17 @@ def ddp_phase(cache_dir: str, seed: int) -> list:
         tails = {tag: open(os.path.join(root, tag, "stdout.log")).read()[-2000:]
                  for tag, rc in rcs.items() if rc}
         raise AssertionError(f"ddp runs failed: {rcs} {tails}")
-    runs = {tag: _ddp_result(os.path.join(root, tag)) for tag in specs}
-    wall = time.perf_counter() - t0
-    plain, nccl1, gloo2, accum2 = (runs[k] for k in specs)
+    return {"root": root, "wall": time.perf_counter() - t0}
+
+
+def ddp_phase(started: dict) -> list:
+    """Phase ddp (a) and (b)'s checks on the runs of `ddp_runs`; (c) is
+    `ddp_cards`. Returns the runs with their launches."""
+    runs = {tag: _ddp_result(os.path.join(started["root"], tag)) for tag in DDP_SPECS}
+    for tag in DDP_SPECS:
+        _drop_checkpoints(os.path.join(started["root"], tag))
+    wall = started["wall"]
+    plain, nccl1, gloo2, accum2 = (runs[k] for k in DDP_SPECS)
     identical = (nccl1["losses"] == plain["losses"]
                  and all(torch.equal(nccl1["lora"][k], v) for k, v in plain["lora"].items()))
     yard = _ddp_diff(accum2, plain)
@@ -1155,7 +1289,7 @@ def ddp_phase(cache_dir: str, seed: int) -> list:
                              f"{missing}, banners {nccl1['banner']!r} {gloo2['banner']!r}")
     for r in runs.values():
         del r["lora"]
-    return list(runs.values()) + ddp_cards(seed)
+    return list(runs.values())
 
 
 def ddp_cards(seed: int) -> list:
@@ -1204,6 +1338,168 @@ def ddp_cards(seed: int) -> list:
             and serve[f"dp{cards}"]["same_as_one_card"]):
         raise AssertionError(f"{cards}-card SDXL step: {many}; serving: {serve}")
     return [{"counts": many["launches"]}, {"counts": serve[f"dp{cards}"]["launches"]}]
+
+
+# ---------------------------------------------------------------------------
+# phase fsdp: the frozen weights sharded over ranks
+# ---------------------------------------------------------------------------
+
+FSDP_SD15_JOBS = ("ddim", "adv_g_d", "adv_fused", "ddim_int8")
+FSDP_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+                "group_norm_silu", "geglu", "int8_matmul")
+# SD3's depth in (b) on one card (joint blocks, T5 layers; published 24 and 24):
+# two gloo ranks move the gathers through host memory at ~0.6 GB/s, 55 s a
+# full-depth step; (c) runs the published depth on four cards
+FSDP_SD3_DEPTH = (2, 2)
+FSDP_AT_REST = 0.51  # of the unsharded frozen bytes a rank may hold at fsdp 2
+
+
+def _fsdp_start(tag: str, family: str, ranks: int, n_fsdp: int, seed: int, *extra: str) -> dict:
+    """``scripts/bench_fsdp_torch.py`` started as a child process: one
+    process with no process group (``ranks`` 0) or ``ranks`` under ``python
+    -m torch.distributed.run``; `_fsdp_wait` collects it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, "build", "chip_smoke", "fsdp", tag)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    launcher = (["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(ranks)]
+                if ranks else [])
+    argv = [sys.executable, "-u", *launcher, os.path.join(here, "scripts", "bench_fsdp_torch.py"),
+            "--family", family, "--fsdp", str(n_fsdp), "--out", out_dir, "--seed", str(seed),
+            *extra]
+    log_file = open(os.path.join(out_dir, "stdout.log"), "w")
+    return {"tag": tag, "ranks": max(ranks, 1), "out": out_dir, "t0": time.perf_counter(),
+            "log": log_file, "proc": _popen(argv, stdout=log_file, stderr=subprocess.STDOUT,
+                                            cwd=here)}
+
+
+def _fsdp_results(out_dir: str, ranks: int, t0: float) -> list:
+    runs = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+            for r in range(ranks)]
+    runs[0]["wall_s"] = time.perf_counter() - t0
+    return runs
+
+
+def _fsdp_wait(run: dict, timeout: float = 900) -> list:
+    """Each rank's results of a `_fsdp_start` run (it must exit 0)."""
+    try:
+        rc = run["proc"].wait(timeout=timeout)
+    finally:
+        if run["proc"].poll() is None:
+            run["proc"].kill()
+            run["proc"].wait()
+        run["log"].close()
+    if rc:
+        with open(os.path.join(run["out"], "stdout.log")) as f:
+            raise AssertionError(f"fsdp run {run['tag']}: rc {rc}\n{f.read()[-5000:]}")
+    return _fsdp_results(run["out"], run["ranks"], run["t0"])
+
+
+def _fsdp_run(tag: str, family: str, ranks: int, n_fsdp: int, seed: int, *extra: str) -> list:
+    return _fsdp_wait(_fsdp_start(tag, family, ranks, n_fsdp, seed, *extra))
+
+
+def _fsdp_same(a: dict, b: dict) -> bool:
+    """Losses equal bit for bit, and the new LoRA's and heads' digests."""
+    return (a["metrics"].keys() == b["metrics"].keys()
+            and all(torch.equal(a["metrics"][k], v) for k, v in b["metrics"].items())
+            and a["params"] == b["params"] and a["d_params"] == b["d_params"])
+
+
+def _fsdp_readings(runs: list, jobs) -> dict:
+    """Per rank: at-rest GiB (held / unsharded), and per job of ``jobs`` the
+    step ms, peak GiB, gathers, gathered GiB, most gathered GiB alive and
+    TMA maps encoded, each a list over the runs of the job."""
+    gib = 2 ** 30
+    out = {}
+    for run in runs:
+        r = f"r{run['layout'][2]}{run['layout'][3]}"
+        out[r] = {"at_rest_gib": {k: [round(h / gib, 3), round(t / gib, 3)]
+                                  for k, (h, t) in run["held_bytes"].items()}}
+        for job in jobs:
+            rec = run["jobs"][job]
+            out[r][job] = {"ms": [round(x, 1) for x in rec["ms"]],
+                           "peak_gib": [round(x / gib, 3) for x in rec["peak_bytes"]],
+                           "gathers": rec["gathers"],
+                           "gathered_gib": [round(x / gib, 3) for x in rec["gathered_bytes"]],
+                           "gathered_peak_gib": [round(x / gib, 3)
+                                                 for x in rec["peak_gathered_bytes"]],
+                           "tma_encodes": rec["tma_encodes"]}
+    return out
+
+
+def _fsdp_check(what: str, runs: list, refs: list, backend: str, sharded: bool) -> None:
+    """Each rank of ``runs`` equals, bit for bit and job by job, the ``refs``
+    rank of its data index; it ran on ``backend``; sharded, it holds at
+    most `FSDP_AT_REST` of the frozen bytes and gathered."""
+    bad = []
+    for run in runs:
+        ref = refs[run["layout"][2] if len(refs) > 1 else 0]
+        for job, rec in run["jobs"].items():
+            finite = all(math.isfinite(x) for x in rec["losses"].values())
+            if not (finite and _fsdp_same(rec, ref["jobs"][job])):
+                bad.append((run["layout"], job, rec["losses"], ref["jobs"][job]["losses"]))
+            if sharded and not min(rec["gathers"]) > 0:
+                bad.append((run["layout"], job, "no gathers"))
+        if run["backend"] != backend:
+            bad.append((run["layout"], run["backend"]))
+        if sharded and not all(h <= FSDP_AT_REST * t for h, t in run["held_bytes"].values()):
+            bad.append((run["layout"], run["held_bytes"]))
+    if bad:
+        raise AssertionError(f"{what}: {bad}")
+
+
+def _fsdp_log(tag: str, runs: list, refs: list, **kw) -> None:
+    for family, jobs in (("sd15", FSDP_SD15_JOBS), ("sd3", ("flow",))):
+        log(tag, family=family, **kw, wall_s=f"{refs[0]['wall_s']:.1f}/{runs[0]['wall_s']:.1f}",
+            losses=json.dumps({j: runs[0]["jobs"][j]["losses"] for j in jobs}),
+            reference=json.dumps(_fsdp_readings(refs, jobs)),
+            ranks=json.dumps(_fsdp_readings(runs, jobs)))
+
+
+def fsdp_runs(cache_dir: str, seed: int) -> tuple:
+    """Phase fsdp (a) and (b)'s runs (each both families): one process with
+    no process group first, then two gloo ranks sharing the card at ``data
+    1 x fsdp 2``, each a child process that must exit 0; a lane run (host
+    work only)."""
+    extra = ("--cache", cache_dir, "--repeats", "1", "--mmdit-layers", str(FSDP_SD3_DEPTH[0]),
+             "--t5-layers", str(FSDP_SD3_DEPTH[1]))
+    one = _fsdp_run("one", "sd15,sd3", 0, 1, seed, *extra)
+    return one, _fsdp_run("d1f2", "sd15,sd3", 2, 2, seed, *extra)
+
+
+def fsdp_phase(started: tuple) -> list:
+    """Phase fsdp (a) and (b)'s checks on the runs of `fsdp_runs`; (c) is
+    `fsdp_cards`. Returns the runs with their launches."""
+    one, two = started
+    _fsdp_log("fsdp", two, one, layout="data1xfsdp2", backend=two[0]["backend"],
+              sd3_depth=repr(FSDP_SD3_DEPTH), gloo_cuda_gather=repr(two[0]["gloo_cuda_gather"]))
+    _fsdp_check("fsdp (a), (b): two gloo ranks at data 1 x fsdp 2 against one process", two, one,
+                "gloo", True)
+    missing = [k for k in FSDP_KERNELS if two[0]["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"fsdp (a), (b): kernels not launched: {missing}")
+    return [{"counts": one[0]["launches"]}, {"counts": two[0]["launches"]}]
+
+
+def fsdp_cards(seed: int) -> list:
+    """Phase fsdp (c): with four cards or more, SD1.5 (a seeded cached
+    batch) and SD3 at published depth on four NCCL ranks at ``data 2 x fsdp
+    2`` against two at ``data 2 x fsdp 1`` (data parallelism alone), bit for
+    bit; with fewer, ``cards=N``."""
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        log("fsdp-cards", cards=cards)
+        return []
+    gc.collect()
+    torch.cuda.empty_cache()
+    ddp = _fsdp_run("d2f1", "sd15,sd3", 2, 1, seed)
+    both = _fsdp_run("d2f2", "sd15,sd3", 4, 2, seed)
+    _fsdp_log("fsdp-cards", both, ddp, cards=cards, layout="data2xfsdp2", against="data2xfsdp1",
+              backend=both[0]["backend"])
+    _fsdp_check("fsdp (c): data 2 x fsdp 2 against data 2 x fsdp 1", both, ddp, "nccl", True)
+    _fsdp_check("fsdp (c): the data 2 x fsdp 1 ranks", ddp, ddp[:1] * 2, "nccl", False)
+    return [{"counts": ddp[0]["launches"]}, {"counts": both[0]["launches"]}]
 
 
 # ---------------------------------------------------------------------------
@@ -1587,9 +1883,9 @@ def _train_process(argv, stop_after_step: int = 0, timeout: float = 600) -> dict
     printed. Returns its exit code, printed lines and the stop's wall time."""
     import signal
 
-    proc = subprocess.Popen([sys.executable, "-u", "-m", "pcm_tpu_torch.train", *argv],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    proc = _popen([sys.executable, "-u", "-m", "pcm_tpu_torch.train", *argv],
+                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                  cwd=os.path.dirname(os.path.abspath(__file__)))
     killer = threading.Timer(timeout, proc.kill)
     killer.start()
     lines, signalled = [], None
@@ -1865,12 +2161,31 @@ def loader_time_ids(img_dir: str, seed: int, batch: int, batches: int) -> list:
 
 def _adv_child(argv, out_dir: str, seed: int, family: str, saves=(2, 4)) -> dict:
     """``python -m pcm_tpu_torch.train`` on an adversarial recipe of
-    ``family`` as a child process (`_train_process`), ``out_dir`` emptied
-    first and checkpoints at ``saves``. Checks its exit code; returns its
-    rows, its launches, whether the kohya files of ``saves`` exist and the
-    layers of the last one, the (G, D) updates, and how far the LoRA and the
-    heads moved (the last checkpoint against zero ``lora_b`` and the heads
-    the seed draws)."""
+    ``family`` as a child process (`_adv_run`), then its readings
+    (`_adv_read`)."""
+    gc.collect()
+    torch.cuda.empty_cache()  # the child's memory is the card's, less this process's
+    return _adv_read(_adv_run(argv, out_dir), out_dir, seed, family, saves)
+
+
+def _adv_run(argv, out_dir: str) -> dict:
+    """``python -m pcm_tpu_torch.train`` as a child process
+    (`_train_process`) writing to ``out_dir``, emptied first; raises unless
+    it exits 0. Host work only (a lane run too)."""
+    shutil.rmtree(out_dir, ignore_errors=True)
+    run = _train_process([*argv, "--output-dir", out_dir])
+    if run["rc"] != 0:
+        raise AssertionError(f"adversarial child {argv[:2]}: exit {run['rc']}:\n"
+                             + "\n".join(run["lines"][-30:]))
+    return run
+
+
+def _adv_read(run: dict, out_dir: str, seed: int, family: str, saves=(2, 4)) -> dict:
+    """The readings of an adversarial run of ``family`` (`_adv_run`) with
+    checkpoints at ``saves``: its rows, its launches, whether the kohya files
+    of ``saves`` exist and the layers of the last one, the (G, D) updates,
+    and how far the LoRA and the heads moved (the last checkpoint against
+    zero ``lora_b`` and the heads the seed draws)."""
     from pcm_tpu_torch.configs.families import disc_config
     from pcm_tpu_torch.lora.kohya import kohya_layers
     from pcm_tpu_torch.models.mmdit import SD3_MEDIUM_CONFIG
@@ -1878,13 +2193,6 @@ def _adv_child(argv, out_dir: str, seed: int, family: str, saves=(2, 4)) -> dict
     from pcm_tpu_torch.train.adv import init_discriminator
     from pcm_tpu_torch.utils.safetensors import read_header
 
-    shutil.rmtree(out_dir, ignore_errors=True)
-    gc.collect()
-    torch.cuda.empty_cache()  # the child's memory is the card's, less this process's
-    run = _train_process([*argv, "--output-dir", out_dir])
-    if run["rc"] != 0:
-        raise AssertionError(f"{family} adversarial child: exit {run['rc']}:\n"
-                             + "\n".join(run["lines"][-30:]))
     with open(os.path.join(out_dir, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     with open(os.path.join(out_dir, "launches.jsonl")) as f:
@@ -2085,6 +2393,7 @@ def sdxl_phases(seed: int, gen) -> list:
                              f"{missing}; fed time_ids {fed})")
 
     sv = serve_sdxl("build/chip_smoke/train_xl_pixels", seed, gen)
+    _drop_checkpoints("build/chip_smoke/train_xl_pixels")
     log("sdxl-serve", sizes=json.dumps(sv["sizes"]), same_seed_identical=sv["same_seed_identical"],
         student_batch_ms=json.dumps([round(x, 1) for x in sv["student_batch_ms"]]),
         teacher_batch_ms=json.dumps([round(x, 1) for x in sv["teacher_batch_ms"]]),
@@ -2296,19 +2605,32 @@ def sd3_adv_layers(stochastic: bool = False) -> set:
 SD3_SERVED_LR = "1e-2"
 
 
-def train_sd3_adv(cache_dir: str, seed: int) -> dict:
-    """Phase 22a: ``python -m pcm_tpu_torch.train --recipe sd3_4phase_adv``
-    on ``cache_dir`` as child processes (`_adv_child`) at full width, batch
-    2: ``fused`` for 4 global steps (a checkpoint at 4, lr `SD3_SERVED_LR`) and
-    ``fresh`` for 4 (the recipe's lr); one checkpoint each, as the smoke's disk
-    writes are bounded."""
+SD3_ADV_DIRS = {"fused": "build/chip_smoke/sd3_adv_fused",
+                "fresh": "build/chip_smoke/sd3_adv_fresh"}
+
+
+def sd3_adv_runs(cache_dir: str, seed: int) -> dict:
+    """Phase 22a's runs: ``python -m pcm_tpu_torch.train --recipe
+    sd3_4phase_adv`` on ``cache_dir`` as child processes (`_adv_run`) at
+    full width, batch 2: ``fused`` for 4 global steps (a checkpoint at 4, lr
+    `SD3_SERVED_LR`) and ``fresh`` for 4 (the recipe's lr); one checkpoint
+    each, as the smoke's disk writes are bounded. A lane run (host work
+    only); `train_sd3_adv` reads them."""
     common = ["--recipe", "sd3_4phase_adv", "--cached-latents-dir", cache_dir, "--batch-size",
               "2", "--max-train-steps", "4", "--log-every", "1", "--seed", str(seed)]
-    return {"fused": _adv_child(common + ["--adv-pairing", "fused", "--checkpointing-steps", "4",
-                                          "--learning-rate", SD3_SERVED_LR],
-                                "build/chip_smoke/sd3_adv_fused", seed, "sd3", saves=(4,)),
-            "fresh": _adv_child(common + ["--adv-pairing", "fresh", "--checkpointing-steps", "4"],
-                                "build/chip_smoke/sd3_adv_fresh", seed, "sd3", saves=(4,))}
+    return {"fused": _adv_run(common + ["--adv-pairing", "fused", "--checkpointing-steps", "4",
+                                        "--learning-rate", SD3_SERVED_LR], SD3_ADV_DIRS["fused"]),
+            "fresh": _adv_run(common + ["--adv-pairing", "fresh", "--checkpointing-steps", "4"],
+                              SD3_ADV_DIRS["fresh"])}
+
+
+def train_sd3_adv(runs: dict, seed: int) -> dict:
+    """Phase 22a: the readings of `sd3_adv_runs`'s runs (`_adv_read`); then
+    their checkpoints go (phase 23 serves the kohya file)."""
+    out = {p: _adv_read(run, SD3_ADV_DIRS[p], seed, "sd3", saves=(4,)) for p, run in runs.items()}
+    for d in SD3_ADV_DIRS.values():
+        _drop_checkpoints(d)
+    return out
 
 
 def sd3_pixels(img_dir: str, seed: int) -> dict:
@@ -2341,6 +2663,7 @@ def sd3_pixels(img_dir: str, seed: int) -> dict:
                       "1", "--seed", str(seed), "--allow-hash-tokenizer", "--adv-pairing",
                       "fused", "--dataloader-workers", "4"],
                      "build/chip_smoke/train_sd3_pixels", seed, "sd3", saves=(2,))
+    _drop_checkpoints("build/chip_smoke/train_sd3_pixels")
     return {"cache": cache, "run": run}
 
 
@@ -2440,10 +2763,10 @@ def serve_sd3(lora_path: str, seed: int) -> dict:
     return out
 
 
-def sd3_phases(seed: int, gen) -> list:
+def sd3_phases(seed: int, gen, lane: Lane) -> list:
     """Phases 19-23, each checked; returns the runs whose launches count.
-    Phase 22b trains on the 1024-px PNGs of phase 17 (written here when
-    they are not there)."""
+    Phase 22a's runs are the lane's ``sd3-adv``; phase 22b trains on the
+    1024-px PNGs of phase 17 (written here when they are not there)."""
     from pcm_tpu_torch.configs.families import sd3_bundle
     from pcm_tpu_torch.lora.layers import attach_lora
 
@@ -2521,7 +2844,7 @@ def sd3_phases(seed: int, gen) -> list:
         raise AssertionError(f"full-width SD3 VAE decode, kernels vs plain: {vd}")
 
     layers = sd3_adv_layers()
-    tr = train_sd3_adv(write_sd3_cache("build/chip_smoke/cache_sd3", seed), seed)
+    tr = train_sd3_adv(lane.result("sd3-adv"), seed)
     for pairing, r in tr.items():
         rows = r["rows"]
         log("train-sd3-adv", pairing=pairing, batch=2, steps=[x["step"] for x in rows],
@@ -3194,8 +3517,10 @@ def demo_phase(teacher: str, lora: str, clip_weights: str, out_dir: str, seed: i
             "image_nonzero": bool(decode_png(plain).any())}
 
 
-def eval_phases(seed: int) -> list:
-    """Phase eval, each part checked; returns the runs whose launches count."""
+def eval_phases(seed: int, lane: Lane) -> list:
+    """Phase eval, each part checked; returns the runs whose launches count.
+    The training from JPEGs is the lane's ``train-jpeg`` run (`train_jpeg`),
+    checked last."""
     import numpy as np
 
     root = "build/chip_smoke"
@@ -3207,20 +3532,7 @@ def eval_phases(seed: int) -> list:
     if not all(m <= 3 and a < 0.5 for m, a in fx["diffs"].values()):
         raise AssertionError(f"numpy decoders against the PIL goldens: {fx['diffs']}")
 
-    jpeg_dir = write_eval_images(os.path.join(root, "eval_images"))
-    tj = train_jpeg(jpeg_dir, os.path.join(root, "train_jpeg"), seed)
-    log("eval-train-jpeg", decoder=repr(tj["decoder"]),
-        losses=json.dumps([round(r["loss"], 6) for r in tj["rows"]]),
-        step_ms=json.dumps([round(r["step_ms"], 1) for r in tj["rows"]]),
-        peak_gib=f"{max(r['peak_gib'] for r in tj['rows']):.3f}",
-        lora_up_max=f"{tj['up_max']:.3e}", counts=json.dumps(tj["counts"]))
-    missing = [k for k in ("flash_attention_fwd", "flash_attention_bwd_dkv",
-                           "flash_attention_bwd_dq", "group_norm_silu", "geglu")
-               if tj["counts"][k] == 0]
-    if not (len(tj["rows"]) == 2 and all(math.isfinite(r["loss"]) for r in tj["rows"])
-            and tj["up_max"] > 0 and not missing):
-        raise AssertionError(f"training from JPEGs: {tj} (kernels not launched: {missing})")
-
+    jpeg_dir = os.path.join(root, "eval_images")  # written before the lane's JPEG run
     gen_paths = [os.path.join(root, "generate", f"tcd_{i}.png")
                  for i in range(len(GENERATE_PROMPTS))]
     vt = vision_tower(os.path.join(root, "eval"), _gen_images(gen_paths), seed)
@@ -3253,6 +3565,19 @@ def eval_phases(seed: int) -> list:
             and dm["counts"]["group_norm_silu"] > 0):
         raise AssertionError(f"the demo: {dm}")
     os.remove(vt["path"])  # 1.2 GB: the smoke's disk is bounded
+
+    tj = lane.result("train-jpeg")
+    log("eval-train-jpeg", decoder=repr(tj["decoder"]),
+        losses=json.dumps([round(r["loss"], 6) for r in tj["rows"]]),
+        step_ms=json.dumps([round(r["step_ms"], 1) for r in tj["rows"]]),
+        peak_gib=f"{max(r['peak_gib'] for r in tj['rows']):.3f}",
+        lora_up_max=f"{tj['up_max']:.3e}", counts=json.dumps(tj["counts"]))
+    missing = [k for k in ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                           "flash_attention_bwd_dq", "group_norm_silu", "geglu")
+               if tj["counts"][k] == 0]
+    if not (len(tj["rows"]) == 2 and all(math.isfinite(r["loss"]) for r in tj["rows"])
+            and tj["up_max"] > 0 and not missing):
+        raise AssertionError(f"training from JPEGs: {tj} (kernels not launched: {missing})")
     log("eval", seconds=f"{time.perf_counter() - t_phase:.1f}")
     return [tj, {"counts": {k: dm["counts"][k] + sum(c[k] for c in dm["safety_counts"])
                             for k in dm["counts"]}}]
@@ -3320,13 +3645,25 @@ def int8_trajectory(cache_dir: str, seed: int) -> dict:
             "checkpoint_gib": ck_gib}
 
 
-def sd3_int8(lora_path: str, cache_dir: str, seed: int, gen) -> dict:
+SD3_INT8_DIR = "build/chip_smoke/sd3_adv_int8"
+
+
+def sd3_int8_argv(cache_dir: str, seed: int) -> list:
+    """Phase 29's training: ``sd3_4phase_adv --frozen-weights int8
+    --int8-matmul fused`` on ``cache_dir``, fused pairing, batch 2, 2 global
+    steps, a checkpoint at 2 (a lane run, `_adv_run`)."""
+    return ["--recipe", "sd3_4phase_adv", "--cached-latents-dir", cache_dir, "--batch-size", "2",
+            "--max-train-steps", "2", "--checkpointing-steps", "2", "--log-every", "1", "--seed",
+            str(seed), "--adv-pairing", "fused", *INT8, "fused"]
+
+
+def sd3_int8(lora_path: str, seed: int, gen, lane: Lane) -> dict:
     """Phase 29: ``serving --family sd3 --weights int8 --lora <file>``
     (`_serve_family`: a full batch and a partial one, batch ms, peak) and the
     bytes its int8 weights save; its MMDiT at batch 2 under ``fused`` against
     K6's plain version alone (bit for bit) and every plain version (phase
-    19's rule); then ``sd3_4phase_adv --frozen-weights int8 --int8-matmul
-    fused`` as a child process, fused pairing, 2 global steps."""
+    19's rule); then the readings of the lane's ``sd3-int8-train`` run
+    (`sd3_int8_argv`)."""
     from pcm_tpu_torch.utils.quant import quantized_bytes_saved
 
     engine, sv = _serve_family("sd3", lora_path, seed, 500, "--weights", "int8")
@@ -3336,12 +3673,8 @@ def sd3_int8(lora_path: str, cache_dir: str, seed: int, gen) -> dict:
                              for k, m in engine.frozen.items()}}
     out["mmdit"] = sd3_mmdit_vs_reference(engine.bundle, engine.frozen, gen, int8=True)
     del engine
-    run_dir = "build/chip_smoke/sd3_adv_int8"
-    out["train"] = _adv_child(
-        ["--recipe", "sd3_4phase_adv", "--cached-latents-dir", cache_dir, "--batch-size", "2",
-         "--max-train-steps", "2", "--checkpointing-steps", "2", "--log-every", "1", "--seed",
-         str(seed), "--adv-pairing", "fused", *INT8, "fused"], run_dir, seed, "sd3", saves=(2,))
-    out["checkpoint_gib"] = _drop_checkpoints(run_dir)
+    out["train"] = _adv_read(lane.result("sd3-int8-train"), SD3_INT8_DIR, seed, "sd3", saves=(2,))
+    out["checkpoint_gib"] = _drop_checkpoints(SD3_INT8_DIR)
     return out
 
 
@@ -3438,14 +3771,15 @@ def int8_conv(gen) -> dict:
 
 
 def int8_phases(seed: int, gen, cache_dir: str, xl_cache: str, xl_bf16: dict,
-                sd3_serve: dict) -> list:
+                sd3_serve: dict, lane: Lane) -> list:
     """Phases 27-30, each checked; returns the runs whose launches count.
     ``xl_bf16``: phase 11's bf16 fused SDXL run; ``sd3_serve``: phase 23's
-    readings (bf16), each logged beside its int8 twin."""
+    readings (bf16), each logged beside its int8 twin. Phase 29's training
+    is a lane run from the start."""
     root = "build/chip_smoke"
-    freed = sum(_drop_checkpoints(os.path.join(root, d))
-                for d in ("adv_sd15", "adv_fused", "adv_fresh"))  # phase 11's, read already
-    log("int8-disk", build_chip_smoke_gib=f"{_dir_gib(root):.2f}", freed_gib=f"{freed:.2f}")
+    log("int8-disk", build_chip_smoke_gib=f"{_dir_gib(root):.2f}")
+    lane.add("sd3-int8-train", _adv_run, sd3_int8_argv(os.path.join(root, "cache_sd3"), seed),
+             SD3_INT8_DIR)
     tj = int8_trajectory(cache_dir, seed)
     runs = tj["runs"]
     log("int8-adv", gate="scripts/compare_runs.py", rc=tj["compare_rc"],
@@ -3475,8 +3809,8 @@ def int8_phases(seed: int, gen, cache_dir: str, xl_cache: str, xl_bf16: dict,
     if not xr["counts"]["int8_matmul"] > 0:
         raise AssertionError(f"K6 not launched on the int8 SDXL adversarial pair: {xr}")
 
-    s3 = sd3_int8(os.path.join(root, "sd3_adv_fused", "pcm_lora_0000004.safetensors"),
-                  os.path.join(root, "cache_sd3"), seed, gen)
+    s3 = sd3_int8(os.path.join(root, "sd3_adv_fused", "pcm_lora_0000004.safetensors"), seed,
+                  gen, lane)
     sv, mm, tr = s3["serve"], s3["mmdit"], s3["train"]
     log("sd3-int8", bytes_saved_gib=f"{s3['bytes_saved'] / 2**30:.3f}",
         int8_params_m=json.dumps(s3["int8_params_m"]), sizes=json.dumps(sv["sizes"]),
@@ -3583,6 +3917,18 @@ def main() -> int:
         raise AssertionError(f"student gradients, kernels vs plain: {g}")
     cache = write_cache(bundle, frozen, "build/chip_smoke/cache", args.seed)
     del frozen, template
+    # the lane's runs in their order (`Lane`); the card holds each beside the
+    # main thread's phases of the while, the heavier ones once those are lighter
+    images = write_images("build/chip_smoke/images", args.seed)
+    past_adv, light = threading.Event(), threading.Event()
+    lane = Lane()
+    lane.add("ddp", ddp_runs, cache, args.seed)
+    lane.add("pixels", train_pixels, images["dir"], "build/chip_smoke/train_pixels", args.seed)
+    lane.add("sd3-adv", sd3_adv_runs, write_sd3_cache("build/chip_smoke/cache_sd3", args.seed),
+             args.seed, after=past_adv)
+    lane.add("train-jpeg", train_jpeg, write_eval_images("build/chip_smoke/eval_images"),
+             "build/chip_smoke/train_jpeg", args.seed)
+    lane.add("fsdp", fsdp_runs, cache, args.seed, after=light)
     bf16_kernels = [k for k in common.KERNELS if k != "int8_matmul"]
     tr = train_slice(cache, "build/chip_smoke/train", args.seed)
     check_train("train", tr, bf16_kernels)
@@ -3650,6 +3996,13 @@ def main() -> int:
     if (fresh["resumed_from"], fresh["resumed_step"], fresh["resumed_updates"]) != (4, 6, (3, 3)):
         raise AssertionError(f"adversarial resume: from {fresh['resumed_from']} to "
                              f"{fresh['resumed_step']}, G/D updates {fresh['resumed_updates']}")
+    # the card's disk writes are bounded, and nothing reads phase 11's checkpoints again
+    freed = sum(_drop_checkpoints(os.path.join("build/chip_smoke", d))
+                for d in ("adv_sd15", "adv_fused", "adv_fresh"))
+    log("disk", after="phase 11", freed_gib=f"{freed:.2f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    past_adv.set()  # phase 11's SD1.5 run, the main thread's heaviest, has ended
 
     frozen, _ = bundle.init(gen, torch.device("cuda"))
     enc = encoder_vs_reference(bundle, frozen, gen)
@@ -3665,8 +4018,9 @@ def main() -> int:
             and enc["sample_moved"] > 0):
         raise AssertionError(f"full-width VAE encoder, kernels vs plain: {enc}")
 
-    images = write_images("build/chip_smoke/images", args.seed)
-    px = train_pixels(images["dir"], "build/chip_smoke/train_pixels", args.seed)
+    xl_runs = sdxl_phases(args.seed, gen)
+    dp_runs = ddp_phase(lane.result("ddp"))
+    px = lane.result("pixels")
     rows = px["rows"]
     log("pixels", decoder=repr(px["decoder"]), stopped_at=px["stop"],
         load_ms=json.dumps([round(t, 1) for t in images["load_ms"]]),
@@ -3687,13 +4041,18 @@ def main() -> int:
             and sl["swap"]["swaps"] == 1 and sl["stats"]["lora"].endswith("0000004.safetensors")
             and sl["shape"] == (512, 512, 3) and sl["counts"]["flash_attention_fwd"] > 0):
         raise AssertionError(f"serving the trained kohya files: {sl}")
+    _drop_checkpoints("build/chip_smoke/train_pixels")
 
-    xl_runs = sdxl_phases(args.seed, gen)
-    sd3_runs = sd3_phases(args.seed, gen)
+    sd3_runs = sd3_phases(args.seed, gen, lane)
+    gc.collect()
+    torch.cuda.empty_cache()
+    light.set()  # phases 24-26 and eval hold a few GiB: the fsdp runs go beside them
     hub_runs = hub_phases(args.seed)
-    eval_runs = eval_phases(args.seed)
-    int8_runs = int8_phases(args.seed, gen, cache, xl_cache, adv_runs[0], sd3_runs[-1])
-    ddp_runs = ddp_phase(cache, args.seed)
+    eval_runs = eval_phases(args.seed, lane)
+    sharded_runs = fsdp_phase(lane.result("fsdp"))  # ended before the int8 phases' heavy runs
+    int8_runs = int8_phases(args.seed, gen, cache, xl_cache, adv_runs[0], sd3_runs[-1], lane)
+    dp_runs += ddp_cards(args.seed)
+    sharded_runs += fsdp_cards(args.seed)
 
     retained = sum(os.path.getsize(os.path.join(d, f))
                    for d, _, fs in os.walk("build/chip_smoke") for f in fs)
@@ -3712,7 +4071,7 @@ def main() -> int:
                "int8_matmul": ("pcm_tpu_torch/csrc/int8_matmul.cu",
                                "pcm_tpu/ops/int8_matmul.py:56")}
     runs = (s, tr, ti, sx, *adv_runs, enc, px, sl, *xl_runs, *sd3_runs, *hub_runs, *eval_runs,
-            *int8_runs, *ddp_runs)
+            *int8_runs, *dp_runs, *sharded_runs)
     launches = {k: sum(run["counts"][k] for run in runs) for k in sources}
     kernels["group_norm_silu"]["fp32_launches"] = sum(
         run["counts"]["group_norm_silu_fp32"] for run in runs)
@@ -3738,4 +4097,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        _stop_children()
+    sys.exit(code)

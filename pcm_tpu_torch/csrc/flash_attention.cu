@@ -573,3 +573,7 @@ extern "C" int pcm_flash_attention_fwd(const void* q, const void* k, const void*
   if (d <= 512) return launch_d512(Q, K, V, O, L, b, h, sq, sk, d, st, alpha, S);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// How many TMA tensor maps this process has encoded (hopper.cuh:tensor_map's
+// cache misses, for every kernel of the library).
+extern "C" unsigned long long pcm_tma_encodes() { return pcm::tma_encode_count(); }

@@ -328,6 +328,14 @@ inline EncodeTiled encode_tiled() {
 // launch's kernel, so recent maps are kept by their inputs (a map is a
 // function of them alone; the caching allocator hands the same addresses
 // back step after step).
+// The tensor maps `tensor_map` has encoded in this process (its cache misses;
+// `pcm_tma_encodes`): a weight gathered anew lands at a new address, so the
+// maps that read it are encoded again.
+inline uint64_t& tma_encode_count() {
+  static uint64_t n = 0;
+  return n;
+}
+
 inline bool tensor_map(CUtensorMap* m, const void* base, int rank, const cuuint64_t* dims,
                        const cuuint64_t* strides, const cuuint32_t* box, bool int8 = false) {
   constexpr int KEY = 13;  // base, rank and type, dims[4], strides[3], box[4]
@@ -369,6 +377,7 @@ inline bool tensor_map(CUtensorMap* m, const void* base, int rank, const cuuint6
   std::copy(key, key + KEY, e.key);
   e.map = *m;
   used[hash % SLOTS] = true;
+  ++tma_encode_count();
   return true;
 }
 

@@ -126,6 +126,11 @@ class CLIPTextModel(nn.Module):
         if cfg.projection_dim is not None:
             self.text_projection = DequantLinear(cfg.hidden_size, cfg.projection_dim, bias=False)
 
+    def fsdp_units(self) -> List[nn.Module]:
+        """The modules that gather their own sharded weights (`parallel/fsdp.py`):
+        the encoder layers."""
+        return list(self.text_model.encoder.layers)
+
     def forward(self, input_ids: torch.Tensor
                 ) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
         tm = self.text_model

@@ -18,7 +18,7 @@ enabled, as the UNet does its blocks.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -196,6 +196,14 @@ class MMDiT(nn.Module):
             for i in range(cfg.num_layers))
         self.norm_out = AdaLayerNormContinuous(dim)
         self.proj_out = LoRALinear(dim, cfg.patch_size ** 2 * cfg.out_channels)
+
+    # FSDP (`parallel/fsdp.py`): the entry points besides ``forward``
+    fsdp_entries = ("features",)
+
+    def fsdp_units(self) -> List[nn.Module]:
+        """The modules that gather their own sharded weights: the joint
+        blocks `_block` runs."""
+        return list(self.transformer_blocks)
 
     def _block(self, block: nn.Module, x, context, temb, lora):
         if self.remat and torch.is_grad_enabled():

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import List
 
 import torch
 import torch.nn as nn
@@ -146,6 +147,16 @@ class T5Encoder(nn.Module):
         self.cfg = cfg
         self.shared = nn.Embedding(cfg.vocab_size, cfg.d_model)
         self.encoder = _Stack(cfg)
+
+    def fsdp_units(self) -> List[nn.Module]:
+        """The modules that gather their own sharded weights (`parallel/fsdp.py`):
+        the blocks."""
+        return list(self.encoder.block)
+
+    def fsdp_top(self) -> List[nn.Module]:
+        """Modules inside a unit whose weights `position_bias` reads: they
+        are gathered with the top level."""
+        return [self.encoder.block[0].layer[0].SelfAttention.relative_attention_bias]
 
     def position_bias(self, s: int, device: torch.device) -> torch.Tensor:
         """(1, heads, s, s) fp32: the shared table at each pair's bucket."""

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -182,6 +182,18 @@ class UNet2DCondition(nn.Module):
 
         self.conv_norm_out = GroupNorm(g, ch0, act="silu")
         self.conv_out = LoRAConv(ch0, cfg.out_channels, 3, padding=1)
+
+    # FSDP (`parallel/fsdp.py`): the entry points besides ``forward``
+    fsdp_entries = ("features",)
+
+    def fsdp_units(self) -> List[nn.Module]:
+        """The modules that gather their own sharded weights: the blocks
+        `_block` runs and the resamplers."""
+        out = []
+        for blk in (*self.down_blocks, self.mid_block, *self.up_blocks):
+            out += [*blk.resnets, *blk.attentions, *getattr(blk, "downsamplers", ()),
+                    *getattr(blk, "upsamplers", ())]
+        return out
 
     def _block(self, module: nn.Module, *args) -> torch.Tensor:
         if self.remat and torch.is_grad_enabled():

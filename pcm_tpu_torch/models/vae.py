@@ -8,7 +8,7 @@ K1 at d = 512.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 import torch.nn as nn
@@ -191,6 +191,23 @@ class AutoencoderKL(nn.Module):
         if cfg.use_quant_conv:
             self.quant_conv = nn.Conv2d(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1)
             self.post_quant_conv = nn.Conv2d(cfg.latent_channels, cfg.latent_channels, 1)
+
+    # FSDP (`parallel/fsdp.py`): the entry points besides ``forward``
+    fsdp_entries = ("encode", "decode", "encode_moments")
+
+    def fsdp_units(self) -> List[nn.Module]:
+        """The modules that gather their own sharded weights: the encoder and
+        the decoder (their first and last layers), and each resnet, attention
+        and resampler inside them."""
+        enc, dec = self.encoder, self.decoder
+        out = [enc, dec]
+        for blk in enc.down_blocks:
+            out += [*blk.resnets, *getattr(blk, "downsamplers", ())]
+        for blk in dec.up_blocks:
+            out += [*blk.resnets, *(up.conv for up in getattr(blk, "upsamplers", ()))]
+        for mid in (enc.mid_block, dec.mid_block):
+            out += [*mid.resnets, *mid.attentions]
+        return out
 
     def encode_moments(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Pixels (N, 3, H, W) in [-1, 1] -> (mean, logvar) of the latent

@@ -215,6 +215,13 @@ def _compile_and_link(out: Path) -> None:
     os.replace(tmp, out)
 
 
+def tma_encodes() -> int:
+    """TMA tensor maps the kernels have encoded in this process (the cache of
+    `csrc/hopper.cuh:tensor_map` missed): a weight at a new address, as an
+    FSDP gather gives one, needs its maps encoded again."""
+    return int(lib().pcm_tma_encodes())
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
@@ -229,6 +236,8 @@ def _declare(h: ctypes.CDLL) -> None:
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
     h.pcm_error_string.restype = ctypes.c_char_p
     h.pcm_error_string.argtypes = [I]
+    h.pcm_tma_encodes.restype = ctypes.c_ulonglong
+    h.pcm_tma_encodes.argtypes = []
     h.pcm_flash_attention_fwd.restype = I
     h.pcm_flash_attention_fwd.argtypes = (
         [P, P, P, P, P]  # q k v o lse

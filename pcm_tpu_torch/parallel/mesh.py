@@ -1,35 +1,47 @@
-"""Data parallelism over `torch.distributed` (counterpart of `pcm_tpu/parallel/mesh.py`).
+"""Data and FSDP parallelism over `torch.distributed` (counterpart of `pcm_tpu/parallel/mesh.py`).
 
-One process a rank, each holding a whole replica of the frozen weights and
-of the trained state, and a block of the global batch. The global batch is
-the ranks' local batches in rank order, as JAX assembles it
-(`make_array_from_process_local_data`); the gradients are averaged over the
-ranks once an optimizer step (`all_reduce_mean`, called by
-`train/distill.py:accumulate_grads`), so every rank's optimizer sees the
-global gradient and the states stay equal with no broadcast.
+One process a rank. The ranks form a ``data x fsdp`` grid (`make_mesh`), in
+the order of JAX's ``np.asarray(devices).reshape(data, fsdp)``: rank r sits
+at data index ``r // fsdp`` and fsdp index ``r % fsdp``. The ranks of one
+fsdp group (the same data index) share their rows of the global batch and
+their draws, and each holds a slice of the large frozen weights, gathered a
+block at a time (`parallel/fsdp.py`); the ranks of one data group (the same
+fsdp index) hold different rows. Every rank holds the whole trained state.
+With ``fsdp = 1`` (what `init_distributed` alone gives) each rank holds a
+whole replica of the frozen weights, as in plain data parallelism.
 
-The device collectives run on the default group: NCCL when every rank has a
-card of its own (``cuda:LOCAL_RANK``), gloo when ranks share a card (NCCL
-refuses two ranks on one device) or run on the CPU. The host-side agreements
-(`barrier`, `any_rank`) run on a gloo group of CPU tensors, as the JAX
-package's barrier uses the coordinator's key-value store rather than a
-device collective: they cost no device sync.
+The global batch is the data groups' local batches in data-index order, as
+JAX assembles it (`make_array_from_process_local_data`); the gradients are
+averaged over the data group once an optimizer step (`all_reduce_mean`,
+called by `train/distill.py:accumulate_grads`), so every rank's optimizer
+sees the global gradient and the states stay equal with no broadcast.
+
+The device collectives run on the default group and its subgroups: NCCL
+when every rank has a card of its own (``cuda:LOCAL_RANK``), gloo when ranks
+share a card (NCCL refuses two ranks on one device) or run on the CPU. The
+host-side agreements (`barrier`, `any_rank`) run on a gloo group of CPU
+tensors over the whole world, as the JAX package's barrier uses the
+coordinator's key-value store rather than a device collective: they cost no
+device sync.
 
 With no process group (a plain ``python -m pcm_tpu_torch.train``) `rank` is
-0, `world` 1, and nothing here issues a collective.
+0, `world` 1, the layout is ``1 x 1``, and nothing here issues a collective.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
-from typing import List, Optional
+from typing import Any, List, Optional
 
 import torch
 import torch.distributed as dist
 
 # the gloo group of the host-side agreements (the default group when it is gloo)
 _host_group = None
+# the layout `make_mesh` set last (None: data parallelism over the world)
+_layout = None
 
 
 def init_distributed(coordinator: Optional[str] = None, num_processes: Optional[int] = None,
@@ -145,20 +157,33 @@ def _rebuild(tree, new: List[torch.Tensor]):
     return walk(tree)
 
 
-def all_reduce_mean(tree):
-    """The mean over the ranks of a tree of tensors on one device: one fp32
-    buffer, one ``all_reduce``, a division by `world`; each tensor comes back
-    in its own dtype. Without a process group, the tree itself."""
+def _memory_order(t: torch.Tensor) -> List[int]:
+    """``t``'s dims from the largest stride down: ``t.permute`` by them is
+    contiguous when ``t`` is dense (a channels-last conv's gradient too)."""
+    return sorted(range(t.dim()), key=lambda d: -t.stride(d))
+
+
+def all_reduce_mean(tree, group=None):
+    """The mean over the ranks of ``group`` (default: the world) of a tree of
+    tensors on one device: one fp32 buffer, one ``all_reduce``, a division by
+    the group's size; each tensor comes back in its own dtype and memory
+    layout (a channels-last gradient stays channels-last, so what sums over
+    it, a norm, sums in the same order as without a process group; over a
+    group of one rank the result is the tree's bits). Without a process
+    group, the tree itself."""
     if not active():
         return tree
+    n = dist.get_world_size(group)
     leaves = _leaves(tree)
-    flat = torch.cat([t.detach().reshape(-1).float() for t in leaves])
-    dist.all_reduce(flat)
-    flat /= world()
-    out, o = [], 0
-    for t in leaves:
-        out.append(flat[o:o + t.numel()].view(t.shape).to(t.dtype))
-        o += t.numel()
+    orders = [_memory_order(t) for t in leaves]
+    flat = torch.cat([t.detach().permute(o).reshape(-1).float() for t, o in zip(leaves, orders)])
+    dist.all_reduce(flat, group=group)
+    flat /= n
+    out, off = [], 0
+    for t, o in zip(leaves, orders):
+        dense = flat[off:off + t.numel()].view([t.shape[d] for d in o])
+        out.append(dense.permute([o.index(d) for d in range(t.dim())]).to(t.dtype))
+        off += t.numel()
     return _rebuild(tree, out)
 
 
@@ -195,3 +220,64 @@ def local_rows(tree, rank: int, world: int):
 
     return _rebuild(tree, [rows(t) for t in _leaves(tree)])
 
+
+
+def coordinates(rank: int, fsdp: int) -> tuple:
+    """(data index, fsdp index) of ``rank`` in a ``data x fsdp`` grid, the
+    position of device ``rank`` in JAX's ``reshape(data, fsdp)``."""
+    return rank // fsdp, rank % fsdp
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """This rank's place in the ``data x fsdp`` grid (`make_mesh`).
+
+    ``data_group``: the ranks with this rank's fsdp index (the gradients'
+    all-reduce); ``fsdp_group``: the ranks with its data index (the frozen
+    weights' gathers). Both are None without a process group."""
+
+    data: int
+    fsdp: int
+    data_index: int
+    fsdp_index: int
+    data_group: Any = None
+    fsdp_group: Any = None
+
+    def local_rows(self, tree):
+        """This rank's block of the global batch (or draws): the rows of its
+        data index; the ranks of one fsdp group take the same rows."""
+        return local_rows(tree, self.data_index, self.data)
+
+
+def _group(ranks: List[int]):
+    """The process group of ``ranks`` (the default group when it is the
+    whole world). Every rank calls this for every group, in one order."""
+    return dist.group.WORLD if len(ranks) == world() else dist.new_group(ranks)
+
+
+def make_mesh(data: Optional[int] = None, fsdp: int = 1) -> Layout:
+    """The ``data x fsdp`` layout of the ranks (``data`` defaults to the
+    world over ``fsdp``), made the one that `data_group` returns. Without a
+    process group it is ``1 x 1`` and makes no group. Every rank of the
+    world calls it with the same arguments (the subgroups are made in one
+    order on all)."""
+    global _layout
+    n = world()
+    if data is None:
+        data = n // fsdp
+    if data < 1 or fsdp < 1 or data * fsdp != n:
+        raise ValueError(f"a {data} x {fsdp} layout does not fit {n} ranks")
+    d, f = coordinates(rank(), fsdp)
+    if not active():
+        _layout = Layout(1, 1, 0, 0)
+        return _layout
+    data_groups = [_group([j * fsdp + i for j in range(data)]) for i in range(fsdp)]
+    fsdp_groups = [_group([j * fsdp + i for i in range(fsdp)]) for j in range(data)]
+    _layout = Layout(data, fsdp, d, f, data_groups[f], fsdp_groups[d])
+    return _layout
+
+
+def data_group():
+    """The group the gradients are averaged over: the data group of the
+    layout `make_mesh` set, else the world (None)."""
+    return _layout.data_group if _layout is not None else None

@@ -33,7 +33,7 @@ import torch
 from ..core.losses import cfg_combine, consistency_loss
 from ..core.schedule import DDPMSchedule, FlowSchedule
 from ..core.solver import PhasedDDIMSolver, PhasedEulerSolver, boundary_scalings, phase_boundaries
-from ..parallel.mesh import all_reduce_mean
+from ..parallel.mesh import all_reduce_mean, data_group
 from ..utils.quant import int8_matmul
 from .state import TrainState, apply_updates, global_norm
 
@@ -111,18 +111,22 @@ def accumulate_grads(grad_fn: Callable, batch: Dict[str, torch.Tensor], draws: S
                      accum: int):
     """Mean of ``grad_fn(microbatch, draws[a])`` (a tree of tensors: the
     losses and grads) over the ``accum`` interleaved microbatches, summed in
-    microbatch order; in a process group then averaged over the ranks (one
-    all-reduce a step), so the losses and grads are the global batch's."""
+    microbatch order; in a process group then averaged over the data group
+    (`parallel/mesh.py:data_group`: the ranks with this rank's fsdp index,
+    all of them without an FSDP layout; one all-reduce a step, JAX's psum
+    over ``'data'``), so the losses and grads are the global batch's. The
+    ranks of one fsdp group hold the same rows and reduce nothing between
+    them: a ``data x fsdp`` run is then bit-equal to a ``data x 1`` one."""
     micro = split_microbatches(batch, accum)
     if len(draws) != len(micro):
         raise ValueError(f"{len(draws)} draws for {len(micro)} microbatches")
     if accum <= 1:
-        return all_reduce_mean(grad_fn(micro[0], draws[0]))
+        return all_reduce_mean(grad_fn(micro[0], draws[0]), data_group())
     total = None
     for mb, dr in zip(micro, draws):
         out = grad_fn(mb, dr)
         total = out if total is None else tree_map(torch.add, total, out)
-    return all_reduce_mean(tree_map(lambda t: t / accum, total))
+    return all_reduce_mean(tree_map(lambda t: t / accum, total), data_group())
 
 
 def _merge_cond(cond, uncond):
