@@ -24,7 +24,8 @@ one process, and, with four cards, data x FSDP against data parallelism
 alone; and evaluation:
 the numpy JPEG and BMP decoders, training from a JPEG folder, the CLIP
 ViT-L/14 tower, the CLIP-FID and CLIP score CLIs and the demo with its
-safety checker.
+safety checker; and the remat policies and granularities on the SDXL-1024
+and SD3 steps.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -79,10 +80,22 @@ Phases, one printed line each (``t=`` the seconds since the start):
      and the hinge G loss; the gradients to the latent and to the heads with
      the kernels against all plain versions; K1-K5, K4 on fp32 and K5's
      backward (autograd of its plain version) all ran;
+ remat. the remat settings (`remat_runs`, `remat_check`; after 9a on its bf16
+     SDXL weights and after 20 on SD3's): the SDXL-1024 cached step at batch 4
+     under `REMAT_SDXL` (``full`` at ``block`` and ``module``, ``dots8m``,
+     ``dots``, ``dots8m+fa``, ``nothing+fa``, ``none``) and SD3's at batch 2
+     under ``full`` and ``dots8m+fa``, one batch, one set of draws and one
+     state for all, each run twice: the loss and every LoRA gradient equal to
+     the reference's (the first setting's first run) bit for bit, or
+     within twice its own run-to-run spread where the card gives one; under
+     ``+fa`` K1 launched once an attention fewer a step than under ``full``
+     (the recompute takes K1's output and lse from the forward), as often as
+     without remat; step ms, peak and K1 launches of each;
  10. sdxl-step: the SDXL-1024 cached consistency step (`sdxl_bundle` +
      `build_ddim_distill_step`, 40 solver steps, 4 phases, w in [6, 7), remat
-     full) on int8 frozen weights under ``fused``, batch 4, 3 steps: finite
-     losses, peak memory, K1-K6 all launched;
+     full at the bundle's ``module`` granularity) on int8 frozen weights under
+     ``fused``, batch 4, 3 steps: finite losses, peak memory, K1-K6 all
+     launched;
  11. train-adv: ``python -m pcm_tpu_torch.train``'s ``main`` on seeded caches
      under build/: ``sdxl_4phase_adv`` at full width, batch 2 (128x128x4
      latents), ``--adv-pairing fused`` for 4 global steps, ``fresh`` for 4
@@ -135,7 +148,8 @@ Phases, one printed line each (``t=`` the seconds since the start):
      for bit; a teacher engine on the same weights at guidance 7.5 (K5); the
      steady batch latency and peak of each; the UNet's batch-4 forward with
      cuDNN on and off.
- 19. sd3-mmdit: the full-width SD3 MMDiT (2085.0 M params, remat full) at
+ 19. sd3-mmdit: the full-width SD3 MMDiT (2085.0 M params, remat full: a
+     region a joint block) at
      batch 2, 128x128x16 latents and (154, 4096) context: one teacher forward
      with K1 against every plain version within max(2e-2, 2 x the input-nudge
      yardstick), its ms and 24 K1 launches; then the LoRA gradients of a
@@ -1614,6 +1628,119 @@ def sdxl_step(bundle, frozen, template, gen, batch_size: int = 4, steps: int = 3
 
 
 # ---------------------------------------------------------------------------
+# phase remat: the remat policies and granularities on one batch
+# ---------------------------------------------------------------------------
+
+# ``<full | policy>/<granularity>`` or ``none``; the first is the reference,
+# whose two runs give the card's run-to-run spread; SD3's MMDiT has no granularity
+REMAT_SDXL = ("full/block", "full/module", "dots8m/block", "dots/block", "dots8m+fa/block",
+              "nothing+fa/block", "none")
+REMAT_SD3 = ("full", "dots8m+fa")
+
+
+def set_remat(module, setting: str) -> None:
+    """Put a UNet or MMDiT under ``setting`` (see `REMAT_SDXL`)."""
+    name, _, gran = setting.partition("/")
+    module.remat = name != "none"
+    module.remat_policy = None if name in ("full", "none") else name
+    if gran:
+        module.remat_granularity = gran
+
+
+def _max_diffs(got: dict, ref: dict) -> dict:
+    return {k: float((got[k].float() - v.float()).abs().max()) for k, v in ref.items()}
+
+
+def remat_runs(bundle, frozen, template, gen, settings, runs: int = 2) -> dict:
+    """Phase remat: the SDXL-1024 cached step (`SDXL_CACHED_STEP`, batch 4)
+    or SD3's (`SD3_CACHED_STEP`, batch 2) on one batch, one set of draws and
+    one state (the LoRA's factors moved off zero, so that every factor has a
+    gradient) under each setting, ``runs`` times each: the step ms, peak and
+    K1 forward launches of the last run, and the largest difference of the
+    loss and of each LoRA gradient (caught on its way to the optimizer) from
+    the first setting's first run. The module's settings are put back."""
+    from pcm_tpu_torch.configs.families import SD3_CACHED_STEP, SDXL_CACHED_STEP
+    from pcm_tpu_torch.core.schedule import make_ddpm_schedule, make_flow_schedule
+    from pcm_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pcm_tpu_torch.train import distill
+    from pcm_tpu_torch.train.state import TrainState, make_optimizer
+
+    sd3 = "mmdit" in frozen
+    module = frozen["mmdit" if sd3 else "unet"]
+    kept = {k: getattr(module, k) for k in ("remat", "remat_policy", "remat_granularity")
+            if hasattr(module, k)}
+    recipe = SD3_CACHED_STEP if sd3 else SDXL_CACHED_STEP
+    cfg, tx = recipe.distill, make_optimizer(recipe.lr)
+    step = (distill.build_flow_distill_step(bundle, make_flow_schedule(), cfg, tx) if sd3
+            else distill.build_ddim_distill_step(bundle, make_ddpm_schedule(), cfg, tx))
+    batch = sd3_batch(2, gen) if sd3 else sdxl_batch(4, gen)
+    draws = [distill.sample_draws(cfg, gen, batch["latents"])]
+    state = TrainState.create({k: v + 0.01 for k, v in template.items()}, tx)
+    caught, counts, rows, ref = [], {}, [], None
+    real = distill.apply_updates
+    distill.apply_updates = lambda s, g, t: caught.append(g) or real(s, g, t)
+    try:
+        for setting in settings:
+            set_remat(module, setting)
+            for _ in range(runs):
+                caught.clear()
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                _, metrics = step(state, frozen, batch, draws)
+                got = {"loss": metrics["loss"].detach().clone(), **caught[0]}
+                float(got["loss"])  # a readback: the step has run
+                ms = (time.perf_counter() - t0) * 1000
+                launched = launch_counts()
+                for k, v in launched.items():
+                    counts[k] = counts.get(k, 0) + v
+                if ref is None:
+                    ref = got
+                rows.append({"setting": setting, "step_ms": ms,
+                             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                             "k1": launched["flash_attention_fwd"],
+                             "diff": _max_diffs(got, ref),
+                             "finite": bool(torch.isfinite(got["loss"]))})
+    finally:
+        distill.apply_updates = real
+        for k, v in kept.items():
+            setattr(module, k, v)
+    return {"rows": rows, "counts": counts, "factors": len(template)}
+
+
+def attentions(module) -> int:
+    """K1 launches of one forward: a UNet's Attention modules, an MMDiT's
+    joint blocks."""
+    return sum(type(m).__name__ in ("Attention", "JointTransformerBlock") for m in module.modules())
+
+
+def remat_check(family: str, r: dict, n_attn: int) -> None:
+    """Log each setting's last run; every reading must equal the reference's
+    bit for bit, or, where the reference's two runs differ on the card,
+    stay within twice their difference; under ``+fa`` a step launches K1
+    ``n_attn`` times fewer (the student's attentions, all in regions)
+    than under ``full``, and as often as without remat."""
+    rows = r["rows"]
+    spread = rows[1]["diff"]  # the reference's second run against its first
+    last = {row["setting"]: row for row in rows}
+    for setting, row in last.items():
+        log("remat", family=family, setting=setting, step_ms=f"{row['step_ms']:.1f}",
+            peak_gib=f"{row['peak_gib']:.3f}", k1_launches=row["k1"],
+            max_diff=f"{max(row['diff'].values()):.3e}",
+            nonzero_spread=sum(v > 0 for v in spread.values()))
+    bad = [(row["setting"], k) for row in rows for k, d in row["diff"].items()
+           if not (row["finite"] and d <= 2 * spread[k])]
+    full = last[rows[0]["setting"]]["k1"]
+    fa = {s: row["k1"] for s, row in last.items() if "+fa" in s}
+    none = last.get("none", {"k1": full - n_attn})["k1"]
+    if bad or not fa or any(k != full - n_attn or k != none for k in fa.values()):
+        raise AssertionError(f"remat {family}: readings beyond the reference's spread {bad[:8]}, "
+                             f"K1 launches {fa} against full {full} - {n_attn}, none {none}")
+
+
+# ---------------------------------------------------------------------------
 # phases 9a and 11: adversarial distillation
 # ---------------------------------------------------------------------------
 
@@ -2455,6 +2582,15 @@ def sd3_mmdit_vs_reference(bundle, frozen, gen, int8: bool = False) -> dict:
             "finite": bool(torch.isfinite(out).all()), **res}
 
 
+def sd3_batch(n: int, gen) -> dict:
+    """A cached SD3 batch drawn on the card with zero uncond (`bench.py:308-320`)."""
+    cond = sd3_cond(n, gen)
+    return {"latents": torch.randn((n, *SD3_LATENT), generator=gen, device="cuda"),
+            "prompt_embeds": cond["prompt_embeds"], "pooled_embeds": cond["pooled"],
+            "uncond_embeds": torch.zeros_like(cond["prompt_embeds"]),
+            "uncond_pooled": torch.zeros_like(cond["pooled"])}
+
+
 def sd3_step(bundle, frozen, template, gen, steps: int = 3) -> dict:
     """Phase 20: the SD3 consistency step on cached latents
     (`build_flow_distill_step` on `SD3_CACHED_STEP`: 100 Euler solver steps,
@@ -2467,15 +2603,11 @@ def sd3_step(bundle, frozen, template, gen, steps: int = 3) -> dict:
     from pcm_tpu_torch.train.distill import build_flow_distill_step, sample_draws
     from pcm_tpu_torch.train.state import TrainState, make_optimizer
 
-    cfg, n = SD3_CACHED_STEP.distill, SD3_CACHED_STEP.batch_size
+    cfg = SD3_CACHED_STEP.distill
     tx = make_optimizer(SD3_CACHED_STEP.lr)
     step = build_flow_distill_step(bundle, make_flow_schedule(), cfg, tx)
     state = TrainState.create(template, tx)
-    cond = sd3_cond(n, gen)
-    batch = {"latents": torch.randn((n, *SD3_LATENT), generator=gen, device="cuda"),
-             "prompt_embeds": cond["prompt_embeds"], "pooled_embeds": cond["pooled"],
-             "uncond_embeds": torch.zeros_like(cond["prompt_embeds"]),
-             "uncond_pooled": torch.zeros_like(cond["pooled"])}
+    batch = sd3_batch(SD3_CACHED_STEP.batch_size, gen)
     losses, norms, times = [], [], []
     gc.collect()
     torch.cuda.synchronize()
@@ -2804,6 +2936,8 @@ def sd3_phases(seed: int, gen, lane: Lane) -> list:
     if not (len(st["losses"]) >= 3 and all(math.isfinite(x) for x in st["losses"])
             and st["lora_b_max"] > 0) or missing:
         raise AssertionError(f"SD3 cached step: {st} (kernels not launched: {missing})")
+    rm = remat_runs(sd3, frozen, template, gen, REMAT_SD3)
+    remat_check("sd3", rm, attentions(frozen["mmdit"]))
 
     adv = sd3_bundle(remat=True, adv_targets=True)
     attach_lora(frozen["mmdit"], adv.lora)  # the same MMDiT on the adversarial list
@@ -2904,7 +3038,7 @@ def sd3_phases(seed: int, gen, lane: Lane) -> list:
                     for k in ("flash_attention_fwd", "group_norm_silu"))
             and sv["lora"] == sv["stochastic_lora"] == tr["fused"]["kohya_path"]):
         raise AssertionError(f"SD3 serving: {sv}")
-    return [st, ag, vd, tr["fused"], tr["fresh"], c, r, sv]
+    return [st, rm, ag, vd, tr["fused"], tr["fresh"], c, r, sv]
 
 
 # ---------------------------------------------------------------------------
@@ -3964,6 +4098,8 @@ def main() -> int:
             and ag["geglu_backward_calls"] == ag["tapped_feedforwards"] > 0 and not missing):
         raise AssertionError(f"adversarial gradients through the SDXL teacher, kernels vs "
                              f"plain: {ag} (kernels not launched: {missing})")
+    remat_sdxl = remat_runs(xl, frozen, template, gen, REMAT_SDXL)
+    remat_check("sdxl", remat_sdxl, attentions(frozen["unet"]))
     quantize_frozen(frozen)
     log("sdxl-unet", int8_params_m=round(sum(b.numel() for n, b in frozen["unet"].named_buffers()
                                              if n.endswith("weight_values")) / 1e6, 1),
@@ -4070,8 +4206,8 @@ def main() -> int:
                "geglu": ("pcm_tpu_torch/csrc/geglu.cu", "pcm_tpu/ops/geglu.py:47"),
                "int8_matmul": ("pcm_tpu_torch/csrc/int8_matmul.cu",
                                "pcm_tpu/ops/int8_matmul.py:56")}
-    runs = (s, tr, ti, sx, *adv_runs, enc, px, sl, *xl_runs, *sd3_runs, *hub_runs, *eval_runs,
-            *int8_runs, *dp_runs, *sharded_runs)
+    runs = (s, tr, ti, remat_sdxl, sx, *adv_runs, enc, px, sl, *xl_runs, *sd3_runs, *hub_runs,
+            *eval_runs, *int8_runs, *dp_runs, *sharded_runs)
     launches = {k: sum(run["counts"][k] for run in runs) for k in sources}
     kernels["group_norm_silu"]["fp32_launches"] = sum(
         run["counts"]["group_norm_silu_fp32"] for run in runs)

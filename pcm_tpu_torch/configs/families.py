@@ -5,7 +5,7 @@ SD1.5, SDXL and SD3."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,7 +36,11 @@ _TINY_T5 = T5Config(vocab_size=49408, d_model=32, d_kv=8, d_ff=64, num_layers=2,
 
 
 def sd15_bundle(lora_rank: int = 64, dtype: torch.dtype = torch.bfloat16,
-                tiny: bool = False, remat: bool = False) -> SD15Bundle:
+                tiny: bool = False, remat: bool = False, remat_policy: Optional[str] = None,
+                remat_levels: Optional[Tuple[bool, ...]] = None,
+                remat_granularity: str = "module") -> SD15Bundle:
+    """The remat arguments as `pcm_tpu/configs/families.py:49-67` takes them
+    (``remat_levels``: `bench.py`'s ``hybrid``)."""
     return SD15Bundle(
         unet_cfg=TINY_UNET_CONFIG if tiny else SD15_CONFIG,
         vae_cfg=TINY_VAE_CONFIG if tiny else SD15_VAE_CONFIG,
@@ -44,11 +48,16 @@ def sd15_bundle(lora_rank: int = 64, dtype: torch.dtype = torch.bfloat16,
         lora=LoRASpec(rank=lora_rank, alpha=8.0, targets=SD_UNET_LORA_TARGETS),
         dtype=dtype,
         remat=remat,
+        remat_policy=remat_policy,
+        remat_levels=remat_levels,
+        remat_granularity=remat_granularity,
     )
 
 
 def sdxl_bundle(lora_rank: int = 64, dtype: torch.dtype = torch.bfloat16,
-                tiny: bool = False, remat: bool = False) -> SDXLBundle:
+                tiny: bool = False, remat: bool = False, remat_policy: Optional[str] = None,
+                remat_levels: Optional[Tuple[bool, ...]] = None,
+                remat_granularity: str = "module") -> SDXLBundle:
     return SDXLBundle(
         unet_cfg=TINY_SDXL_CONFIG if tiny else SDXL_CONFIG,
         vae_cfg=TINY_VAE_CONFIG if tiny else SDXL_VAE_CONFIG,
@@ -57,12 +66,15 @@ def sdxl_bundle(lora_rank: int = 64, dtype: torch.dtype = torch.bfloat16,
         lora=LoRASpec(rank=lora_rank, alpha=8.0, targets=SD_UNET_LORA_TARGETS),
         dtype=dtype,
         remat=remat,
+        remat_policy=remat_policy,
+        remat_levels=remat_levels,
+        remat_granularity=remat_granularity,
     )
 
 
 def sd3_bundle(lora_rank: int = 32, dtype: torch.dtype = torch.bfloat16, tiny: bool = False,
                remat: bool = False, adv_targets: bool = False,
-               stochastic: bool = False) -> SD3Bundle:
+               stochastic: bool = False, remat_policy: Optional[str] = None) -> SD3Bundle:
     """LoRA on `SD3_LORA_TARGETS`; with ``adv_targets`` on the adversarial
     recipes' list, without ``pos_embed.proj`` when ``stochastic``
     (`pcm_tpu/configs/families.py:92-117`)."""
@@ -79,6 +91,7 @@ def sd3_bundle(lora_rank: int = 32, dtype: torch.dtype = torch.bfloat16, tiny: b
         lora=LoRASpec(rank=lora_rank, alpha=8.0, targets=targets),
         dtype=dtype,
         remat=remat,
+        remat_policy=remat_policy,
     )
 
 

@@ -85,13 +85,16 @@ LR, EPS = 1e-3, 1e-2
 @dataclasses.dataclass(frozen=True)
 class Sizes:
     """`step_runner`'s modules: TINY (the CPU's; rank-4 LoRA) or at published
-    widths (the recipes' LoRA ranks), in ``dtype``, with or without remat;
+    widths (the recipes' LoRA ranks), in ``dtype``, with or without remat
+    (under ``remat_policy``, at ``remat_granularity``: the UNet's);
     `shard_fsdp`'s ``min_size`` and `quantize_frozen`'s; SD3's depth cut to
     ``mmdit_layers`` joint blocks and ``t5_layers`` T5 layers when set."""
 
     tiny: bool = True
     dtype: torch.dtype = torch.float32
     remat: bool = True
+    remat_policy: Optional[str] = None
+    remat_granularity: str = "module"
     min_size: int = 2 ** 10
     int8_min_size: int = 0
     mmdit_layers: Optional[int] = None
@@ -100,11 +103,11 @@ class Sizes:
 
 def family_bundle(family: str, sizes: Sizes):
     """The SD1.5 bundle, or SD3's on `SD3_ADV_LORA_TARGETS`."""
-    rank = {"lora_rank": 4} if sizes.tiny else {}
+    kw = dict(dtype=sizes.dtype, tiny=sizes.tiny, remat=sizes.remat,
+              remat_policy=sizes.remat_policy, **({"lora_rank": 4} if sizes.tiny else {}))
     if family == "sd15":
-        return sd15_bundle(dtype=sizes.dtype, tiny=sizes.tiny, remat=sizes.remat, **rank)
-    bundle = sd3_bundle(dtype=sizes.dtype, tiny=sizes.tiny, remat=sizes.remat, adv_targets=True,
-                        **rank)
+        return sd15_bundle(remat_granularity=sizes.remat_granularity, **kw)
+    bundle = sd3_bundle(adv_targets=True, **kw)
     cut = {"mmdit_cfg": sizes.mmdit_layers, "t5_cfg": sizes.t5_layers}
     return dataclasses.replace(bundle, **{f: dataclasses.replace(getattr(bundle, f), num_layers=k)
                                           for f, k in cut.items() if k})

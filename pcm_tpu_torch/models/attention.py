@@ -12,7 +12,7 @@ SDXL).
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
@@ -94,7 +94,8 @@ class BasicTransformerBlock(nn.Module):
 class Transformer2D(nn.Module):
     """Spatial transformer: GroupNorm, ``proj_in`` (1x1 conv, or linear with
     ``use_linear_projection``), ``depth`` blocks, ``proj_out``, residual.
-    NCHW in and out."""
+    NCHW in and out. ``run(block, *args)`` calls each block (the UNet's
+    remat region a block at ``block`` granularity)."""
 
     def __init__(self, channels: int, heads: int, head_dim: int, depth: int,
                  cross_attention_dim: int, norm_groups: int = 32,
@@ -110,7 +111,8 @@ class Transformer2D(nn.Module):
             for _ in range(depth))
         self.proj_out = proj(inner, channels)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor, lora: LoRA = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor, lora: LoRA = None,
+                run: Callable = None) -> torch.Tensor:
         n, c, h, w = x.shape
         hidden = self.norm(x)
         if self.linear:
@@ -120,7 +122,7 @@ class Transformer2D(nn.Module):
             hidden = self.proj_in(hidden, lora)
             hidden = hidden.permute(0, 2, 3, 1).reshape(n, h * w, hidden.shape[1])
         for block in self.transformer_blocks:
-            hidden = block(hidden, context, lora)
+            hidden = run(block, hidden, context, lora) if run else block(hidden, context, lora)
         if self.linear:
             hidden = self.proj_out(hidden, lora).reshape(n, h, w, c).permute(0, 3, 1, 2)
         else:

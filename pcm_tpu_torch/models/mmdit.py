@@ -12,7 +12,8 @@ and LoRA factors map by rule (`models/convert.py`) and kohya files name the
 same layers in both packages (``transformer_blocks.0.to_out.0``,
 ``transformer_blocks.0.ff.net.0.proj``, ``pos_embed.proj``). Latents are NHWC
 in and out. ``remat=True`` checkpoints every joint block while grad is
-enabled, as the UNet does its blocks.
+enabled, under ``remat_policy`` as the UNet's regions
+(`pcm_tpu/models/mmdit.py:213-216`).
 """
 
 from __future__ import annotations
@@ -23,13 +24,12 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-import torch.utils.checkpoint
 
 from ..lora.layers import LoRA, LoRALinear
 from ..ops import flash_attention
 from .embeddings import (PatchEmbed, PixArtAlphaTextProjection, TimestepEmbedding,
                          sinusoidal_embedding)
-from .unet import _remat_contexts
+from .unet import check_remat, checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,10 +182,12 @@ class JointTransformerBlock(nn.Module):
 
 
 class MMDiT(nn.Module):
-    def __init__(self, cfg: MMDiTConfig = SD3_MEDIUM_CONFIG, remat: bool = False):
+    def __init__(self, cfg: MMDiTConfig = SD3_MEDIUM_CONFIG, remat: bool = False,
+                 remat_policy: Optional[str] = None):
         super().__init__()
+        check_remat(remat_policy)
         self.cfg = cfg
-        self.remat = remat
+        self.remat, self.remat_policy = remat, remat_policy
         dim = cfg.inner_dim
         self.pos_embed = PatchEmbed(cfg.patch_size, cfg.in_channels, dim, cfg.pos_embed_max_size)
         self.timestep_embedder = TimestepEmbedding(256, dim)
@@ -207,9 +209,7 @@ class MMDiT(nn.Module):
 
     def _block(self, block: nn.Module, x, context, temb, lora):
         if self.remat and torch.is_grad_enabled():
-            return torch.utils.checkpoint.checkpoint(block, x, context, temb, lora,
-                                                     use_reentrant=False,
-                                                     context_fn=_remat_contexts)
+            return checkpoint(block, x, context, temb, lora, policy=self.remat_policy)
         return block(x, context, temb, lora)
 
     def _streams(self, sample, timesteps, encoder_hidden_states, pooled_projections, lora,

@@ -4,8 +4,14 @@ NCHW tensors in ``torch.channels_last`` memory; diffusers state-dict names;
 LoRA factors passed per call (``lora=None`` is the teacher). SDXL adds the
 micro-conditioning ``added_cond`` ({"text_embeds", "time_ids"}) through
 ``add_embedding`` and linear transformer projections. ``remat=True``
-checkpoints every ResnetBlock2D and Transformer2D while grad is enabled (the
-JAX package's ``--remat full --remat-gran block`` of training).
+checkpoints blocks while grad is enabled, as `pcm_tpu/models/unet.py:97-160`
+does: ``remat_granularity="module"`` (the default, as in the JAX class)
+makes each ResnetBlock2D and each whole Transformer2D a region; ``"block"``
+each ResnetBlock2D and each BasicTransformerBlock, the Transformer2D's
+norm, ``proj_in`` and ``proj_out`` outside any region (the JAX trainer's
+default ``--remat-gran block``). ``remat_levels`` masks the resolution
+levels (mid: the last), and ``remat_policy`` (`ops.common.resolve_remat_policy`;
+None: keep nothing) says what a region keeps for its backward.
 `UNet2DCondition.features` returns the discriminator's feature taps (the
 JAX package's ``sow("features", ...)``): ``down_{level}`` after each level
 (its downsampler included), ``mid`` after the mid block and ``up_{i}`` after
@@ -20,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -116,19 +123,61 @@ def _kernel_choice(plain: frozenset, int8_mode: Optional[str]):
             yield
 
 
-def _remat_contexts():
+GRANULARITIES = ("module", "block")
+
+
+@contextlib.contextmanager
+def _entered(*contexts):
+    with contextlib.ExitStack() as stack:
+        for c in contexts:
+            stack.enter_context(c)
+        yield
+
+
+def _remat_contexts(policy: Optional[str] = None):
     """(forward, recompute) contexts of a checkpointed block: the recompute,
     which autograd may run on another thread, keeps the caller's choice of
     kernels or plain versions and its int8 mode (that of ``PCM_INT8_MATMUL``
-    included)."""
-    return contextlib.nullcontext(), _kernel_choice(common.reference_forced(), quant.int8_mode())
+    included); with a ``policy`` both run under its selective-checkpoint
+    modes, and the recompute takes what the forward kept."""
+    choice = _kernel_choice(common.reference_forced(), quant.int8_mode())
+    if policy is None:
+        return contextlib.nullcontext(), choice
+    fwd, recompute = torch.utils.checkpoint.create_selective_checkpoint_contexts(
+        common.resolve_remat_policy(policy))
+    return fwd, _entered(choice, recompute)
+
+
+def checkpoint(fn, *args, policy: Optional[str] = None):
+    """``fn(*args)`` as one remat region under ``policy``. The blocks draw no
+    random numbers, so no RNG state is kept for the recompute: torch would
+    keep the card's once for every CUDA tensor among ``args`` (a LoRA dict
+    holds 1576 in SDXL) and set it back as often in the recompute."""
+    contexts = _remat_contexts if policy is None else functools.partial(_remat_contexts, policy)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, context_fn=contexts,
+                                             preserve_rng_state=False)
+
+
+def check_remat(policy: Optional[str], granularity: str = "module") -> None:
+    """Raise on a policy name or a granularity the models do not take."""
+    common.resolve_remat_policy(policy)
+    if granularity not in GRANULARITIES:
+        raise ValueError(f"remat granularity {granularity!r} is not one of {GRANULARITIES}")
 
 
 class UNet2DCondition(nn.Module):
-    def __init__(self, cfg: UNetConfig = SD15_CONFIG, remat: bool = False):
+    def __init__(self, cfg: UNetConfig = SD15_CONFIG, remat: bool = False,
+                 remat_policy: Optional[str] = None,
+                 remat_levels: Optional[Tuple[bool, ...]] = None,
+                 remat_granularity: str = "module"):
         super().__init__()
+        check_remat(remat_policy, remat_granularity)
+        if remat_levels is not None and len(remat_levels) != len(cfg.block_out_channels):
+            raise ValueError(f"remat_levels {remat_levels} for "
+                             f"{len(cfg.block_out_channels)} levels")
         self.cfg = cfg
-        self.remat = remat
+        self.remat, self.remat_policy = remat, remat_policy
+        self.remat_levels, self.remat_granularity = remat_levels, remat_granularity
         chans = cfg.block_out_channels
         ch0, temb = chans[0], cfg.time_embed_dim
         g = cfg.norm_groups
@@ -188,18 +237,26 @@ class UNet2DCondition(nn.Module):
 
     def fsdp_units(self) -> List[nn.Module]:
         """The modules that gather their own sharded weights: the blocks
-        `_block` runs and the resamplers."""
+        `_block` runs, each BasicTransformerBlock inside a Transformer2D (a
+        region of its own under ``block``, whose recompute gathers it again)
+        and the resamplers."""
         out = []
         for blk in (*self.down_blocks, self.mid_block, *self.up_blocks):
-            out += [*blk.resnets, *blk.attentions, *getattr(blk, "downsamplers", ()),
+            out += [*blk.resnets, *getattr(blk, "downsamplers", ()),
                     *getattr(blk, "upsamplers", ())]
+            for attn in blk.attentions:
+                out += [attn, *attn.transformer_blocks]
         return out
 
-    def _block(self, module: nn.Module, *args) -> torch.Tensor:
-        if self.remat and torch.is_grad_enabled():
-            return torch.utils.checkpoint.checkpoint(module, *args, use_reentrant=False,
-                                                     context_fn=_remat_contexts)
-        return module(*args)
+    def _block(self, level: int, module: nn.Module, *args) -> torch.Tensor:
+        """A resnet or transformer of resolution level ``level``, checkpointed
+        as the remat settings say."""
+        if not (self.remat and torch.is_grad_enabled()
+                and (self.remat_levels is None or self.remat_levels[level])):
+            return module(*args)
+        if self.remat_granularity == "block" and isinstance(module, Transformer2D):
+            return module(*args, run=functools.partial(checkpoint, policy=self.remat_policy))
+        return checkpoint(module, *args, policy=self.remat_policy)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor, lora: LoRA = None,
@@ -226,7 +283,6 @@ class UNet2DCondition(nn.Module):
     def _run(self, sample, timesteps, encoder_hidden_states, lora, added_cond,
              taps: Optional[Dict[str, torch.Tensor]] = None, stop_after_mid: bool = False,
              timestep_cond: Optional[torch.Tensor] = None):
-        run = self._block
         cfg = self.cfg
         dtype = self.conv_norm_out.weight.dtype  # a norm scale: never quantized
         t_emb = sinusoidal_embedding(timesteps, cfg.block_out_channels[0]).to(dtype)
@@ -248,6 +304,7 @@ class UNet2DCondition(nn.Module):
         h = self.conv_in(sample, lora)
         skips = [h]
         for level, blk in enumerate(self.down_blocks):
+            run = functools.partial(self._block, level)
             for j, resnet in enumerate(blk.resnets):
                 h = run(resnet, h, temb, lora)
                 if len(blk.attentions):
@@ -259,6 +316,7 @@ class UNet2DCondition(nn.Module):
             tap(f"down_{level}", h)
 
         mid = self.mid_block
+        run = functools.partial(self._block, len(self.down_blocks) - 1)
         h = run(mid.resnets[0], h, temb, lora)
         h = run(mid.attentions[0], h, context, lora)
         h = run(mid.resnets[1], h, temb, lora)
@@ -267,6 +325,7 @@ class UNet2DCondition(nn.Module):
             return None
 
         for i, blk in enumerate(self.up_blocks):
+            run = functools.partial(self._block, len(self.up_blocks) - 1 - i)
             for j, resnet in enumerate(blk.resnets):
                 h = torch.cat([h, skips.pop()], dim=1)
                 h = run(resnet, h, temb, lora)

@@ -26,7 +26,9 @@ import ctypes
 import fcntl
 import functools
 import hashlib
+import math
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -100,6 +102,87 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for k in _launches:
         _launches[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# remat policies
+# ---------------------------------------------------------------------------
+
+DOTS_SMALL_BYTES = 16 * 2 ** 20
+# the op of K1's forward (`ops/flash_attention.py:flash_fwd`): ``(o, lse)``
+FLASH_FWD_OP = "pcm_tpu_torch::flash_fwd"
+
+
+class RematPolicy:
+    """What a selectively checkpointed block keeps for its backward: the
+    policy function of ``torch.utils.checkpoint.create_selective_checkpoint_contexts``
+    for one name of `resolve_remat_policy`.
+
+    Kept (``MUST_SAVE``): the output of each matrix product without batch
+    dims, the aten ops of JAX's ``dot_general`` without batch dims
+    (``mm``, ``addmm``, the int8 ``_int_mm``, and a ``bmm`` whose one operand
+    is broadcast over the batch, as ``matmul`` of a non-contiguous 3-D input
+    and a 2-D weight runs it), when its output has at most ``max_bytes``
+    (None: any size); with ``fa`` also K1's ``(o, lse)``. Recomputed: every
+    other op, batched products, convolutions and the other kernels (JAX
+    recomputes ``conv_general_dilated`` and every ``pallas_call``)."""
+
+    def __init__(self, max_bytes: Optional[float], fa: bool):
+        self.max_bytes, self.fa = max_bytes, fa
+
+    def saves(self, func, *args) -> bool:
+        """Whether the op ``func`` on ``args`` is kept."""
+        if self.fa and _op_name(func) == FLASH_FWD_OP:
+            return True
+        nbytes = dot_output_bytes(func, *args)
+        return nbytes is not None and self.max_bytes is not None and nbytes <= self.max_bytes
+
+    def __call__(self, ctx, func, *args, **kwargs):
+        from torch.utils.checkpoint import CheckpointPolicy
+
+        return (CheckpointPolicy.MUST_SAVE if self.saves(func, *args)
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _op_name(func) -> str:
+    return getattr(func, "_schema", None) and func._schema.name or ""
+
+
+def dot_output_bytes(func, *args) -> Optional[int]:
+    """Bytes of the output of ``func`` on ``args`` when it is a matrix
+    product without batch dims (see `RematPolicy`), else None."""
+    name = _op_name(func)
+    if name in ("aten::mm", "aten::_int_mm"):
+        a, b = args[:2]
+    elif name == "aten::addmm":
+        a, b = args[1:3]
+    elif name == "aten::bmm" and 0 in (args[0].stride(0), args[1].stride(0)):
+        a, b = args[:2]
+    else:
+        return None
+    dtype = torch.int32 if name == "aten::_int_mm" else a.dtype
+    rows = a.shape[0] * a.shape[1] if a.dim() == 3 else a.shape[0]
+    return rows * b.shape[-1] * dtype.itemsize
+
+
+@functools.lru_cache(maxsize=None)
+def resolve_remat_policy(name: Optional[str]) -> Optional[RematPolicy]:
+    """The policy of a remat name, as `pcm_tpu/ops/common.py:resolve_remat_policy`
+    takes them: None (no policy: a checkpointed block keeps nothing),
+    ``nothing``, ``dots`` (every unbatched product's output), ``dots_small``
+    (those of at most 16 MiB), ``dots<N>m`` (at most N MiB), each of them
+    with ``+fa`` (K1's output and lse too). Any other name raises."""
+    if name is None:
+        return None
+    base = name
+    while base.endswith("+fa"):  # JAX nests the names: "nothing+fa+fa" is "nothing+fa"
+        base = base[: -len("+fa")]
+    caps = {"dots": math.inf, "dots_small": DOTS_SMALL_BYTES, "nothing": None}
+    m = re.fullmatch(r"dots(\d+)m", base)
+    if base not in caps and not m:
+        raise ValueError(f"unknown remat policy {name!r} (nothing, dots, dots_small, "
+                         "dots<N>m, each optionally +fa)")
+    return RematPolicy(caps[base] if base in caps else int(m.group(1)) * 2 ** 20, base != name)
 
 
 def vjp_of(fn, inputs, args, g, needs):

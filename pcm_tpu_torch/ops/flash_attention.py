@@ -19,8 +19,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .common import (H100_SMS, cdiv, check_cuda, count_launch, lib, require, sm_count,
-                     stream_ptr, use_kernel)
+from .common import (FLASH_FWD_OP, H100_SMS, cdiv, check_cuda, count_launch, lib, require,
+                     sm_count, stream_ptr, use_kernel)
 
 LOG2E = 1.4426950408889634  # exp(x) == exp2(x * LOG2E)
 MAX_HEAD_DIM = 512
@@ -33,11 +33,14 @@ class FlashAttentionFn(torch.autograd.Function):
     runs on both devices: kernels on CUDA tensors, plain versions on CPU ones.
     The forward records the choice of K2 and K3, each by its own name:
     autograd runs the backward on another thread, where a ``reference_ops()``
-    context of the caller is not set."""
+    context of the caller is not set. K1 runs as the op `flash_fwd`, which a
+    remat policy sees (``+fa`` keeps its ``(o, lse)``, as JAX's
+    ``checkpoint_name`` of ``fa_out`` / ``fa_lse``), so that the recompute of
+    a checkpointed block then takes them from the forward and launches no K1."""
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale):
-        o, lse = flash_attention_fwd(q, k, v, sm_scale)
+        o, lse = flash_fwd(q, k, v, float(sm_scale))
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.sm_scale, ctx.bwd_kernels = sm_scale, bwd_kernel_choice(q, k, v)
         return o
@@ -56,6 +59,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     return FlashAttentionFn.apply(q, k, v, sm_scale)
+
+
+@torch.library.custom_op(FLASH_FWD_OP, mutates_args=())
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`flash_attention_fwd` as one op of the dispatcher: K1's launch, or its
+    plain version, is one call that a remat policy can keep."""
+    return flash_attention_fwd(q, k, v, sm_scale)
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, sm_scale):
+    b, sq, h, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((b, h, sq), dtype=torch.float32)
 
 
 def _kernel_layout(t: torch.Tensor) -> bool:

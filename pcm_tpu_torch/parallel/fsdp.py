@@ -14,8 +14,9 @@ the length split is JAX's, whose layouts are the transposes.
 slices of one *unit* sit in one flat byte buffer, and the unit's module
 holds views of it. A unit is a module whose call runs on its own leaves.
 Each model declares its units: ``fsdp_units()`` returns the modules (each
-remat block: the UNet's resnets, transformers and resamplers, the MMDiT's
-joint blocks; each CLIP and T5 layer; each VAE resnet, attention and
+remat block: the UNet's resnets, transformers, the BasicTransformerBlocks
+inside them (a unit in a unit: the transformer keeps its norm and
+projections) and resamplers, the MMDiT's joint blocks; each CLIP and T5 layer; each VAE resnet, attention and
 resampler, and the VAE's encoder and decoder for their own convs and
 norms), ``fsdp_entries`` names its entry points besides ``forward``, and
 ``fsdp_top()`` (T5's relative-position table) the modules inside a unit
@@ -36,10 +37,14 @@ alive are at most the top-level unit's and one block's.
 With gradients the ops keep what their backward needs: an ``F.linear`` or
 ``F.conv2d`` its weight, so a block run with gradients and without remat
 keeps its gathered weights until the backward has passed it. Under remat
-(``use_reentrant=False``) the block's forward keeps nothing and the
-recompute in the backward calls the block again, which gathers it again,
-inside the caller's kernel choice and int8 mode (`models/unet.py:
-_remat_contexts`). The student's forward is remat'ed in training, so a rank
+(``use_reentrant=False``) the block's forward keeps nothing but what its
+policy names (matmul outputs, K1's output: never a gathered weight, a
+collective or a copy) and the recompute in the backward calls the block
+again, which gathers it again, inside the caller's kernel choice and int8
+mode (`models/unet.py:_remat_contexts`); at ``block`` granularity that is a
+BasicTransformerBlock, the reason it is a unit of its own, while the
+transformer's norm and projections, outside any region, keep their weights
+to the backward. The student's forward is remat'ed in training, so a rank
 holds its slices plus about one block's weights; without remat it holds
 every weight the forward used until the backward.
 

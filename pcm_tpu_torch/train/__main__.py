@@ -235,8 +235,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="metrics cadence (each log reads the device back)")
     ap.add_argument("--no-resume", action="store_true")
     ap.add_argument("--remat", default="full",
-                    help="full = checkpoint every UNet or MMDiT block (least memory), none = "
-                         "keep all activations")
+                    help="full = checkpoint every UNet or MMDiT block and keep nothing (least "
+                         "memory); none = keep all activations; nothing, dots, dots_small, "
+                         "dots<N>m = checkpoint and keep the unbatched matmul outputs (of at "
+                         "most 16 / N MiB), each with +fa keeping flash attention's output "
+                         "and lse too (ops/common.py:resolve_remat_policy)")
+    ap.add_argument("--remat-gran", default="block", choices=["module", "block"],
+                    help="UNet checkpoint region: block = each BasicTransformerBlock (the "
+                         "backward holds one block's recompute), module = each whole "
+                         "Transformer2D; resnets are regions of their own either way")
     ap.add_argument("--frozen-weights", default="bf16", choices=["bf16", "int8"],
                     help="int8 = frozen UNet or MMDiT and text weights as per-channel int8 "
                          "(the VAE stays bf16)")
@@ -272,6 +279,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from ..configs.families import RECIPES, disc_config, sd3_bundle, sd15_bundle, sdxl_bundle
+    from ..ops.common import resolve_remat_policy
 
     if args.recipe not in RECIPES:
         ap.error(f"unknown recipe {args.recipe!r} (one of {sorted(RECIPES)})")
@@ -297,8 +305,11 @@ def main(argv=None):
                                     or args.tiny):
         ap.error("no tokenizer for the captions: pass --tokenizer-dir, or "
                  "--allow-hash-tokenizer for smoke runs (prompts hashed to pseudo-random ids)")
-    if args.remat not in ("full", "none"):
-        ap.error(f"--remat {args.remat} is {NOT_PORTED} (full|none)")
+    remat_policy = None if args.remat in ("full", "none") else args.remat
+    try:
+        resolve_remat_policy(remat_policy)
+    except ValueError as e:
+        ap.error(f"--remat: {e}, full or none")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu (with --tiny) to smoke-test on the CPU")
@@ -377,12 +388,15 @@ def main(argv=None):
             print("warning: with prodigy set the learning rate around 1.0", file=sys.stderr)
 
     dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
-    kw = dict(dtype=dtype, tiny=args.tiny, remat=args.remat == "full")
+    kw = dict(dtype=dtype, tiny=args.tiny, remat=args.remat != "none", remat_policy=remat_policy)
     if sd3:  # the adversarial recipes' LoRA targets (`scripts/train.py:238-244`)
         bundle = sd3_bundle(recipe.lora_rank, adv_targets=recipe.adversarial,
                             stochastic=recipe.stochastic, **kw)
     else:
-        bundle = (sd15_bundle if family == "sd15" else sdxl_bundle)(recipe.lora_rank, **kw)
+        bundle = (sd15_bundle if family == "sd15" else sdxl_bundle)(
+            recipe.lora_rank, remat_granularity=args.remat_gran, **kw)
+    # what runs: the MMDiT's region is a joint block whatever --remat-gran says
+    remat_gran = None if args.remat == "none" else "block" if sd3 else args.remat_gran
     if args.train_data_dir:  # the reference's rule (`scripts/train.py:215-217`), else <= 32
         chunk = args.vae_encode_chunk or (1 if res >= 1024 and batch > 1 else 32)
         bundle = dataclasses.replace(bundle, vae_encode_chunk=chunk)
@@ -477,6 +491,7 @@ def main(argv=None):
               + (f", rank 0 of {world} ({mesh.backend()}), global batch {batch * world}"
                  if mesh.active() else "")
               + f", {args.frozen_weights} frozen weights, {args.optimizer}"
+              + f", remat {args.remat}" + (f" / {remat_gran}" if remat_gran else "")
               + (f", {args.adv_pairing} adversarial pairing" if recipe.adversarial else "")
               + (f", int8 matmul {args.int8_matmul}" if args.int8_matmul else "")
               + (f", resumed at step {trainer.resumed_from}" if trainer.resumed_from else ""),
@@ -502,6 +517,7 @@ def main(argv=None):
     if rank == 0:
         with open(os.path.join(args.output_dir, "launches.jsonl"), "a") as f:
             f.write(json.dumps({"from_step": start, "to_step": trainer.global_step,
+                                "remat": args.remat, "remat_granularity": remat_gran,
                                 "launches": launch_counts()}) + "\n")
     if multihost:
         torch.distributed.destroy_process_group()

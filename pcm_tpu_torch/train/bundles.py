@@ -126,6 +126,12 @@ def _decode(frozen: Frozen, latents: torch.Tensor, chunk: Optional[int]) -> torc
                       for i in range(0, n, chunk)])
 
 
+def _unet_remat(bundle) -> Dict[str, Any]:
+    """The UNet's remat arguments of an SD1.5 or SDXL bundle."""
+    return dict(remat=bundle.remat, remat_policy=bundle.remat_policy,
+                remat_levels=bundle.remat_levels, remat_granularity=bundle.remat_granularity)
+
+
 @dataclasses.dataclass(frozen=True)
 class SD15Bundle:
     """SD1.5: single CLIP-L, last hidden state conditioning."""
@@ -136,6 +142,9 @@ class SD15Bundle:
     lora: LoRASpec
     dtype: torch.dtype = torch.bfloat16
     remat: bool = False  # checkpoint each UNet block while grad is on (training)
+    remat_policy: Optional[str] = None  # what a region keeps (ops/common.py:resolve_remat_policy)
+    remat_levels: Optional[Tuple[bool, ...]] = None  # per-level mask (models/unet.py)
+    remat_granularity: str = "module"  # "block": a region a BasicTransformerBlock
     vae_encode_chunk: Optional[int] = None  # samples a VAE encode call (None: the batch)
 
     KOHYA_PREFIX = "lora_unet"  # the key prefix of the family's kohya LoRA files
@@ -143,7 +152,7 @@ class SD15Bundle:
     def build(self, device: torch.device) -> Frozen:
         """The bundle's modules with uninitialized weights on ``device``
         (``torch.device("meta")`` builds the structure only)."""
-        return _build(lambda: {"unet": UNet2DCondition(self.unet_cfg, remat=self.remat),
+        return _build(lambda: {"unet": UNet2DCondition(self.unet_cfg, **_unet_remat(self)),
                                "vae": AutoencoderKL(self.vae_cfg),
                                "text": CLIPTextModel(self.text_cfg)},
                       self.lora, self.dtype, device)
@@ -274,6 +283,9 @@ class SDXLBundle:
     lora: LoRASpec
     dtype: torch.dtype = torch.bfloat16
     remat: bool = False
+    remat_policy: Optional[str] = None
+    remat_levels: Optional[Tuple[bool, ...]] = None
+    remat_granularity: str = "module"
     vae_encode_chunk: Optional[int] = None  # samples a VAE encode call (None: the batch)
 
     MODULES = ("unet", "vae", "text", "text2")
@@ -281,7 +293,7 @@ class SDXLBundle:
 
     def build(self, device: torch.device, modules: Tuple[str, ...] = MODULES) -> Frozen:
         """``modules`` of the bundle with uninitialized weights on ``device``."""
-        make = {"unet": lambda: UNet2DCondition(self.unet_cfg, remat=self.remat),
+        make = {"unet": lambda: UNet2DCondition(self.unet_cfg, **_unet_remat(self)),
                 "vae": lambda: AutoencoderKL(self.vae_cfg),
                 "text": lambda: CLIPTextModel(self.text_cfg),
                 "text2": lambda: CLIPTextModel(self.text2_cfg)}
@@ -381,6 +393,7 @@ class SD3Bundle:
     lora: LoRASpec
     dtype: torch.dtype = torch.bfloat16
     remat: bool = False  # checkpoint each joint block while grad is on (training)
+    remat_policy: Optional[str] = None
     vae_encode_chunk: Optional[int] = None  # samples a VAE encode call (None: the batch)
 
     MODULES = ("mmdit", "vae", "text", "text2", "t5")
@@ -389,7 +402,8 @@ class SD3Bundle:
 
     def build(self, device: torch.device, modules: Tuple[str, ...] = MODULES) -> Frozen:
         """``modules`` of the bundle with uninitialized weights on ``device``."""
-        make = {"mmdit": lambda: MMDiT(self.mmdit_cfg, remat=self.remat),
+        make = {"mmdit": lambda: MMDiT(self.mmdit_cfg, remat=self.remat,
+                                          remat_policy=self.remat_policy),
                 "vae": lambda: AutoencoderKL(self.vae_cfg),
                 "text": lambda: CLIPTextModel(self.text_cfg),
                 "text2": lambda: CLIPTextModel(self.text2_cfg),

@@ -16,8 +16,10 @@
 - gloo ranks (`tests/torch_fsdp_worker.py`, spawned on free ports with a
   timeout, stderr shown on failure): ``data 2 x fsdp 2`` bit-equal to
   ``data 2 x fsdp 1`` and ``data 1 x fsdp 2`` bit-equal to one process, on
-  the DDIM step (with and without remat, and on int8 weights under
-  ``fused``), the G and D steps, the fused pair and the SD3 flow step. The
+  the DDIM step (with and without remat, on int8 weights under ``fused``,
+  and under ``dots8m+fa`` at ``block`` granularity, whose recompute of a
+  BasicTransformerBlock gathers it again), the G and D steps, the fused
+  pair and the SD3 flow step. The
   data-only ranks are held to JAX's global-batch step by
   `tests/test_torch_parallel.py`, so bit-equality carries that over.
 - `dryrun_multichip(4, device="cpu")` prints JAX's four lines with finite
@@ -246,8 +248,9 @@ def test_shard_gather_round_trip_is_bit_exact(monkeypatch, family, int8):
 @pytest.mark.parametrize("family", FAMILIES)
 def test_sharded_forwards_equal_unsharded(monkeypatch, family):
     """The teacher's forward and taps, the student's forward and its LoRA
-    gradients (remat off and on), the VAE encode and decode and the prompt
-    encoding on sharded weights equal the unsharded ones bit for bit."""
+    gradients (remat off, on, on at ``block`` granularity, and under
+    ``dots8m+fa`` there), the VAE encode and decode and the prompt encoding
+    on sharded weights equal the unsharded ones bit for bit."""
     bundle, ref, copies, template = _two_ranks(monkeypatch, family, torch.float32, False)
     sharded = copies[0]
     x, t, cond, pixels, ids = _inputs(family)
@@ -255,9 +258,11 @@ def test_sharded_forwards_equal_unsharded(monkeypatch, family):
 
     backbone = "mmdit" if family == "sd3" else "unet"
 
-    def readings(frozen, remat):
+    def readings(frozen, remat, policy=None, granularity="module"):
         b = bundle
-        frozen[backbone].remat = remat
+        frozen[backbone].remat, frozen[backbone].remat_policy = remat, policy
+        if backbone == "unet":
+            frozen[backbone].remat_granularity = granularity
         lo = {k: v.clone().requires_grad_(True) for k, v in lora.items()}
         out = b.student(frozen, lo, x, t, cond)
         grads = torch.autograd.grad(out.square().sum(), list(lo.values()))
@@ -268,8 +273,8 @@ def test_sharded_forwards_equal_unsharded(monkeypatch, family):
             return [b.teacher(frozen, x, t, cond), out.detach(), *grads, *feats.values(), lat,
                     b.decode_latents(frozen, lat), _encode_prompts(b, frozen, ids, family)]
 
-    for remat in (False, True):
-        for a, b in zip(readings(sharded, remat), readings(ref, remat)):
+    for setting in ((False,), (True,), (True, None, "block"), (True, "dots8m+fa", "block")):
+        for a, b in zip(readings(sharded, *setting), readings(ref, *setting)):
             assert torch.equal(a, b)
 
 
@@ -412,7 +417,7 @@ def ranks(tmp_path_factory):
     return res
 
 
-JOB_NAMES = ("ddim", "ddim_remat", "adv_g_d", "adv_fused", "flow", "ddim_int8")
+JOB_NAMES = ("ddim", "ddim_remat", "adv_g_d", "adv_fused", "flow", "ddim_int8", "ddim_block_fa")
 
 
 def _same(a: dict, b: dict) -> bool:

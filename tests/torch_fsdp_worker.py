@@ -22,16 +22,19 @@ from pcm_tpu_torch import dryrun
 from pcm_tpu_torch.parallel import fsdp, mesh
 
 CPU = torch.device("cpu")
-# job -> (step kind of `dryrun.FAMILY_STEPS`, remat)
-JOBS = {"ddim": ("ddim", False), "ddim_remat": ("ddim", True), "adv_g_d": ("adv_g_d", True),
-        "adv_fused": ("adv_fused", True), "flow": ("flow", True),
-        "ddim_int8": ("ddim_int8", True)}
+# job -> (step kind of `dryrun.FAMILY_STEPS`, remat settings of `dryrun.Sizes`)
+FULL = {"remat": True}
+JOBS = {"ddim": ("ddim", {"remat": False}), "ddim_remat": ("ddim", FULL),
+        "adv_g_d": ("adv_g_d", FULL), "adv_fused": ("adv_fused", FULL), "flow": ("flow", FULL),
+        "ddim_int8": ("ddim_int8", FULL),
+        "ddim_block_fa": ("ddim", {"remat": True, "remat_policy": "dots8m+fa",
+                                   "remat_granularity": "block"})}
 
 
 def run_job(name: str, layout: mesh.Layout) -> dict:
     kind, remat = JOBS[name]
     family = "sd3" if kind == "flow" else "sd15"
-    sizes = dryrun.Sizes(remat=remat)
+    sizes = dryrun.Sizes(**remat)
     bundle = dryrun.family_bundle(family, sizes)
     frozen, lora, _ = dryrun.sharded_frozen(bundle, sizes, layout, CPU, seed=0,
                                             int8=kind == "ddim_int8")
