@@ -14,6 +14,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 
 class DeviceTables:
     """Mixin of the frozen table dataclasses: ``table(name, device)`` is the
@@ -23,7 +25,8 @@ class DeviceTables:
         cache = self.__dict__.setdefault("_device_tables", {})
         key = (name, torch.device(device))
         if key not in cache:
-            cache[key] = torch.from_numpy(np.asarray(getattr(self, name))).to(device)
+            with profiling.span("wait.device_table"):  # a pageable copy: the host waits
+                cache[key] = torch.from_numpy(np.asarray(getattr(self, name))).to(device)
         return cache[key]
 
 

@@ -17,6 +17,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .schedule import DDPMSchedule, DeviceTables, FlowSchedule, bcast
 
 
@@ -88,7 +89,9 @@ class PhasedDDIMSolver(DeviceTables):
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Jump from grid point ``index`` to the start of its phase; returns
         (x at the phase start, training timestep of the phase start)."""
-        boundaries = torch.from_numpy(phase_boundaries(self.num_steps, multiphase)).to(index.device)
+        with profiling.span("wait.phase_boundaries"):  # a pageable copy: the host waits
+            boundaries = torch.from_numpy(phase_boundaries(self.num_steps,
+                                                           multiphase)).to(index.device)
         b = last_boundary_at_or_below(index, boundaries)
         return (self._jump(pred_x0, pred_noise, b),
                 self.table("timesteps_prev", index.device)[b])
@@ -134,7 +137,9 @@ class PhasedEulerSolver(DeviceTables):
         returns (x at the phase start, the phase start's grid index). With
         ``is_target`` the sample sits at ``sigmas_prev[index]`` (the
         stop-grad target's input, one solver step on) instead of ``sigmas[index]``."""
-        boundaries = torch.from_numpy(phase_boundaries(self.num_steps, multiphase)).to(index.device)
+        with profiling.span("wait.phase_boundaries"):  # a pageable copy: the host waits
+            boundaries = torch.from_numpy(phase_boundaries(self.num_steps,
+                                                           multiphase)).to(index.device)
         b = last_boundary_at_or_below(index, boundaries)
         src = self.table("sigmas_prev" if is_target else "sigmas", sample.device)[index]
         sigma = bcast(src, sample.ndim)

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils import profiling
 from .common import (FLASH_FWD_OP, H100_SMS, cdiv, check_cuda, count_launch, lib, require,
                      sm_count, stream_ptr, use_kernel)
 
@@ -36,11 +37,14 @@ class FlashAttentionFn(torch.autograd.Function):
     context of the caller is not set. K1 runs as the op `flash_fwd`, which a
     remat policy sees (``+fa`` keeps its ``(o, lse)``, as JAX's
     ``checkpoint_name`` of ``fa_out`` / ``fa_lse``), so that the recompute of
-    a checkpointed block then takes them from the forward and launches no K1."""
+    a checkpointed block then takes them from the forward and launches no K1.
+    The forward's K1 and the backward's delta, K2 and K3 each run in an
+    ``attention`` span (`utils/profiling.py`) on q's device."""
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale):
-        o, lse = flash_fwd(q, k, v, float(sm_scale))
+        with profiling.span("attention", q.device):
+            o, lse = flash_fwd(q, k, v, float(sm_scale))
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.sm_scale, ctx.bwd_kernels = sm_scale, bwd_kernel_choice(q, k, v)
         return o
@@ -48,7 +52,8 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.sm_scale, ctx.bwd_kernels)
+        with profiling.span("attention", q.device):
+            dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.sm_scale, ctx.bwd_kernels)
         return dq, dk, dv, None
 
 

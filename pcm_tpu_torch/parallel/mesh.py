@@ -38,6 +38,8 @@ from typing import Any, List, Optional
 import torch
 import torch.distributed as dist
 
+from ..utils import profiling
+
 # the gloo group of the host-side agreements (the default group when it is gloo)
 _host_group = None
 # the layout `make_mesh` set last (None: data parallelism over the world)
@@ -125,9 +127,10 @@ def any_rank(flag: bool) -> bool:
     rank gets the same answer, so all take the same branch."""
     if not active():
         return flag
-    t = torch.tensor([int(flag)], dtype=torch.int32)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_host_group)
-    return bool(t.item())
+    with profiling.span("wait.any_rank"):
+        t = torch.tensor([int(flag)], dtype=torch.int32)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_host_group)
+        return bool(t.item())
 
 
 def _leaves(tree) -> List[torch.Tensor]:

@@ -52,6 +52,7 @@ from ..core.losses import consistency_loss, feature_matching_loss, hinge_d_loss,
 from ..core.schedule import DDPMSchedule, FlowSchedule, bcast
 from ..core.solver import PhasedDDIMSolver, PhasedEulerSolver, phase_boundaries
 from ..models.normalization import GroupNorm
+from ..utils import profiling
 from .distill import (Draws, DistillConfig, _merge_cond, accumulate_grads, ddim_model_pred,
                       ddim_prepare, flow_model_pred, flow_prepare)
 from .state import TrainState, apply_updates, global_norm
@@ -221,7 +222,8 @@ def _ddim_family(bundle, schedule: DDPMSchedule, cfg: DistillConfig) -> _Family:
     bounds = phase_boundaries(cfg.num_solver_steps, cfg.multiphase)
 
     def prepare(frozen, lora, mb, dr):
-        boundaries = torch.from_numpy(bounds).to(dr["index"].device)
+        with profiling.span("wait.adv_boundaries"):  # a pageable copy: the host waits
+            boundaries = torch.from_numpy(bounds).to(dr["index"].device)
         return ddim_prepare(bundle, schedule, solver, boundaries, cfg, frozen, lora, mb, dr)
 
     def renoise(parts, dr):

@@ -20,6 +20,11 @@ teacher and target forwards run under ``int8_matmul("dense")`` and the
 differentiated student keeps the dequantized weights. The flow step
 (`build_flow_distill_step`) takes the same draws: its index picks a point of
 the Euler solver's sigma grid, and ``w`` is the recipe's fixed guidance.
+
+Both consistency steps' work falls into five spans (`utils/profiling.py`),
+in order: ``teacher``, ``target``, ``student.forward``,
+``student.backward`` and ``optimizer``; the host's waits on the card inside
+them are ``wait.<site>`` spans.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from ..core.losses import cfg_combine, consistency_loss
 from ..core.schedule import DDPMSchedule, FlowSchedule
 from ..core.solver import PhasedDDIMSolver, PhasedEulerSolver, boundary_scalings, phase_boundaries
 from ..parallel.mesh import all_reduce_mean, data_group
+from ..utils import profiling
 from ..utils.quant import int8_matmul
 from .state import TrainState, apply_updates, global_norm
 
@@ -116,17 +122,24 @@ def accumulate_grads(grad_fn: Callable, batch: Dict[str, torch.Tensor], draws: S
     all of them without an FSDP layout; one all-reduce a step, JAX's psum
     over ``'data'``), so the losses and grads are the global batch's. The
     ranks of one fsdp group hold the same rows and reduce nothing between
-    them: a ``data x fsdp`` run is then bit-equal to a ``data x 1`` one."""
+    them: a ``data x fsdp`` run is then bit-equal to a ``data x 1`` one.
+    The sums, the mean and the all-reduce are timed as the ``optimizer``
+    span (`utils/profiling.py`)."""
     micro = split_microbatches(batch, accum)
     if len(draws) != len(micro):
         raise ValueError(f"{len(draws)} draws for {len(micro)} microbatches")
-    if accum <= 1:
-        return all_reduce_mean(grad_fn(micro[0], draws[0]), data_group())
     total = None
     for mb, dr in zip(micro, draws):
         out = grad_fn(mb, dr)
-        total = out if total is None else tree_map(torch.add, total, out)
-    return all_reduce_mean(tree_map(lambda t: t / accum, total), data_group())
+        if total is None:
+            total = out
+        else:
+            with profiling.span("optimizer"):
+                total = tree_map(torch.add, total, out)
+    with profiling.span("optimizer"):
+        if accum > 1:
+            total = tree_map(lambda t: t / accum, total)
+        return all_reduce_mean(total, data_group())
 
 
 def _merge_cond(cond, uncond):
@@ -147,32 +160,34 @@ def ddim_prepare(bundle, schedule: DDPMSchedule, solver: PhasedDDIMSolver,
     """Everything up to the stop-grad target: noising, the CFG teacher ODE
     step and the target network's jump (`ddim_prepare`, :137-184).
     ``lora`` is the student's current adapter."""
-    latents, cond, uncond = bundle.encode(frozen, batch, draws.get("vae_noise"))
-    noise, index, w = draws["noise"], draws["index"].long(), draws["w"]
-    start_t = solver.table("timesteps", latents.device)[index]
-    topk = schedule.num_train_timesteps // cfg.num_solver_steps
-    t_prev = torch.clamp(start_t - topk, min=0)
-    noisy = schedule.add_noise(latents, noise, start_t)
+    with profiling.span("teacher"):
+        latents, cond, uncond = bundle.encode(frozen, batch, draws.get("vae_noise"))
+        noise, index, w = draws["noise"], draws["index"].long(), draws["w"]
+        start_t = solver.table("timesteps", latents.device)[index]
+        topk = schedule.num_train_timesteps // cfg.num_solver_steps
+        t_prev = torch.clamp(start_t - topk, min=0)
+        noisy = schedule.add_noise(latents, noise, start_t)
 
-    with _no_grad_fwd_ctx(cfg):
-        if cfg.not_apply_cfg_solver:
-            cond_out = uncond_out = bundle.teacher(frozen, noisy, start_t, cond)
-        else:
-            both = bundle.teacher(frozen, torch.cat([noisy, noisy]),
-                                  torch.cat([start_t, start_t]), _merge_cond(cond, uncond))
-            cond_out, uncond_out = both.chunk(2)
-    cond_x0 = schedule.predicted_origin(cond_out, start_t, noisy)
-    uncond_x0 = schedule.predicted_origin(uncond_out, start_t, noisy)
-    pred_x0 = cfg_combine(cond_x0, uncond_x0, w)
-    pred_noise = cfg_combine(cond_out, uncond_out, w)
-    x_prev = solver.ddim_step(pred_x0, pred_noise, index)
+        with _no_grad_fwd_ctx(cfg):
+            if cfg.not_apply_cfg_solver:
+                cond_out = uncond_out = bundle.teacher(frozen, noisy, start_t, cond)
+            else:
+                both = bundle.teacher(frozen, torch.cat([noisy, noisy]),
+                                      torch.cat([start_t, start_t]), _merge_cond(cond, uncond))
+                cond_out, uncond_out = both.chunk(2)
+        cond_x0 = schedule.predicted_origin(cond_out, start_t, noisy)
+        uncond_x0 = schedule.predicted_origin(uncond_out, start_t, noisy)
+        pred_x0 = cfg_combine(cond_x0, uncond_x0, w)
+        pred_noise = cfg_combine(cond_out, uncond_out, w)
+        x_prev = solver.ddim_step(pred_x0, pred_noise, index)
 
-    with _no_grad_fwd_ctx(cfg):
-        target_out = bundle.student(frozen, lora, x_prev, t_prev, cond)
-    t_x0 = schedule.predicted_origin(target_out, t_prev, x_prev)
-    target_jump, end_t = solver.multiphase_pred(t_x0, target_out, index, cfg.multiphase)
-    c_skip, c_out = boundary_scalings(index, boundaries, latents.ndim)
-    target = c_skip * x_prev + c_out * target_jump
+    with profiling.span("target"):
+        with _no_grad_fwd_ctx(cfg):
+            target_out = bundle.student(frozen, lora, x_prev, t_prev, cond)
+        t_x0 = schedule.predicted_origin(target_out, t_prev, x_prev)
+        target_jump, end_t = solver.multiphase_pred(t_x0, target_out, index, cfg.multiphase)
+        c_skip, c_out = boundary_scalings(index, boundaries, latents.ndim)
+        target = c_skip * x_prev + c_out * target_jump
     return dict(latents=latents, noise=noise, index=index, start_t=start_t, t_prev=t_prev,
                 noisy=noisy, w=w, cond=cond, uncond=uncond, x_prev=x_prev, target=target,
                 end_t=end_t)
@@ -198,23 +213,41 @@ def build_ddim_distill_step(bundle, schedule: DDPMSchedule, cfg: DistillConfig, 
     def step(state: TrainState, frozen, batch, draws: Sequence[Draws]
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         device = next(iter(state.params.values())).device
-        boundaries = torch.from_numpy(bounds).to(device)
+        with profiling.span("teacher"), profiling.span("wait.step_boundaries"):
+            boundaries = torch.from_numpy(bounds).to(device)
 
         def grad_fn(mb, dr):
             parts = ddim_prepare(bundle, schedule, solver, boundaries, cfg, frozen,
                                  state.params, mb, dr)
-            lora = {k: p.detach().requires_grad_(True) for k, p in state.params.items()}
-            with torch.enable_grad():
-                model_pred = ddim_model_pred(bundle, schedule, solver, cfg, frozen, lora, parts)
-                loss = consistency_loss(model_pred, parts["target"], cfg.loss_type, cfg.huber_c)
-                grads = torch.autograd.grad(loss, list(lora.values()))
-            return loss.detach(), dict(zip(lora, grads))
+            return student_grads(
+                lambda lora: ddim_model_pred(bundle, schedule, solver, cfg, frozen, lora, parts),
+                parts["target"], state.params, cfg)
 
         loss, grads = accumulate_grads(grad_fn, batch, draws, grad_accum_steps)
-        new_state = apply_updates(state, grads, tx)
-        return new_state, {"loss": loss, "grad_norm": global_norm(grads)}
+        return optimizer_step(state, loss, grads, tx)
 
     return step
+
+
+def student_grads(model_pred: Callable, target: torch.Tensor, params, cfg: DistillConfig):
+    """The student's phases of a consistency step: ``student.forward`` (the
+    prediction ``model_pred(lora)`` through the loss against ``target``),
+    then ``student.backward``; returns the loss and the grads by leaf."""
+    with torch.enable_grad():
+        with profiling.span("student.forward"):
+            lora = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+            loss = consistency_loss(model_pred(lora), target, cfg.loss_type, cfg.huber_c)
+        with profiling.span("student.backward"):
+            grads = torch.autograd.grad(loss, list(lora.values()))
+    return loss.detach(), dict(zip(lora, grads))
+
+
+def optimizer_step(state: TrainState, loss: torch.Tensor, grads, tx
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """The update and the step's metrics, in the ``optimizer`` span."""
+    with profiling.span("optimizer"):
+        new_state = apply_updates(state, grads, tx)
+        return new_state, {"loss": loss, "grad_norm": global_norm(grads)}
 
 
 # ---------------------------------------------------------------------------
@@ -228,28 +261,31 @@ def flow_prepare(bundle, schedule: FlowSchedule, solver: PhasedEulerSolver, cfg:
     """Everything up to the stop-grad target: noising at the grid point's
     sigma, the CFG teacher's Euler step and the target network's jump from
     the step's end (``is_target``). ``lora`` is the student's current adapter."""
-    latents, cond, uncond = bundle.encode(frozen, batch, draws.get("vae_noise"))
-    noise, index, w = draws["noise"], draws["index"].long(), draws["w"]
-    sigmas = solver.table("sigmas", latents.device)[index]
-    sigmas_prev = solver.table("sigmas_prev", latents.device)[index]
-    timesteps = sigmas * schedule.num_train_timesteps
-    timesteps_prev = sigmas_prev * schedule.num_train_timesteps
-    noisy = schedule.add_noise(latents, noise, sigmas)
+    with profiling.span("teacher"):
+        latents, cond, uncond = bundle.encode(frozen, batch, draws.get("vae_noise"))
+        noise, index, w = draws["noise"], draws["index"].long(), draws["w"]
+        sigmas = solver.table("sigmas", latents.device)[index]
+        sigmas_prev = solver.table("sigmas_prev", latents.device)[index]
+        timesteps = sigmas * schedule.num_train_timesteps
+        timesteps_prev = sigmas_prev * schedule.num_train_timesteps
+        noisy = schedule.add_noise(latents, noise, sigmas)
 
-    with _no_grad_fwd_ctx(cfg):
-        if cfg.not_apply_cfg_solver:
-            cond_out = uncond_out = bundle.teacher(frozen, noisy, timesteps, cond)
-        else:
-            both = bundle.teacher(frozen, torch.cat([noisy, noisy]),
-                                  torch.cat([timesteps, timesteps]), _merge_cond(cond, uncond))
-            cond_out, uncond_out = both.chunk(2)
-    teacher_v = cfg_combine(cond_out, uncond_out, w)
-    x_prev = solver.euler_step(noisy, teacher_v, index)
+        with _no_grad_fwd_ctx(cfg):
+            if cfg.not_apply_cfg_solver:
+                cond_out = uncond_out = bundle.teacher(frozen, noisy, timesteps, cond)
+            else:
+                both = bundle.teacher(frozen, torch.cat([noisy, noisy]),
+                                      torch.cat([timesteps, timesteps]),
+                                      _merge_cond(cond, uncond))
+                cond_out, uncond_out = both.chunk(2)
+        teacher_v = cfg_combine(cond_out, uncond_out, w)
+        x_prev = solver.euler_step(noisy, teacher_v, index)
 
-    with _no_grad_fwd_ctx(cfg):
-        target_out = bundle.student(frozen, lora, x_prev, timesteps_prev, cond)
-    target, end_index = solver.multiphase_pred(x_prev, target_out, index, cfg.multiphase,
-                                               is_target=True)
+    with profiling.span("target"):
+        with _no_grad_fwd_ctx(cfg):
+            target_out = bundle.student(frozen, lora, x_prev, timesteps_prev, cond)
+        target, end_index = solver.multiphase_pred(x_prev, target_out, index, cfg.multiphase,
+                                                   is_target=True)
     return dict(latents=latents, noise=noise, index=index, timesteps=timesteps,
                 timesteps_prev=timesteps_prev, noisy=noisy, w=w, cond=cond, uncond=uncond,
                 x_prev=x_prev, target=target, end_index=end_index)
@@ -272,15 +308,11 @@ def build_flow_distill_step(bundle, schedule: FlowSchedule, cfg: DistillConfig, 
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         def grad_fn(mb, dr):
             parts = flow_prepare(bundle, schedule, solver, cfg, frozen, state.params, mb, dr)
-            lora = {k: p.detach().requires_grad_(True) for k, p in state.params.items()}
-            with torch.enable_grad():
-                model_pred = flow_model_pred(bundle, schedule, solver, cfg, frozen, lora, parts)
-                loss = consistency_loss(model_pred, parts["target"], cfg.loss_type, cfg.huber_c)
-                grads = torch.autograd.grad(loss, list(lora.values()))
-            return loss.detach(), dict(zip(lora, grads))
+            return student_grads(
+                lambda lora: flow_model_pred(bundle, schedule, solver, cfg, frozen, lora, parts),
+                parts["target"], state.params, cfg)
 
         loss, grads = accumulate_grads(grad_fn, batch, draws, grad_accum_steps)
-        new_state = apply_updates(state, grads, tx)
-        return new_state, {"loss": loss, "grad_norm": global_norm(grads)}
+        return optimizer_step(state, loss, grads, tx)
 
     return step

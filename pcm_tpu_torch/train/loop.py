@@ -25,6 +25,28 @@ conversion and pinning), ``save_s`` (the step thread in `save`),
 ``save_wait_s`` (of it, waiting for the write before) and ``write_s`` (the
 last finished write's seconds on the writer thread).
 
+The row also holds the program's spans since the row before
+(`utils/profiling.py`), which tile the step: the Trainer's ``data`` (the wait
+for a batch and its copy to the device), ``draws``, ``call`` (the step call)
+and ``readback``, and inside a consistency step's call (`train/distill.py`)
+its phases ``teacher`` (noising, the CFG teacher forward, the solver step),
+``target`` (the target forward and its jump), ``student.forward`` (through
+the loss), ``student.backward`` and ``optimizer`` (the microbatches' mean,
+the all-reduce, clipping, the norm, the update). Each gives
+``<span>_host_s`` (host seconds) and, on the card, ``<span>_device_s`` (the
+card's seconds from reaching the span to leaving it, idle included) and,
+on steps that follow a readback, ``<span>_lead_s`` (how far the card's end
+of the span trailed the host's, at its last close: the card's end maps onto
+the host clock through the anchor recorded after the readback before), with
+dots as underscores (``student_forward_host_s``). ``step_device_s`` is the
+card's time from that anchor to the end of the readback: the steps' time on
+the card. ``host_wait_s`` / ``host_waits`` are the seconds and number of the
+``wait.<site>`` spans, each around a place where the host blocks until the
+card has drained its queue (a pageable copy to the card, a host-group
+all-reduce); ``attn_device_s`` / ``attn_calls`` those of the ``attention``
+spans (`ops/flash_attention.py`: each forward, recomputed ones included,
+and each backward).
+
 Every ``validation_steps`` global steps ``validation_fn(frozen, lora,
 step)`` returns tagged image batches in [-1, 1] (``{"cfg1": ..., "cfg7.5":
 ...}``), logged as 4-column grids ``images/validation/<tag>_<step>.png``
@@ -84,6 +106,7 @@ import torch
 
 from ..lora.kohya import save_kohya_safetensors
 from ..parallel import mesh
+from ..utils import profiling
 from ..utils.logging import MetricsLogger
 from ..utils.threads import prefetch_thread
 from .distill import DistillConfig, sample_draws, split_microbatches
@@ -226,6 +249,29 @@ def _replicated(state: Optional[TrainState]) -> Optional[TrainState]:
         return None
     return dataclasses.replace(state, **mesh.replicate({"params": state.params,
                                                         "opt_state": state.opt_state}))
+
+
+def _span_row(taken: Dict) -> Dict[str, float]:
+    """Row keys of `profiling.take`'s sums (the module docstring's list)."""
+    row, spans = {}, taken["spans"]
+    waits = [v for k, v in spans.items() if k.startswith(profiling.WAIT)]
+    row["host_wait_s"] = sum(v["host_s"] for v in waits)
+    row["host_waits"] = sum(v["calls"] for v in waits)
+    attn = spans.get("attention", {"calls": 0})
+    row["attn_calls"] = attn["calls"]
+    if "device_s" in attn:
+        row["attn_device_s"] = attn["device_s"]
+    for name, v in spans.items():
+        if name == "attention" or name.startswith(profiling.WAIT):
+            continue
+        key = name.replace(".", "_")
+        row[key + "_host_s"] = v["host_s"]
+        for part in ("device_s", "lead_s"):
+            if part in v:
+                row[f"{key}_{part}"] = v[part]
+    if taken["device_s"] is not None:
+        row["step_device_s"] = taken["device_s"]
+    return row
 
 
 class Trainer:
@@ -447,12 +493,15 @@ class Trainer:
                 self._stop_requested = True
                 break
             t0 = time.perf_counter()
-            batch = self._next_batch(feed, extra_batch)
+            with profiling.span("data"):
+                batch = self._next_batch(feed, extra_batch)
             t1 = time.perf_counter()
             t_data += t1 - t0
-            draws = split_microbatches(self._draws(batch), self.accum)
-            self.state, self.d_state, metrics, counted = self.step(
-                self.state, self.d_state, self.frozen, batch, draws, self.global_step)
+            with profiling.span("draws"):
+                draws = split_microbatches(self._draws(batch), self.accum)
+            with profiling.span("call"):
+                self.state, self.d_state, metrics, counted = self.step(
+                    self.state, self.d_state, self.frozen, batch, draws, self.global_step)
             self.global_step += counted
             t_dispatch += time.perf_counter() - t1
 
@@ -461,15 +510,19 @@ class Trainer:
                 if d is not None:
                     metrics = dict(metrics, prodigy_d=d)
                 tf = time.perf_counter()
-                row = {k: float(v) for k, v in metrics.items()}  # readback: a device sync
+                with profiling.span("readback"):
+                    row = {k: float(v) for k, v in metrics.items()}  # a device sync
                 now = time.perf_counter()
+                spans = profiling.take()
+                profiling.anchor()  # the card has nothing queued
                 row["step_ms"] = (now - t_last) * 1000.0 / (self.global_step - step_last)
                 t_last, step_last = now, self.global_step
                 if self.device.type == "cuda":
                     row["peak_gib"] = torch.cuda.max_memory_allocated(self.device) / 2 ** 30
                 row.update(host_data_s=t_data, host_dispatch_s=t_dispatch, fence_s=now - tf,
                            feed_iter_s=self._feed_iter_s, feed_put_s=self._feed_put_s,
-                           save_s=t_save, save_wait_s=t_wait, write_s=self.writer.seconds)
+                           save_s=t_save, save_wait_s=t_wait, write_s=self.writer.seconds,
+                           **_span_row(spans))
                 self._feed_iter_s = self._feed_put_s = t_data = t_dispatch = t_save = 0.0
                 t_wait = 0.0
                 self.logger.log(self.global_step, row)
@@ -492,6 +545,8 @@ class Trainer:
                     and self.global_step % cfg.validation_steps == 0):
                 seconds = self._validate()
                 t_last += seconds  # step_ms leaves validation out
+                profiling.take()  # and the spans leave out the sampler's
+                profiling.anchor()
                 row = {"validation_s": seconds}
                 if self.device.type == "cuda":
                     row["peak_gib"] = torch.cuda.max_memory_allocated(self.device) / 2 ** 30

@@ -10,8 +10,10 @@ on the serving CLI's 100-point grid), warms up one student batch (seeded
 adapter, guidance 1.0) and one teacher batch (guidance 7.5; SD3's recipes'
 3.0), then traces one more of each with ``torch.profiler``. For each it prints
 the host wall time, the summed kernel time by category (the port's three
-kernels, GEMMs, convolutions, the rest), the device idle share
-(1 - kernel time / wall), and the top kernels by device time.
+kernels, GEMMs, convolutions, the rest), the device idle share (1 - the
+union of the device operations' intervals on the profiler's timeline / the
+traced window: kernels that overlap count once), and the top kernels by
+device time.
 """
 
 import argparse
@@ -42,6 +44,22 @@ def category(name: str) -> str:
     return "other"
 
 
+def busy_us(prof) -> float:
+    """Microseconds of the union of the device operations' intervals in
+    ``prof`` (kernels, copies, sets; not the device-side spans of
+    ``record_function`` scopes)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    covered, end = 0.0, None
+    for s, e in spans:
+        if end is None or s > end:
+            covered, end = covered + e - s, e
+        elif e > end:
+            covered, end = covered + e - end, e
+    return covered
+
+
 def trace(fn, label: str):
     """Profiles one call of ``fn``, prints its summary and returns the profile."""
     torch.cuda.synchronize()
@@ -57,8 +75,9 @@ def trace(fn, label: str):
     for e in kernels:
         by_cat[category(e.key)] += e.self_device_time_total / 1000
     busy = sum(by_cat.values())
-    print(f"== {label}: wall {wall_ms:.1f} ms, kernel time {busy:.1f} ms, "
-          f"device idle share {max(0.0, 1 - busy / wall_ms):.3f}")
+    union_ms = busy_us(prof) / 1000
+    print(f"== {label}: wall {wall_ms:.1f} ms, kernel time {busy:.1f} ms, device busy "
+          f"{union_ms:.1f} ms, device idle share {1 - union_ms / wall_ms:.3f}")
     for cat, ms in by_cat.most_common():
         print(f"   {cat:20s} {ms:9.2f} ms  {ms / busy:6.1%}")
     print("   top kernels:")

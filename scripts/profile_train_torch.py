@@ -27,7 +27,10 @@ and times ``--steps`` steps on the host clock
 but the first two, and the peak memory. Then it traces one more step with
 ``torch.profiler``: host wall time, summed kernel time by category (the
 port's kernels, GEMMs, convolutions, the rest), the device idle share and
-the top kernels, as `profile_serve_torch.py` prints them for serving, and
+the top kernels, as `profile_serve_torch.py` prints them for serving, the
+program's spans of that step (`pcm_tpu_torch/utils/profiling.py`: calls,
+host, self, device and lead ms by span, the lead against the anchor recorded
+after the step before), and
 the device time of the kernels that GroupNorm's backward (autograd of its
 plain version, no kernel of its own) launches, under a
 ``torch.profiler.record_function`` scope put around
@@ -123,6 +126,18 @@ def bound_tally():
 GN_BWD_SCOPE = "K4 group norm backward (plain autograd)"
 
 
+def print_spans(taken, label: str) -> None:
+    """The program's spans of `profiling.take`, longest on the card first."""
+    spans = sorted(taken["spans"].items(), key=lambda kv: -kv[1].get("device_s", 0.0))
+    print(f"== {label}: the program's spans (ms; card time from the anchor "
+          f"{1000 * (taken['device_s'] or 0.0):.1f})")
+    print(f"   {'span':24s} {'calls':>5s} {'host':>9s} {'self':>9s} {'device':>9s} {'lead':>9s}")
+    for name, v in spans:
+        cells = [f"{1000 * v[k]:9.2f}" if k in v else f"{'-':>9s}"
+                 for k in ("host_s", "self_s", "device_s", "lead_s")]
+        print(f"   {name:24s} {v['calls']:5d} " + " ".join(cells))
+
+
 @contextlib.contextmanager
 def gn_backward_scope():
     """`GroupNormSiLUFn.backward` inside a profiler scope named
@@ -175,6 +190,7 @@ def main() -> None:
     from pcm_tpu_torch.train.distill import (build_ddim_distill_step, build_flow_distill_step,
                                              sample_draws)
     from pcm_tpu_torch.train.state import TrainState, make_optimizer
+    from pcm_tpu_torch.utils import profiling
     from pcm_tpu_torch.utils.quant import int8_matmul, quantize_frozen
 
     dev = torch.device("cuda")
@@ -291,8 +307,11 @@ def main() -> None:
         print(f"== {label}: step ms {[round(t, 1) for t in times]}, steady median "
               f"{statistics.median(times[2:]):.1f} ms, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        profiling.take()  # the last step ended in a readback: the card has nothing queued
+        profiling.anchor()
         with gn_backward_scope():
             prof = trace(one_step, label)
+        print_spans(profiling.take(), label)
         # the scope's host-side event sums its kernels' device time; its
         # device-side span runs from its first kernel's start to its last one's end
         scope = {e.device_type: e for e in prof.key_averages() if e.key == GN_BWD_SCOPE}
