@@ -55,7 +55,7 @@ from ..models.normalization import GroupNorm
 from ..utils import profiling
 from .distill import (Draws, DistillConfig, _merge_cond, accumulate_grads, ddim_model_pred,
                       ddim_prepare, flow_model_pred, flow_prepare)
-from .state import TrainState, apply_updates, global_norm
+from .state import TrainState, apply_updates
 
 Features = Dict[str, torch.Tensor]
 Params = Dict[str, torch.Tensor]
@@ -291,8 +291,8 @@ def _adv_steps(bundle, fam: _Family, cfg: DistillConfig, adv: AdvConfig, disc: D
             return (loss.detach(), cm.detach(), g.detach()), dict(zip(lora, grads))
 
         (loss, cm, g), grads = accumulate_grads(grad_fn, batch, draws, grad_accum_steps)
-        return apply_updates(g_state, grads, tx_g), {
-            "loss": loss, "loss_cm": cm, "g_loss": g, "grad_norm": global_norm(grads)}
+        new = apply_updates(g_state, grads, tx_g)
+        return new, {"loss": loss, "loss_cm": cm, "g_loss": g, "grad_norm": new.grad_norm}
 
     def d_step(g_state: TrainState, d_state: TrainState, frozen, batch, draws: Sequence[Draws]):
         def grad_fn(mb, dr):
@@ -311,8 +311,8 @@ def _adv_steps(bundle, fam: _Family, cfg: DistillConfig, adv: AdvConfig, disc: D
             return loss.detach(), dict(zip(dp, grads))
 
         loss, grads = accumulate_grads(grad_fn, batch, draws, grad_accum_steps)
-        return apply_updates(d_state, grads, tx_d), {"d_loss": loss,
-                                                     "d_grad_norm": global_norm(grads)}
+        new = apply_updates(d_state, grads, tx_d)
+        return new, {"d_loss": loss, "d_grad_norm": new.grad_norm}
 
     return g_step, d_step
 
@@ -348,10 +348,11 @@ def _adv_fused_pair(bundle, fam: _Family, cfg: DistillConfig, adv: AdvConfig,
 
         (cm, g, d), (g_grads, d_grads) = accumulate_grads(grad_fn, batch, draws,
                                                           grad_accum_steps)
+        g_new = apply_updates(g_state, g_grads, tx_g)
+        d_new = apply_updates(d_state, d_grads, tx_d)
         metrics = {"loss": cm + adv.adv_weight * g, "loss_cm": cm, "g_loss": g, "d_loss": d,
-                   "grad_norm": global_norm(g_grads), "d_grad_norm": global_norm(d_grads)}
-        return (apply_updates(g_state, g_grads, tx_g), apply_updates(d_state, d_grads, tx_d),
-                metrics)
+                   "grad_norm": g_new.grad_norm, "d_grad_norm": d_new.grad_norm}
+        return g_new, d_new, metrics
 
     return pair_step
 

@@ -41,7 +41,7 @@ from ..core.solver import PhasedDDIMSolver, PhasedEulerSolver, boundary_scalings
 from ..parallel.mesh import all_reduce_mean, data_group
 from ..utils import profiling
 from ..utils.quant import int8_matmul
-from .state import TrainState, apply_updates, global_norm
+from .state import TrainState, apply_updates
 
 Draws = Dict[str, torch.Tensor]
 
@@ -247,7 +247,7 @@ def optimizer_step(state: TrainState, loss: torch.Tensor, grads, tx
     """The update and the step's metrics, in the ``optimizer`` span."""
     with profiling.span("optimizer"):
         new_state = apply_updates(state, grads, tx)
-        return new_state, {"loss": loss, "grad_norm": global_norm(grads)}
+        return new_state, {"loss": loss, "grad_norm": new_state.grad_norm}
 
 
 # ---------------------------------------------------------------------------

@@ -45,7 +45,10 @@ the card. ``host_wait_s`` / ``host_waits`` are the seconds and number of the
 card has drained its queue (a pageable copy to the card, a host-group
 all-reduce); ``attn_device_s`` / ``attn_calls`` those of the ``attention``
 spans (`ops/flash_attention.py`: each forward, recomputed ones included,
-and each backward).
+and each backward). The counters follow under their own names:
+``optimizer_flat_leaves``, the leaves AdamW updated through its flat vector
+(`train/state.py`; summed over the updates: the adapter's leaf count a
+consistency step).
 
 Every ``validation_steps`` global steps ``validation_fn(frozen, lora,
 step)`` returns tagged image batches in [-1, 1] (``{"cfg1": ..., "cfg7.5":
@@ -271,6 +274,7 @@ def _span_row(taken: Dict) -> Dict[str, float]:
                 row[f"{key}_{part}"] = v[part]
     if taken["device_s"] is not None:
         row["step_device_s"] = taken["device_s"]
+    row.update(taken["counts"])
     return row
 
 

@@ -28,7 +28,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from .state import clip_by_global_norm
+from .state import clip_flat, flatten, unflatten
 
 Params = Dict[str, torch.Tensor]
 D0 = 1e-6  # the initial distance estimate
@@ -58,8 +58,11 @@ class Prodigy:
                 "d_numerator": torch.zeros((), dtype=torch.float32, device=device)}
 
     def update(self, grads: Params, state: Dict[str, Any], params: Params
-               ) -> Tuple[Params, Dict[str, Any]]:
-        grads = {k: g.float() for k, g in clip_by_global_norm(grads, self.max_grad_norm).items()}
+               ) -> Tuple[Params, Dict[str, Any], torch.Tensor]:
+        """The new parameters, the new state and the grads' global norm
+        before clipping (as `state.AdamW.update`)."""
+        flat, norm = clip_flat(flatten(grads), self.max_grad_norm)
+        grads = unflatten(flat, grads)
         b1, b2 = self.b1, self.b2
         b3 = float(b2) ** 0.5
         d = state["d"]
@@ -75,15 +78,15 @@ class Prodigy:
         positive = d_denom > 0.0
         d_hat = d_numerator / torch.where(positive, d_denom, 1.0)
         new_d = torch.where(positive, torch.maximum(d, d_hat), d)
-        updates = {}
+        new_params = {}
         for k, m in exp_avg.items():
             u = -dlr * m / (torch.sqrt(exp_avg_sq[k]) + d * self.eps)
             if self.weight_decay:
                 u = u - dlr * self.weight_decay * params[k].float()
-            updates[k] = u.to(params[k].dtype)
-        return updates, {"count": state["count"] + 1, "exp_avg": exp_avg,
-                         "exp_avg_sq": exp_avg_sq, "s": s, "p0": state["p0"], "d": new_d,
-                         "d_numerator": d_numerator}
+            new_params[k] = params[k] + u.to(params[k].dtype)
+        return new_params, {"count": state["count"] + 1, "exp_avg": exp_avg,
+                            "exp_avg_sq": exp_avg_sq, "s": s, "p0": state["p0"], "d": new_d,
+                            "d_numerator": d_numerator}, norm
 
 
 def prodigy_d(opt_state: Dict[str, Any]) -> Optional[torch.Tensor]:

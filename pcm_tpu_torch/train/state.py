@@ -15,6 +15,17 @@ and the JAX package update the same parameters to the same values:
 
 The updates are functional: ``update`` returns new tensors and a new state,
 as optax does; nothing is modified in place.
+
+AdamW runs over one flat fp32 vector, not leaf by leaf: the grads, the
+parameters and both moments are each gathered into one vector by one
+``torch.cat`` (`flatten`), every step of the update is one tensor op on the
+vectors, and the new parameters and moments come back as leaf-shaped views
+of the new vectors (`unflatten`). The ops an update launches do not grow
+with the number of leaves (SD3's adapter has 290, SDXL's 1576). Each leaf
+starts at a multiple of `ALIGN` elements, as a fresh allocation would, for
+the kernels that take a leaf's pointer (the heads' fp32 GroupNorm); the gaps
+hold zeros, which every step keeps zero. The 8-bit moments stay per leaf
+(their blocks are a leaf's); their clip and update go through the vector.
 """
 
 from __future__ import annotations
@@ -26,9 +37,11 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .optim8bit import adam8bit_init, adam8bit_moments
 
 Params = Dict[str, torch.Tensor]
+ALIGN = 64  # elements: where each leaf starts in a flat vector (256 bytes in fp32)
 
 
 @dataclasses.dataclass
@@ -36,25 +49,57 @@ class TrainState:
     step: int
     params: Params  # fp32 LoRA factors
     opt_state: Dict[str, Any]
+    # the global norm of the grads before clipping, of the update that made
+    # this state (None for a state no update made); not saved
+    grad_norm: Optional[torch.Tensor] = None
 
     @classmethod
     def create(cls, params: Params, tx: "AdamW") -> "TrainState":
         return cls(step=0, params=params, opt_state=tx.init(params))
 
 
-def global_norm(tree: Params) -> torch.Tensor:
-    """sqrt of the sum of squares over every leaf, in fp32 (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree.values()))
+def flatten(tree: Params) -> torch.Tensor:
+    """Every leaf of ``tree``, in the dict's order and each flattened by its
+    shape (a channels-last leaf in logical order too), as one fp32 vector:
+    one ``torch.cat``. Each leaf starts at a multiple of `ALIGN`; the gaps
+    are zero."""
+    leaves = [t.reshape(-1) for t in tree.values()]
+    gap = torch.zeros(ALIGN, dtype=leaves[0].dtype, device=leaves[0].device)
+    parts = []
+    for t in leaves:
+        parts.append(t)
+        rest = -t.numel() % ALIGN
+        if rest:
+            parts.append(gap[:rest])
+    return torch.cat(parts).float()
+
+
+def unflatten(flat: torch.Tensor, like: Params) -> Params:
+    """The leaves of a `flatten`ed vector, as views shaped like ``like``'s."""
+    sizes = []
+    for t in like.values():
+        sizes += [t.numel(), -t.numel() % ALIGN]
+    chunks = torch.split(flat, sizes)
+    return {k: chunks[2 * i].view(t.shape) for i, (k, t) in enumerate(like.items())}
+
+
+def clip_flat(flat: torch.Tensor, max_norm: Optional[float]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """optax.clip_by_global_norm over a `flatten`ed vector of every grad:
+    ``g / norm * max_norm`` where ``norm >= max_norm``, as a select on the
+    device (None: unclipped). Returns the vector and the global norm before
+    clipping, one reduction."""
+    norm = torch.sqrt(torch.sum(torch.square(flat)))  # vector_norm sums less exactly on a CPU
+    if max_norm is None:
+        return flat, norm
+    return torch.where(norm < max_norm, flat, (flat / norm) * max_norm), norm
 
 
 def clip_by_global_norm(grads: Params, max_norm: Optional[float]) -> Params:
-    """optax.clip_by_global_norm: ``g / norm * max_norm`` where ``norm >=
-    max_norm``, as a select on the device (None: unclipped)."""
+    """`clip_flat` over a dict of grads (fp32 leaves; None: unclipped)."""
     if max_norm is None:
         return grads
-    norm = global_norm(grads)
-    keep = norm < max_norm
-    return {k: torch.where(keep, g, (g / norm) * max_norm) for k, g in grads.items()}
+    return unflatten(clip_flat(flatten(grads), max_norm)[0], grads)
 
 
 def bias_corrections(b1: float, b2: float, count: int) -> Tuple[float, float]:
@@ -117,24 +162,31 @@ class AdamW:
         return clip_by_global_norm(grads, self.max_grad_norm)
 
     def update(self, grads: Params, state: Dict[str, Any], params: Params
-               ) -> Tuple[Params, Dict[str, Any]]:
-        grads = self.clip(grads)
+               ) -> Tuple[Params, Dict[str, Any], torch.Tensor]:
+        """The new parameters (``params + updates``, added on the flat
+        vector, where optax returns the updates), the new state and the
+        grads' global norm before clipping."""
+        profiling.count("optimizer_flat_leaves", len(grads))
+        g, norm = clip_flat(flatten(grads), self.max_grad_norm)
         count = state["count"] + 1
         c1, c2 = bias_corrections(self.b1, self.b2, count)
         if self.use_8bit:
-            steps, mu, nu = adam8bit_moments(grads, state["mu"], state["nu"], c1, c2,
-                                             self.b1, self.b2, self.eps)
+            steps, mu, nu = adam8bit_moments(unflatten(g, grads), state["mu"], state["nu"],
+                                             c1, c2, self.b1, self.b2, self.eps)
+            del g
+            step = flatten(steps)
+            del steps
         else:
-            mu, nu, steps = {}, {}, {}
-            for k, g in grads.items():
-                g = g.float()
-                mu[k] = (1 - self.b1) * g + self.b1 * state["mu"][k]
-                nu[k] = (1 - self.b2) * (g * g) + self.b2 * state["nu"][k]
-                steps[k] = (mu[k] / c1) / (torch.sqrt(nu[k] / c2) + self.eps)
+            mu_f = (1 - self.b1) * g + self.b1 * flatten(state["mu"])
+            nu_f = (1 - self.b2) * (g * g) + self.b2 * flatten(state["nu"])
+            del g
+            step = (mu_f / c1) / (torch.sqrt(nu_f / c2) + self.eps)
+            mu, nu = unflatten(mu_f, params), unflatten(nu_f, params)
+        p = flatten(params)
         if self.weight_decay:
-            steps = {k: s + self.weight_decay * params[k] for k, s in steps.items()}
-        step_size = -self.lr(state["count"])
-        return {k: s * step_size for k, s in steps.items()}, {"count": count, "mu": mu, "nu": nu}
+            step = step + self.weight_decay * p
+        new = p + step * -self.lr(state["count"])
+        return unflatten(new, params), {"count": count, "mu": mu, "nu": nu}, norm
 
 
 def make_optimizer(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -157,7 +209,8 @@ def make_optimizer(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1
 
 
 def apply_updates(state: TrainState, grads: Params, tx: AdamW) -> TrainState:
-    """One optimizer step: params + updates, step + 1."""
-    updates, opt_state = tx.update(grads, state.opt_state, state.params)
-    params = {k: p + updates[k] for k, p in state.params.items()}
-    return TrainState(step=state.step + 1, params=params, opt_state=opt_state)
+    """One optimizer step: params + updates, step + 1, and the grads' norm
+    before clipping as ``grad_norm``."""
+    params, opt_state, norm = tx.update(grads, state.opt_state, state.params)
+    return TrainState(step=state.step + 1, params=params, opt_state=opt_state,
+                      grad_norm=norm)

@@ -429,7 +429,7 @@ class _Grads:
 
     def update(self, grads, state, params):
         self.grads = grads
-        return {k: torch.zeros_like(g) for k, g in grads.items()}, state
+        return dict(params), state, torch.zeros(())
 
 
 def test_fused_pair_grads_equal_unfused_steps(sd15_adv):

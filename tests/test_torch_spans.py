@@ -226,7 +226,8 @@ def _rows(out):
 @pytest.mark.parametrize("family", ["sd3", "sdxl"])
 def test_trainer_rows_hold_the_spans(tmp_path, monkeypatch, family):
     """Three steps: every row has each Trainer span's and each phase's host
-    seconds, the waits, the attention calls and no device keys (CPU); a step
+    seconds, the waits, the attention calls, the adapter's leaves through the
+    optimizer's flat vector and no device keys (CPU); a step
     after the first waits ``WAITS[family]`` times (the first also copies the
     solver's tables); the losses and the final adapter are bit-equal to the
     same run with every span a ``nullcontext``: the spans change no number."""
@@ -241,6 +242,7 @@ def test_trainer_rows_hold_the_spans(tmp_path, monkeypatch, family):
             assert f"{name}_device_s" not in row and f"{name}_lead_s" not in row
         assert "step_device_s" not in row and "attn_device_s" not in row
         assert row["attn_calls"] == rows[0]["attn_calls"] > 0
+        assert row["optimizer_flat_leaves"] == len(trainer.state.params) > 0
         assert 0 < row["host_wait_s"] <= row["host_dispatch_s"]
         phases = sum(row[f"{p}_host_s"] for p in PHASES)
         assert phases <= row["call_host_s"] <= row["host_dispatch_s"]

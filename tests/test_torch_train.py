@@ -11,6 +11,8 @@ of summation), params after the update 1e-5 (Adam's eps raised to 1e-2 for
 this, see the test).
 """
 
+import collections
+import copy
 import dataclasses
 import subprocess
 import sys
@@ -40,8 +42,9 @@ from pcm_tpu_torch.core import losses, solver
 from pcm_tpu_torch.core.schedule import make_ddpm_schedule
 from pcm_tpu_torch.models import convert
 from pcm_tpu_torch.train import distill
-from pcm_tpu_torch.train.optim8bit import BLOCK
-from pcm_tpu_torch.train.state import TrainState, apply_updates, make_optimizer
+from pcm_tpu_torch.train.optim8bit import BLOCK, adam8bit_moments
+from pcm_tpu_torch.train.state import (TrainState, apply_updates, bias_corrections,
+                                       make_optimizer)
 from torch_port_helpers import random_params, rel_max
 
 
@@ -125,6 +128,31 @@ def _opt_params(rng):
             "c": rng.standard_normal((4, 8, 3, 3), dtype=np.float32)}
 
 
+def _lora_params(rng, pairs=150, rank=4):
+    """300 LoRA-shaped leaves, ``(r, in)`` and ``(out, r)``, of widths 320
+    and 250 (a leaf a multiple of 64 elements, or not), the first a 3x3
+    conv's factor ``(r, in, 3, 3)``."""
+    params = {}
+    for i in range(pairs):
+        width = 320 if i % 2 else 250
+        a = (rank, 32, 3, 3) if i == 0 else (rank, width)
+        params[f"m{i:03d}.lora_a"] = rng.standard_normal(a, dtype=np.float32) * 0.1
+        params[f"m{i:03d}.lora_b"] = rng.standard_normal((width, rank), dtype=np.float32) * 0.1
+    return params
+
+
+def _torch_grads(grads):
+    """The grads as torch tensors; of a conv factor channels-last, and of
+    the second ``(r, in)`` leaf a transposed view, as autograd may give them."""
+    out = {k: t(g) for k, g in grads.items()}
+    a = [k for k, g in grads.items() if k.endswith("lora_a")]
+    if len(a) > 1:
+        out[a[0]] = out[a[0]].contiguous(memory_format=torch.channels_last)
+        out[a[1]] = torch.from_numpy(np.ascontiguousarray(grads[a[1]].T)).T
+        assert not out[a[0]].is_contiguous() and not out[a[1]].is_contiguous()
+    return out
+
+
 def _adam_state(node):
     """The (count, mu, nu) node of an optax chain state."""
     if hasattr(node, "mu") and hasattr(node, "nu"):
@@ -136,15 +164,24 @@ def _adam_state(node):
     return None
 
 
-@pytest.mark.parametrize("use_8bit", [False, True], ids=["adamw", "adamw8bit"])
-@pytest.mark.parametrize("kw", [dict(), dict(warmup_steps=2, weight_decay=0.01),
-                                dict(warmup_steps=1, schedule="cosine", total_steps=6)],
-                         ids=["constant", "warmup_decay", "cosine"])
-def test_optimizer_matches_optax(use_8bit, kw):
+OPT_KW = {"constant": dict(), "warmup_decay": dict(warmup_steps=2, weight_decay=0.01),
+          "cosine": dict(warmup_steps=1, schedule="cosine", total_steps=6)}
+
+
+@pytest.mark.parametrize("kw,use_8bit,leaves", [
+    pytest.param(kw, use_8bit, _opt_params, id=f"{name}-adamw{'8bit' * use_8bit}")
+    for name, kw in OPT_KW.items() for use_8bit in (False, True)] + [
+    pytest.param(kw, False, _lora_params, id=f"{name}-lora300-adamw")
+    for name, kw in OPT_KW.items()])
+def test_optimizer_matches_optax(use_8bit, kw, leaves):
     """Five updates on the same gradients, clipping active on some of them:
-    params to 1e-6, and the 8-bit moments' int8 codes equal in >= 99.9 %."""
+    params to 1e-6, and the 8-bit moments' int8 codes equal in >= 99.9 %.
+    Three leaves of odd sizes, or 300 LoRA factors with a channels-last and
+    a transposed grad among them (fp32 moments: over 300 leaves a rare
+    flipped 8-bit code moves an entry by up to 0.2 lr against optax's, with
+    the moments leaf by leaf as before the flat vector too)."""
     rng = np.random.default_rng(1)
-    params = _opt_params(rng)
+    params = leaves(rng)
     jtx = jax_make_optimizer(1e-2, use_8bit=use_8bit, **kw)
     ptx = make_optimizer(1e-2, use_8bit=use_8bit, **kw)
     jstate = jtx.init({k: jnp.asarray(v) for k, v in params.items()})
@@ -152,11 +189,13 @@ def test_optimizer_matches_optax(use_8bit, kw):
     pstate = TrainState.create({k: t(v) for k, v in params.items()}, ptx)
     for i in range(5):
         scale = 3.0 if i % 2 else 0.01  # global norm above / below max_grad_norm = 1
+        if leaves is _lora_params:
+            scale /= 20  # as many leaves: the same norms
         grads = {k: rng.standard_normal(v.shape, dtype=np.float32) * scale
                  for k, v in params.items()}
         upd, jstate = jtx.update({k: jnp.asarray(g) for k, g in grads.items()}, jstate, jparams)
         jparams = {k: jparams[k] + upd[k] for k in jparams}
-        pstate = apply_updates(pstate, {k: t(g) for k, g in grads.items()}, ptx)
+        pstate = apply_updates(pstate, _torch_grads(grads), ptx)
     assert pstate.step == 5 and pstate.opt_state["count"] == 5
     for k in params:
         ours, ref = pstate.params[k].numpy(), np.asarray(jparams[k])
@@ -195,6 +234,102 @@ def test_warmup_first_update_uses_zero_lr():
     assert torch.equal(state.params["a"], torch.ones(3))
     state = apply_updates(state, {"a": torch.ones(3)}, tx)
     assert not torch.equal(state.params["a"], torch.ones(3))
+
+
+def _per_leaf(tx, grads, state):
+    """AdamW leaf by leaf, as optax's formulas (no clip): the new params and
+    moments."""
+    count = state.opt_state["count"] + 1
+    c1, c2 = bias_corrections(tx.b1, tx.b2, count)
+    if tx.use_8bit:
+        steps, mu, nu = adam8bit_moments(grads, state.opt_state["mu"], state.opt_state["nu"],
+                                         c1, c2, tx.b1, tx.b2, tx.eps)
+    else:
+        steps, mu, nu = {}, {}, {}
+        for k, g in grads.items():
+            mu[k] = (1 - tx.b1) * g + tx.b1 * state.opt_state["mu"][k]
+            nu[k] = (1 - tx.b2) * (g * g) + tx.b2 * state.opt_state["nu"][k]
+            steps[k] = (mu[k] / c1) / (torch.sqrt(nu[k] / c2) + tx.eps)
+    lr = -tx.lr(state.opt_state["count"])
+    params = {k: p + (steps[k] + tx.weight_decay * p) * lr for k, p in state.params.items()}
+    return params, mu, nu
+
+
+@pytest.mark.parametrize("use_8bit", [False, True], ids=["adamw", "adamw8bit"])
+def test_update_is_functional_and_keeps_the_layout(use_8bit):
+    """Two updates over 300 LoRA leaves (a channels-last and a transposed
+    grad among them), from a state of separate tensors, then from the views
+    the first returned: the grads and the old state are left as they were;
+    params, mu and nu keep their keys in order and each leaf its shape, in
+    fp32; each leaf equals AdamW's formulas leaf by leaf bit for bit (the
+    clip not acting), and ``grad_norm`` is the grads' global norm."""
+    rng = np.random.default_rng(3)
+    params = {k: t(v) for k, v in _lora_params(rng).items()}
+    tx = make_optimizer(1e-2, weight_decay=0.01, use_8bit=use_8bit)
+    state = TrainState.create(params, tx)
+    for _ in range(2):
+        grads = _torch_grads({k: rng.standard_normal(v.shape, dtype=np.float32) * 1e-3
+                              for k, v in params.items()})
+        before = copy.deepcopy((grads, state.params, state.opt_state))
+        new = apply_updates(state, grads, tx)
+        torch.testing.assert_close((grads, state.params, state.opt_state), before,
+                                   rtol=0, atol=0)
+        norm = float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in grads.values())))
+        assert 0.1 < norm < tx.max_grad_norm
+        assert abs(float(new.grad_norm) - norm) <= 1e-6 * norm
+        assert new.step == state.step + 1 and new.opt_state["count"] == state.opt_state["count"] + 1
+        want, want_mu, want_nu = _per_leaf(tx, grads, state)
+        trees = [new.params] if use_8bit else [new.params, new.opt_state["mu"], new.opt_state["nu"]]
+        for tree in trees:
+            assert list(tree) == list(params)
+            for k, p in params.items():
+                assert tree[k].shape == p.shape and tree[k].dtype == torch.float32, k
+        for k in params:
+            assert torch.equal(new.params[k], want[k]), k
+            for got, ref in ((new.opt_state["mu"][k], want_mu[k]),
+                             (new.opt_state["nu"][k], want_nu[k])):
+                for a, b in zip(got if use_8bit else (got,), ref if use_8bit else (ref,)):
+                    assert torch.equal(a, b), k
+        state = new
+
+
+@pytest.mark.parametrize("use_8bit", [False, True], ids=["adamw", "adamw8bit"])
+def test_update_launches_the_same_ops_at_any_leaf_count(use_8bit):
+    """The aten ops of one `apply_updates` (clip acting, weight decay on),
+    views left out (they launch nothing): the same count at 3 leaves and at
+    300, at most 40 with fp32 moments (the 8-bit moments stay per leaf, so
+    there only the clip and the update are held to the flat vector's count)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                self.ops[func.__name__] += 1
+            return func(*args, **(kwargs or {}))
+
+    counts = {}
+    for n in (3, 300):
+        rng = np.random.default_rng(n)
+        params = {f"m{i:03d}": t(rng.standard_normal((4, 320 if i % 2 else 250),
+                                                     dtype=np.float32)) for i in range(n)}
+        tx = make_optimizer(1e-2, weight_decay=0.01, use_8bit=use_8bit)
+        state = TrainState.create(params, tx)
+        grads = {k: 10 * t(rng.standard_normal(v.shape, dtype=np.float32))
+                 for k, v in params.items()}
+        with Ops() as ops:
+            apply_updates(state, grads, tx)
+        if use_8bit:  # less the moments' per-leaf ops
+            with Ops() as moments:
+                adam8bit_moments(grads, state.opt_state["mu"], state.opt_state["nu"],
+                                 *bias_corrections(tx.b1, tx.b2, 1), tx.b1, tx.b2, tx.eps)
+            ops.ops.subtract(moments.ops)
+        counts[n] = sum(ops.ops.values())
+    assert counts[3] == counts[300], counts
+    assert use_8bit or counts[300] <= 40, counts
 
 
 # ---------------------------------------------------------------------------

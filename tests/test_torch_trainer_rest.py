@@ -130,6 +130,29 @@ def test_prodigy_state_saves_and_resumes(tmp_path):
         train_main(_tiny(cache, tmp_path / "run", "--max-train-steps", "4"))
 
 
+@pytest.mark.parametrize("extra", [[], ["--use-8bit-adam"]], ids=["adamw", "adamw8bit"])
+def test_adamw_resume_continues_bit_equal(tmp_path, extra):
+    """Three AdamW steps in one run, and two then a resumed third: the same
+    loss, LoRA and optimizer state, bit for bit. The resumed update starts
+    from the checkpoint's separate tensors, the other from the views of the
+    flat vectors the update before returned. The cache holds one sample
+    twice, so every batch is the same (a resumed run starts the data order
+    anew, as the JAX loader does); the draws resume with the generator."""
+    cache = tmp_path / "cache"
+    cache.mkdir()
+    rng = np.random.default_rng(4)
+    np.savez(cache / "shard_00000.npz",
+             latents=np.repeat(rng.standard_normal((1, 8, 8, 4)).astype(np.float16), 2, 0),
+             prompt_embeds=np.repeat(rng.standard_normal((1, 77, 32)).astype(np.float16), 2, 0))
+    whole = train_main(_tiny(cache, tmp_path / "whole", *extra, "--max-train-steps", "3"))
+    train_main(_tiny(cache, tmp_path / "parts", *extra, "--max-train-steps", "2"))
+    resumed = train_main(_tiny(cache, tmp_path / "parts", *extra, "--max-train-steps", "3"))
+    assert resumed.resumed_from == 2 and resumed.state.opt_state["count"] == 3
+    torch.testing.assert_close(resumed.state.params, whole.state.params, rtol=0, atol=0)
+    torch.testing.assert_close(resumed.state.opt_state, whole.state.opt_state, rtol=0, atol=0)
+    assert _rows(tmp_path / "parts")[-1]["loss"] == _rows(tmp_path / "whole")[-1]["loss"]
+
+
 # ---------------------------------------------------------------------------
 # the loop: validation, the abort, asynchronous saves
 # ---------------------------------------------------------------------------
